@@ -57,12 +57,14 @@ from ..kernels import ops as kops
 from ..kernels.build import resolve_device
 from . import bitplane
 from .control_unit import (CMD_WIDTH, TABLE_CACHE, batched_interpreter,
-                           encode_uprogram, hetero_batched_interpreter,
-                           load_state, output_plane_rows, pad_command_table,
+                           encode_uprogram, faulty_batched_interpreter,
+                           hetero_batched_interpreter, load_state,
+                           output_plane_rows, pad_command_table,
                            read_outputs, shape_bucket, table_bucket)
 from .costmodel import critical_path_s, forwarding_saving_s, instr_cost_s
 from .energy import uprogram_energy_nj
-from .fault import FaultStats
+from .fault import (FaultRuntime, FaultStats, fault_guarded_dispatch,
+                    faulty_execute)
 from .isa import DispatchGuard, _round_up, check_cancel, compile_op
 from .telemetry import spec_as_dict
 from .timing import DDR4, DramConfig, fused_replay_latency_s
@@ -171,8 +173,9 @@ class BankStats:
     @property
     def total_latency_s(self) -> float:
         """Replay latency + the horizontal↔vertical conversions this path
-        actually paid (+ fault overhead, zero until the fault layer is
-        ported) — the end-to-end modeled wall-clock."""
+        actually paid + the fault layer's redundant replays and vote reads
+        (zero when injection is disabled) — the end-to-end modeled
+        wall-clock."""
         return self.latency_s + self.transpose_s + self.faults.overhead_s
 
     def as_dict(self) -> Dict[str, float]:
@@ -430,13 +433,20 @@ class Bank:
     stage-bucketed first-fit-decreasing packer; ``"greedy"`` closes one
     open wave as soon as an instruction does not fit.
 
+    ``fault`` attaches a :class:`~repro_torch.core.fault.FaultModel`
+    (``fault_seed`` namespaces its draws): dispatch then replicates lanes,
+    injects faults in the K6 replay, votes, retries and blacklists (see
+    :mod:`repro_torch.core.fault`).  A disabled model is dropped here and
+    costs nothing.
+
     ``device`` (default ``"cuda"``) is where states and tables live.
     """
 
     def __init__(self, n_subarrays: int = 4, cfg: DramConfig = DDR4,
                  style: str = "mig", engine: str = "interp",
                  fuse: bool = True, fuse_ratio: int = 32,
-                 packing: str = "reorder", device="cuda"):
+                 packing: str = "reorder", fault=None,
+                 fault_seed: Tuple[int, ...] = (), device="cuda"):
         if engine not in ("interp", "bitplane", "cuda"):
             raise ValueError(f"unknown engine {engine!r}")
         if fuse_ratio < 1:
@@ -450,11 +460,28 @@ class Bank:
         self.fuse = fuse
         self.fuse_ratio = fuse_ratio
         self.packing = packing
+        self.fault = fault if (fault is not None and fault.enabled) else None
+        self._blacklist: set = set()   # persistently-failing subarray ids
+        if self.fault is not None:
+            if not (engine == "interp" and fuse):
+                raise ValueError(
+                    "fault injection runs inside the fused interp replay; "
+                    "use engine='interp', fuse=True")
+            self._fault_rt = FaultRuntime(
+                self.fault, tuple(fault_seed), n_subarrays)
+        else:
+            self._fault_rt = None
         self.device = resolve_device(device)
         self.stats = BankStats(n_subarrays)
         self._guard = DispatchGuard(type(self).__name__)
         self._rr_next = 0     # round-robin allocation cursor (grouped path)
         self._lane_load = np.zeros(n_subarrays, np.int64)  # fused-slot loads
+
+    @property
+    def _wave_capacity(self) -> int:
+        """Subarrays a wave may still occupy: everything not blacklisted
+        by the fault layer (all of them while injection is off)."""
+        return self.n_subarrays - len(self._blacklist)
 
     # -- modeled-clock charges ---------------------------------------------
     def _pay_transpose(self, seconds: float) -> None:
@@ -604,12 +631,28 @@ class Bank:
         full batch replays its cached command table once (the grouped
         baseline).
 
+        With a :class:`~repro_torch.core.fault.FaultModel` attached, the
+        queue first replicates every lane across the spare columns, then
+        drains through the same fused path on the fault-injected replay
+        (K6) — detection, bounded retry, blacklist-and-repack, and
+        finally :class:`~repro_torch.core.fault.FaultExhaustedError` when
+        the redundancy budget runs out.
+
         ``cancel`` (optional zero-arg callable) is polled at wave
         boundaries; returning True aborts with
         :class:`~repro_torch.core.isa.DispatchCancelled`.  Concurrent
         calls on one engine raise ``RuntimeError``."""
         with self._guard:
-            return self._dispatch_core(list(queue), cancel=cancel)
+            queue = list(queue)
+            if self.fault is None or not queue:
+                return self._dispatch_core(queue, cancel=cancel)
+            return fault_guarded_dispatch(
+                self.fault, self.stats.faults, queue,
+                lambda q: self._dispatch_core(q, cancel=cancel),
+                self._blacklist_units, lambda: self._wave_capacity,
+                tier="bank",
+                blacklist_snapshot=lambda: tuple(
+                    (s,) for s in sorted(self._blacklist)))
 
     def _dispatch_core(self, queue: Sequence[BbopInstr],
                        cancel=None) -> List:
@@ -675,15 +718,7 @@ class Bank:
             states, tables, entries = self._pack_wave(
                 queue, wave, lanes, planes_cache)
             self.stats.pack_wall_s += time.perf_counter() - t_pack
-            # asynchronous on the card; the copy back goes to pinned
-            # memory right behind the replay, so the host can read wave
-            # k while wave k+1 replays
-            fut = run(states, tables)
-            done = None
-            if fut.is_cuda:
-                fut = fut.to("cpu", non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
+            fut, done = self._submit_wave(run, states, tables, entries)
             self._account_wave(
                 [(e.uprog, e.lanes, e.sid) for e in entries],
                 fused=len({(queue[i].op, queue[i].n_bits,
@@ -697,6 +732,35 @@ class Bank:
             pending = (entries, fut, done)
         if pending is not None:
             self._harvest_wave(queue, pending, planes_cache, needed, results)
+
+    def _submit_wave(self, run, states, tables, entries):
+        """Submit one packed wave for replay; returns ``(states, event)``.
+        Fault-free: asynchronous on the card, with the copy back to pinned
+        memory right behind the replay (so the host can read wave k while
+        wave k+1 replays) and an event that marks its end.  Fault-injected:
+        the synchronous detect/retry/heal loop
+        (:func:`~repro_torch.core.fault.faulty_execute`) over the K6
+        replay; its healed host states need no event."""
+        if self._fault_rt is None:
+            fut = run(states, tables)
+            if not fut.is_cuda:
+                return fut, None
+            fut = fut.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return fut, done
+        healed = faulty_execute(
+            self.fault, faulty_batched_interpreter(self.device), states,
+            tables, [((), entries, self._fault_rt)], self.stats.faults,
+            self.cfg)
+        return torch.from_numpy(healed.view(np.int32)), None
+
+    def _blacklist_units(self, units) -> int:
+        """Retire persistently-failing subarrays (``units`` are
+        ``(sid,)`` tuples); returns how many are newly blacklisted."""
+        new = {int(u[-1]) for u in units} - self._blacklist
+        self._blacklist |= new
+        return len(new)
 
     def _build_waves(self, queue, active, stage,
                      lanes: Optional[Sequence[int]] = None) -> List[List[int]]:
@@ -800,7 +864,7 @@ class Bank:
                 c, r = buckets(i)
                 if not wave:
                     wave, span = [i], [c, c, r, r]
-                elif (len(wave) < self.n_subarrays
+                elif (len(wave) < self._wave_capacity
                         and max(span[1], c) <= min(span[0], c)
                         * self.fuse_ratio
                         and max(span[3], r) <= min(span[2], r)
@@ -820,7 +884,7 @@ class Bank:
         for i in idxs:
             c, r = buckets(i)
             for wave, sp in zip(open_, spans):
-                if (len(wave) < self.n_subarrays
+                if (len(wave) < self._wave_capacity
                         and max(sp[1], c) <= min(sp[0], c) * self.fuse_ratio
                         and max(sp[3], r) <= min(sp[2], r) * self.fuse_ratio):
                     wave.append(i)
@@ -842,7 +906,7 @@ class Bank:
                 # sorted by cmds desc, so c_max is the wave head's; the
                 # row span needs running min/max (rows do not follow the
                 # command-count order)
-                if (len(wave) >= self.n_subarrays
+                if (len(wave) >= self._wave_capacity
                         or c_max > c * self.fuse_ratio
                         or max(r_max, r) > min(r_min, r)
                         * self.fuse_ratio):
@@ -897,7 +961,8 @@ class Bank:
         states = np.zeros((self.n_subarrays, n_rows, words), np.uint32)
         entries: List[_Slot] = []
         order = sorted(range(len(wave)), key=lambda j: -lanes[wave[j]])
-        free = [int(s) for s in np.argsort(self._lane_load, kind="stable")]
+        free = [int(s) for s in np.argsort(self._lane_load, kind="stable")
+                if int(s) not in self._blacklist]
         sids = [0] * len(wave)
         for j in order:
             sids[j] = free.pop(0)
@@ -1052,7 +1117,9 @@ class Bank:
 
     def reset_stats(self):
         """Zero the stats AND both allocation cursors (fused lane loads,
-        grouped round-robin) so re-runs allocate deterministically."""
+        grouped round-robin) so re-runs allocate deterministically.  The
+        fault blacklist survives — retired subarrays are physical state,
+        not statistics."""
         self.stats = BankStats(self.n_subarrays)
         self._lane_load = np.zeros(self.n_subarrays, np.int64)
         self._rr_next = 0

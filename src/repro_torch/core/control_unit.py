@@ -25,6 +25,9 @@ points (:func:`run_command_table`, :func:`make_interpreter`,
 :func:`batched_interpreter`, :func:`hetero_batched_interpreter`) also
 take numpy states as :func:`load_state` emits them and numpy tables as
 :func:`encode_uprogram` emits them, and move them to their ``device``.
+:func:`faulty_bank_replay` (K6, the second kernel of ``csrc/replay.cu``)
+is the same replay with fault injection, and
+:func:`faulty_batched_interpreter` its entry point.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..kernels.ref import popcount_u32
+from .bitplane import to_i32_bits
 from .uprogram import C1, TRIPLES, UProgram
 
 CMD_WIDTH = 13
@@ -280,6 +285,264 @@ def hetero_batched_interpreter(device="cuda"):
         return replay(st, _table_tensor(tables, dev, st.shape[1]))
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# K6: fault-injected replay (repro_torch.core.fault)
+# ---------------------------------------------------------------------------
+#
+# The same replay with the paper's section 5 failure modes: per-activation
+# TRA bit flips (a Bernoulli(p) mask XORed into every AP result), stuck-at
+# columns (``stuck1``/``stuck0`` word masks forced on every write and on
+# the initial state) and dead subarrays (random garbage XORed over the
+# whole unit after the last command).
+#
+# The reference draws its bits with ``jax.random``, which cannot be
+# reproduced outside JAX.  Here every random word comes from a
+# counter-based Philox4x32-10 keyed by the unit's (2,) uint32 key from
+# ``FaultRuntime.draw_keys``; the counter is (word, command, stream,
+# call), stream 0 for flips and 1 for dead-unit garbage.  A flip mask
+# takes 8 calls per word per AP command: uniform 4 call + lane (32 bits
+# of a call's output lane) sets bit 4 call + lane when it is below
+# ``round(p 2^32)``.  Garbage word (row, word) is lane ``row & 3`` of the
+# call with counter (word, row >> 2, 1, 0).  The plain version computes
+# the same bits in torch, so kernel and plain version agree bit for bit;
+# ``p = 0`` flips nothing and ``p = 1`` flips every bit, the two ends at
+# which the reference is deterministic too.
+
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+FLIP_CALLS = 8            # Philox calls per word per AP command
+STREAM_FLIP, STREAM_DEAD = 0, 1
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit halves of ``m * x`` for a constant ``m < 2^32`` and
+    int64 ``x`` in [0, 2^32): the product needs 64 unsigned bits, so it
+    is taken in 16-bit halves of ``x`` that keep every step below 2^49."""
+    t = m * (x & 0xFFFF)
+    u = m * (x >> 16)
+    hi = (u + (t >> 16)) >> 16
+    lo = (((u & 0xFFFF) << 16) + t) & _U32
+    return hi, lo
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11; the Random123 reference) on
+    int64 tensors holding 32-bit values: ``counter`` is four broadcastable
+    tensors (or ints), ``key`` two.  Returns the four output words."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & _U32
+            k1 = (k1 + PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def flip_threshold(p_flip: float) -> int:
+    """A 32-bit uniform below this sets a flip bit: ``round(p 2^32)``, so
+    ``p = 0`` flips nothing and ``p = 1`` (2^32) every bit."""
+    p = float(p_flip)
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"p_flip must be in [0, 1], got {p}")
+    return min(1 << 32, int(round(p * (1 << 32))))
+
+
+# Philox elements the plain version holds per chunk of commands
+_PLAIN_PHILOX_CHUNK = 1 << 22
+
+
+def flip_masks_plain(keys: torch.Tensor, cmds: torch.Tensor, n_words: int,
+                     thr: int) -> torch.Tensor:
+    """(n_units, len(cmds), n_words) int32 flip masks of the commands
+    ``cmds`` (int64 indices), as if each were an AP command."""
+    dev = keys.device
+    shape = (keys.shape[0], cmds.shape[0], n_words)
+    if thr == 0:
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    if thr >= 1 << 32:
+        return torch.full(shape, -1, dtype=torch.int32, device=dev)
+    k = keys.to(torch.int64) & _U32
+    word = torch.arange(n_words, dtype=torch.int64, device=dev)
+    call = torch.arange(FLIP_CALLS, dtype=torch.int64, device=dev)
+    outs = philox4x32(
+        (word[None, None, :, None], cmds.to(dev)[None, :, None, None],
+         STREAM_FLIP, call[None, None, None, :]),
+        (k[:, 0, None, None, None], k[:, 1, None, None, None]))
+    bit = 4 * call[:, None] + torch.arange(4, device=dev)[None, :]  # (8, 4)
+    u = torch.stack(outs, dim=-1)                       # (..., call, lane)
+    mask = ((u < thr).to(torch.int64) << bit).sum(dim=(-2, -1))
+    return to_i32_bits(mask)
+
+
+def dead_garbage_plain(keys: torch.Tensor, n_rows: int,
+                       n_words: int) -> torch.Tensor:
+    """(n_units, n_rows, n_words) int32 garbage words of stream 1."""
+    dev = keys.device
+    k = keys.to(torch.int64) & _U32
+    word = torch.arange(n_words, dtype=torch.int64, device=dev)
+    quad = torch.arange((n_rows + 3) // 4, dtype=torch.int64, device=dev)
+    outs = philox4x32(
+        (word[None, None, :], quad[None, :, None], STREAM_DEAD, 0),
+        (k[:, 0, None, None], k[:, 1, None, None]))
+    g = torch.stack(outs, dim=2).reshape(k.shape[0], -1, n_words)[:, :n_rows]
+    return to_i32_bits(g)
+
+
+def _flip_stream(tables: torch.Tensor, keys: torch.Tensor, n_words: int,
+                 thr: int, counts: torch.Tensor):
+    """Yield ``(command, (n_units, n_words) flip masks)`` for every command
+    that is an AP in some unit, in order, zero for units where it is not;
+    adds each mask's flips to ``counts``.  Masks are drawn a chunk of
+    commands at a time, vectorized over units, commands, words and
+    calls."""
+    if thr == 0:
+        return
+    is_ap = tables[..., 0] != 0                          # (n_units, n_cmds)
+    ap_cmds = is_ap.any(dim=0).nonzero().flatten()
+    chunk = max(1, _PLAIN_PHILOX_CHUNK // max(1, keys.shape[0] * n_words
+                                              * FLIP_CALLS * 4))
+    for lo in range(0, ap_cmds.shape[0], chunk):
+        cmds = ap_cmds[lo: lo + chunk]
+        masks = flip_masks_plain(keys, cmds, n_words, thr)
+        masks = torch.where(is_ap[:, cmds, None], masks, 0)
+        counts += popcount_u32(masks).sum(dim=(1, 2)).to(torch.int64)
+        for j, c in enumerate(cmds.tolist()):
+            yield c, masks[:, j]
+
+
+def faulty_replay_plain(states, tables, keys, stuck0, stuck1, dead,
+                        p_flip):
+    """Plain version of K6: :func:`replay_plain` with the stuck masks on
+    the initial state and every write, Philox flip masks XORed into every
+    AP result, flips counted per unit over every word, and garbage XORed
+    over dead units."""
+    n_units, n_rows, n_words = states.shape
+    if tables.dim() == 2:
+        tables = tables.expand(n_units, *tables.shape)
+    thr = flip_threshold(p_flip)
+    s0, s1 = stuck0, stuck1
+    st = (states | s1[:, None, :]) & ~s0[:, None, :]
+    unit = torch.arange(n_units, device=st.device)
+    rows = tables[..., 1::2].to(torch.int64).unbind(dim=2)
+    masks = (-tables[..., 0::2]).unbind(dim=2)
+    counts = torch.zeros(n_units, dtype=torch.int64, device=st.device)
+    flips = _flip_stream(tables, keys, n_words, thr, counts)
+    nxt = next(flips, None)
+    for c in range(tables.shape[1]):
+        r0, r1, r2, w0, w1, w2 = (r[:, c] for r in rows)
+        ap, m0, m1, m2, mw0, mw1, mw2 = (m[:, c, None] for m in masks)
+        v0 = st[unit, r0] ^ m0
+        v1 = st[unit, r1] ^ m1
+        v2 = st[unit, r2] ^ m2
+        val = torch.where(ap != 0, (v0 & v1) | (v0 & v2) | (v1 & v2), v0)
+        if nxt is not None and nxt[0] == c:
+            val = val ^ nxt[1]
+            nxt = next(flips, None)
+        st[unit, w0] = ((val ^ mw0) | s1) & ~s0
+        st[unit, w1] = ((val ^ mw1) | s1) & ~s0
+        st[unit, w2] = ((val ^ mw2) | s1) & ~s0
+    if bool(dead.any()):
+        garbage = dead_garbage_plain(keys, n_rows, n_words)
+        st = torch.where(dead[:, None, None], st ^ garbage, st)
+    return st, counts
+
+
+def _faulty_replay_kernel(states, tables, keys, stuck0, stuck1, dead, thr):
+    n_units, n_rows, n_words = states.shape
+    out = torch.empty_like(states)
+    counts = torch.zeros(n_units, dtype=torch.int64, device=states.device)
+    n_cmds = tables.shape[-2]
+    stride = 0 if tables.dim() == 2 else n_cmds * CMD_WIDTH
+    build.launch("replay", "faulty_replay_launch", states.data_ptr(),
+                 out.data_ptr(), tables.data_ptr(), stride, keys.data_ptr(),
+                 stuck0.data_ptr(), stuck1.data_ptr(), dead.data_ptr(),
+                 counts.data_ptr(), thr, n_units, n_rows, n_words, n_cmds)
+    build.LAUNCHES["faulty_replay"] += 1
+    return out, counts
+
+
+def faulty_bank_replay(states, tables, keys, stuck0, stuck1, dead, p_flip):
+    """Fault-injected replay: the K6 kernel for CUDA tensors,
+    :func:`faulty_replay_plain` for CPU tensors.
+
+    Args:
+        states: (n_units, n_rows, n_words) int32.
+        tables: (n_units, n_cmds, 13) int32, or (n_cmds, 13) shared.
+        keys:   (n_units, 2) int32 — the bit-views of the per-unit uint32
+            Philox keys.
+        stuck0/stuck1: (n_units, n_words) int32 — stuck-at-0/1 column
+            masks (bit set = that column is defective).
+        dead:   (n_units,) bool — whole-unit failures.
+        p_flip: per-activation per-bit flip probability.
+
+    Returns:
+        ``(out_states, flip_counts)`` — executed states with faults
+        applied, and the injected AP bit flips per unit (int64).
+    """
+    if states.dim() != 3 or tables.dim() not in (2, 3):
+        raise ValueError(f"states must be 3-D and tables 2-D or 3-D, got "
+                         f"{tuple(states.shape)} and {tuple(tables.shape)}")
+    n_units, _, n_words = states.shape
+    if tables.shape[-1] != CMD_WIDTH or (
+            tables.dim() == 3 and tables.shape[0] != n_units):
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit states "
+                         f"{tuple(states.shape)}")
+    expect = {"keys": (keys, (n_units, 2), torch.int32),
+              "stuck0": (stuck0, (n_units, n_words), torch.int32),
+              "stuck1": (stuck1, (n_units, n_words), torch.int32),
+              "dead": (dead, (n_units,), torch.bool)}
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} of shape {tuple(t.shape)}")
+    if states.dtype != torch.int32 or tables.dtype != torch.int32:
+        raise ValueError("states and tables must be int32")
+    tensors = [states, tables, keys, stuck0, stuck1, dead]
+    if any(t.device != states.device for t in tensors):
+        raise ValueError("all inputs must lie on one device")
+    thr = flip_threshold(p_flip)
+    states, tables, keys, stuck0, stuck1, dead = (
+        t.contiguous() for t in tensors)
+    if states.device.type == "cpu":
+        return faulty_replay_plain(states, tables, keys, stuck0, stuck1,
+                                   dead, p_flip)
+    if states.device.type != "cuda":
+        raise ValueError(f"unsupported device {states.device}")
+    if states.numel() == 0:
+        return (states.clone(),
+                torch.zeros(n_units, dtype=torch.int64, device=states.device))
+    return _faulty_replay_kernel(states, tables, keys, stuck0, stuck1, dead,
+                                 thr)
+
+
+def faulty_batched_interpreter(device="cuda"):
+    """``run(states, tables, keys, stuck0, stuck1, dead, p)`` →
+    ``(out_states, flip_counts)`` on ``device``: the bank tier's faulty
+    wave executor, one K6 launch.  Takes host arrays as the reference's
+    ``faulty_execute`` builds them (uint32 states, keys and masks, bool
+    dead) or tensors, and returns device tensors."""
+    dev = build.resolve_device(device)
+
+    def run(states, tables, keys, stuck0, stuck1, dead, p_flip):
+        st = _state_tensor(states, dev)
+        return faulty_bank_replay(
+            st, _table_tensor(tables, dev, st.shape[1]),
+            _state_tensor(keys, dev), _state_tensor(stuck0, dev),
+            _state_tensor(stuck1, dev), _bool_tensor(dead, dev), p_flip)
+
+    return run
+
+
+def _bool_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.bool)
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=bool)).to(device)
 
 
 def kernel_counts() -> Dict[str, Dict[str, int]]:

@@ -15,10 +15,13 @@ a backend switch:
                        subarrays, fused waves on K5 (see
                        :mod:`repro_torch.core.bank`)
 
-The chip, channel and rank tiers and fault injection are not ported yet
-and raise :class:`ValueError`.  ``device`` (default ``"cuda"``) selects
-where tensors live: the kernels run on the card; ``device="cpu"`` runs
-their plain versions.  Results come back as host numpy arrays.
+``fault`` (a :class:`~repro_torch.core.fault.FaultModel`) goes to the
+bank engine, which injects faults on the K6 replay; the other backends
+ignore it, as in the reference.  The chip, channel and rank tiers are
+not ported yet and raise :class:`ValueError`.  ``device`` (default
+``"cuda"``) selects where tensors live: the kernels run on the card;
+``device="cpu"`` runs their plain versions.  Results come back as host
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -47,7 +50,6 @@ from .uprogram import UProgram
 BACKENDS = ("subarray", "interp", "bitplane", "cuda", "bank")
 _TIERS = ("chip", "channel", "rank")
 _TIER_SLICE = "the chip/channel/rank slice (ROADMAP.md Queue 1, item 7)"
-_FAULT_SLICE = "the fault slice (ROADMAP.md Queue 1, item 8)"
 
 
 def compile_op(name: str, n_bits: int, style: str = "mig",
@@ -174,7 +176,7 @@ class SimdramDevice:
     cfg: DramConfig = field(default_factory=lambda: DDR4)
     backend: str = "bitplane"
     style: str = "mig"
-    fault: Optional[object] = None        # not ported: must stay None
+    fault: Optional[object] = None        # FaultModel, or None = perfect DRAM
     device: str = "cuda"
     calls: List[CallStats] = field(default_factory=list)
     _bank: Optional[object] = field(default=None, repr=False)
@@ -189,9 +191,6 @@ class SimdramDevice:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
-        if self.fault is not None:
-            raise ValueError(f"fault injection is not ported yet; it comes "
-                             f"with {_FAULT_SLICE}")
         self._device = resolve_device(self.device)
 
     def bank(self):
@@ -201,7 +200,8 @@ class SimdramDevice:
             from .bank import Bank
             self._bank = Bank(
                 n_subarrays=self.cfg.n_banks * self.cfg.subarrays_per_bank,
-                cfg=self.cfg, style=self.style, device=self._device)
+                cfg=self.cfg, style=self.style, fault=self.fault,
+                device=self._device)
         return self._bank
 
     def _account(self, name: str, n_bits: int, uprog: UProgram, elements: int):

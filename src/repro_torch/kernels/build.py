@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 
 # library -> (source, {C function: argtypes}); every function returns int
 LIBRARIES = {
@@ -52,10 +53,16 @@ LIBRARIES = {
     }),
     "replay": ("replay.cu", {
         "replay_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
+        "faulty_replay_launch": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _U64,
+                                 _I, _I, _I, _I, _P],
+    }),
+    "popmatmul": ("popmatmul.cu", {
+        "popmatmul_launch": [_P, _P, _P, _I, _I, _I, _P],
     }),
 }
 
-LAUNCHES: Dict[str, int] = {"h2v": 0, "v2h": 0, "circuit": 0, "replay": 0}
+LAUNCHES: Dict[str, int] = {"h2v": 0, "v2h": 0, "circuit": 0, "replay": 0,
+                            "popmatmul": 0, "faulty_replay": 0}
 BUILDS: Dict[str, int] = {name: 0 for name in LIBRARIES}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

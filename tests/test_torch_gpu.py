@@ -158,3 +158,110 @@ def test_bank_dispatch_on_card_equals_cpu(cuda):
     for g, e in zip(runs[0][0], runs[1][0]):
         np.testing.assert_array_equal(g, e)
     assert runs[0][1] == runs[1][1]
+
+
+# -- K4: the binary popcount matmul ------------------------------------------
+
+@pytest.mark.parametrize("m,kw,n", [(100, 7, 70), (64, 32, 64), (1, 1, 1),
+                                    (3136, 72, 256)])
+def test_popmatmul_kernel_matches_plain(cuda, m, kw, n):
+    from repro_torch.kernels.bitserial_matmul import binary_matmul
+    from repro_torch.kernels.ref import binary_matmul_ref
+    a = _lanes(m * kw, m + kw).reshape(m, kw).to(cuda)
+    w = _lanes(kw * n, n + 7).reshape(kw, n).to(cuda)
+    before = build.LAUNCHES["popmatmul"]
+    got = binary_matmul(a, w)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["popmatmul"] == before + 1
+    torch.testing.assert_close(got, binary_matmul_ref(a, w), rtol=0, atol=0)
+
+
+def test_bitserial_and_quantized_matmul_on_card_equal_cpu(cuda):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.integers(0, 4, (300, 200)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-2, 2, (200, 90)).astype(np.int32))
+    want = a.to(torch.int64) @ w.to(torch.int64)
+    before = build.LAUNCHES["popmatmul"]
+    got = ops.bitserial_matmul(a.to(cuda), w.to(cuda), 2, 2)
+    assert build.LAUNCHES["popmatmul"] == before + 4
+    torch.testing.assert_close(got.cpu(), want.to(torch.int32), rtol=0,
+                               atol=0)
+    a8 = torch.from_numpy(rng.integers(-2**15, 2**15, (64, 96))
+                          .astype(np.int32))
+    w8 = torch.from_numpy(rng.integers(-2**15, 2**15, (96, 32))
+                          .astype(np.int32))
+    torch.testing.assert_close(
+        ops.quantized_matmul(a8.to(cuda), w8.to(cuda), 16, 16).cpu(),
+        ops.quantized_matmul(a8, w8, 16, 16), rtol=0, atol=0)
+
+
+# -- K6: the fault-injected replay -------------------------------------------
+
+@pytest.mark.parametrize("p_flip", [0.0, 1e-3, 0.5, 1.0])
+@pytest.mark.parametrize("shared", [False, True])
+def test_faulty_replay_kernel_matches_plain(cuda, p_flip, shared):
+    from repro_torch.core.control_unit import (faulty_bank_replay,
+                                               faulty_replay_plain)
+    states_np, tables = _wave([("addition", 8), ("greater", 16),
+                               ("multiplication", 8)], 4096 + 32 * 3, 64)
+    states = torch.from_numpy(states_np.view(np.int32)).to(cuda)
+    t = tables_from_numpy(tables, device=cuda)
+    t = t[1] if shared else t
+    n_units, _, n_words = states.shape
+    keys = _lanes(2 * n_units, 1).reshape(n_units, 2).to(cuda)
+    s0 = _lanes(n_units * n_words, 2).reshape(n_units, n_words).to(cuda)
+    s1 = _lanes(n_units * n_words, 3).reshape(n_units, n_words).to(cuda)
+    s0, s1 = s0 & (s1 >> 3) & 0x01010101, s1 & 0x00100010 & ~s0
+    dead = torch.tensor([False, True, False], device=cuda)
+    before = build.LAUNCHES["faulty_replay"]
+    got, n_got = faulty_bank_replay(states, t, keys, s0, s1, dead, p_flip)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["faulty_replay"] == before + 1
+    want, n_want = faulty_replay_plain(states, t, keys, s0, s1, dead, p_flip)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(n_got, n_want, rtol=0, atol=0)
+
+
+def _fault_queue(lanes=300):
+    rng = np.random.default_rng(0)
+    a, b = (rng.integers(0, 256, lanes).astype(np.uint64) for _ in range(2))
+    instr, ref = pt_bank.BbopInstr, pt_bank.Ref
+    return [instr("addition", (a, b), 8),
+            instr("multiplication", (ref(0), b), 8),
+            instr("greater", (a, b), 8)]
+
+
+@pytest.mark.parametrize("kw", [
+    {"p_flip": 1e-4, "spare_lanes": 1, "seed": 1},
+    {"p_flip": 3e-4, "spare_lanes": 0, "seed": 2},
+    {"p_flip": 0.0, "dead_unit_rate": 0.4, "spare_lanes": 1, "seed": 11},
+])
+def test_fault_dispatch_on_card_equals_cpu(cuda, kw):
+    """Philox gives the card and the CPU the same bits, so a
+    fault-injected dispatch — results and every FaultStats field — is
+    the same on both."""
+    from repro_torch.core.fault import FaultModel
+    runs = []
+    for dev in ("cuda", "cpu"):
+        bank = pt_bank.Bank(n_subarrays=4, fault=FaultModel(**kw),
+                            device=dev)
+        before = build.LAUNCHES["faulty_replay"]
+        res = bank.dispatch(_fault_queue())
+        if dev == "cuda":
+            assert build.LAUNCHES["faulty_replay"] > before
+        runs.append(([x for r in res for x in pt_bank.flatten_result(r)],
+                     bank.stats.faults.as_dict()))
+    for g, e in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(g, e)
+    assert runs[0][1] == runs[1][1]
+
+
+def test_disabled_fault_model_launches_no_faulty_replay(cuda):
+    from repro_torch.core.fault import FaultModel
+    before = dict(build.LAUNCHES)
+    bank = pt_bank.Bank(n_subarrays=4, fault=FaultModel(enabled=False),
+                        device=cuda)
+    bank.dispatch(_fault_queue())
+    assert build.LAUNCHES["faulty_replay"] == before["faulty_replay"]
+    assert build.LAUNCHES["replay"] > before["replay"]

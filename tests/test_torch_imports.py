@@ -56,6 +56,7 @@ def test_imports_with_jax_blocked():
 def _entry_points():
     from repro_torch.core import bitplane, control_unit
     from repro_torch.core.bank import Bank, VerticalOperand
+    from repro_torch.core.fault import FaultModel
     from repro_torch.core.isa import SimdramDevice
     from repro_torch.kernels import ops as kops
 
@@ -74,6 +75,15 @@ def _entry_points():
         "hetero_batched_interpreter":
             lambda: control_unit.hetero_batched_interpreter(),
         "tables_from_numpy": lambda: control_unit.tables_from_numpy([table]),
+        "faulty_batched_interpreter":
+            lambda: control_unit.faulty_batched_interpreter(),
+        "SimdramDevice(fault=...)": lambda: SimdramDevice(
+            backend="bank", fault=FaultModel(p_flip=0.0)),
+        "Bank(fault=...)": lambda: Bank(fault=FaultModel(p_flip=0.0)),
+        "bitserial_matmul": lambda: kops.bitserial_matmul(
+            np.ones((4, 32), np.int32), np.ones((32, 4), np.int32), 1, 1),
+        "quantized_matmul": lambda: kops.quantized_matmul(
+            np.ones((4, 32), np.int32), np.ones((32, 4), np.int32), 8, 8),
     }
 
 
@@ -91,10 +101,13 @@ def test_cuda_without_a_card_raises(name, monkeypatch):
     ({"backend": "chip"}, "chip/channel/rank slice"),
     ({"backend": "channel"}, "chip/channel/rank slice"),
     ({"backend": "rank"}, "chip/channel/rank slice"),
-    ({"backend": "bank", "fault": object()}, "fault slice"),
+    ({"backend": "channel", "fault": "model"}, "chip/channel/rank slice"),
     ({"backend": "pallas"}, "unknown backend"),
 ])
 def test_unported_options_raise(kwargs, match):
+    from repro_torch.core.fault import FaultModel
     from repro_torch.core.isa import SimdramDevice
+    if kwargs.get("fault") == "model":
+        kwargs = {**kwargs, "fault": FaultModel(p_flip=0.0)}
     with pytest.raises(ValueError, match=match):
         SimdramDevice(device="cpu", **kwargs)
