@@ -16,8 +16,10 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
      one ``backend="bitplane"`` call; then K3 against the plain circuit;
   4. the slice: ``SimdramDevice(backend="bank").dispatch`` of the mix and
      chain queues of ``benchmarks/bank_scaling.py`` at 65,536 lanes per
-     instruction, checked against the numpy oracle; then each of the mix
-     queue's fused waves through K5 and through the plain replay, and a
+     instruction, checked against the numpy oracle, with 5 K5 launches;
+     then each of the mix queue's fused waves through K5 (with the wave's
+     cached schedule) and through the plain replay, each wave's device
+     time, longest real command count and time per command, and a
      repeat of both dispatches under ``torch.profiler`` (host wall,
      device time by kernel and copy, the device's idle share);
   5. the bit-serial matmul (K4): ``bitserial_matmul`` of 2-bit unsigned
@@ -30,7 +32,8 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
      over the mix queue at 32,768 logical lanes (two replicas fill each
      unit's 65,536 columns) at the paper's sigma = 0.15, checked against
      the fault-free dispatch and the oracle (lanes whose replicas were
-     corrupted alike are counted and bounded, see ``WRONG_LANE_SHARE``);
+     corrupted alike are counted and bounded, see ``WRONG_LANE_SHARE``,
+     and its wrong lanes and K6 launches must be those of ``SIGMA_SEED0``);
      a dead-unit run that must heal exactly by blacklisting; a
      stuck-column run with 1e-3 flips that must exhaust every unit as the
      reference does, or return exact results; K6
@@ -39,7 +42,9 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
   7. one JSON line with every kernel's launches on its path, its
      agreement with its plain version, its time (CUDA events), the plain
      version's time, its bound on the card and, where one PyTorch call
-     computes the same function, that call's time.
+     computes the same function, that call's time; K5 and K6 add each
+     wave's device time, the longest unit's real command count and ns
+     per real command.
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6) and read just after; comparison launches come after the read.
@@ -93,6 +98,10 @@ STUCK_LANES = 16384          # three replicas fill 49,152 of 65,536 columns
 # in all) in the port on an H100, 9 to 19 (140 in all) in the reference
 # on the CPU (PERF.md).  The bound is about twice the largest count.
 WRONG_LANE_SHARE = 5e-5
+# the sigma = 0.15 run at fault seed 0 as it came out before the replay
+# kernels were redesigned (PERF.md): the redesign keeps every random bit
+# and the vote, so the outcome must not move
+SIGMA_SEED0 = {"wrong_lanes": 24, "faulty_replay_launches": 9}
 
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
 FAST_PATH = [(op, 8) for op in (
@@ -184,22 +193,37 @@ def device_breakdown(fn) -> dict:
                                      key=lambda kv: -kv[1]))}
 
 
-def replay_ops_per_word(t: np.ndarray, fault_thr=None) -> int:
+def replay_ops_per_word(t: np.ndarray, counts: np.ndarray,
+                        fault_thr=None) -> int:
     """Bitwise operations a word column needs for the (n_units, n_cmds,
-    13) tables ``t``: one LOP3 per majority and per complemented port.
-    With ``fault_thr`` (K6) add the stuck masking of the three writes and,
-    when the threshold needs random bits, the flip mask of each AP."""
+    13) tables ``t`` replayed to each unit's real command count
+    ``counts``: one LOP3 per majority and per complemented port.  With
+    ``fault_thr`` (K6) add the stuck masking of the three writes of every
+    real command and, when the threshold needs random bits, the flip mask
+    of each AP.  (The NOPs after a unit's count are all zeros: no AP, no
+    complement.)"""
     is_ap = t[..., 0] == 1
     ops = int(is_ap.sum()
               + np.where(is_ap, t[..., 2] + t[..., 4] + t[..., 6]
                          + t[..., 8] + t[..., 10] + t[..., 12],
                          t[..., 2] + t[..., 8]).sum())
     if fault_thr is not None:
-        ops += 3 * t.shape[0] * t.shape[1]
+        ops += 3 * int(counts.sum())
         if 0 < fault_thr < 1 << 32:
             ops += (FLIP_OPS_PER_AP_WORD * int(is_ap.sum())
                     + KEY_SCHEDULE_OPS * t.shape[0])
     return ops
+
+
+def add_replay_wave(k: dict, wave_ms: float, tables, schedule) -> None:
+    """Add one wave's device time, longest real command count and real
+    table bytes to a K5 or K6 entry."""
+    counts = schedule[0].cpu().numpy()
+    longest = int(counts.max())
+    k["wave_device_ms"].append(wave_ms)
+    k["longest_unit_cmds"].append(longest)
+    k["ns_per_real_cmd"].append(wave_ms * 1e6 / max(longest, 1))
+    k["bytes"] += int(counts.sum()) * 13 * 4
 
 
 def mix_queue(bank_mod, get_op, lanes, n_instrs=32, widths=(8, 16), seed=0):
@@ -235,6 +259,10 @@ def chain_queue(bank_mod, lanes, device, seed=1):
         queue.append(bank_mod.BbopInstr("relu", (bank_mod.Ref(base + 1),), 16,
                                         keep_vertical=True))
     return queue, raw
+
+
+def fmt_list(xs) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
 
 
 def masked_equal(got, want, out_bits) -> bool:
@@ -426,32 +454,40 @@ def run() -> dict:
     q_lanes, stage, _ = plan_queue(mix)
     waves = bank._build_waves(mix, list(range(len(mix))), stage, q_lanes)
     k5 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-          "bytes": 0, "ops": 0}
+          "bytes": 0, "ops": 0, "wave_device_ms": [],
+          "longest_unit_cmds": [], "ns_per_real_cmd": []}
     for wave in waves:
-        states_np, tables, _ = bank._pack_wave(mix, wave, q_lanes, {})
+        states_np, ct, _ = bank._pack_wave(mix, wave, q_lanes, {})
+        tables, schedule = ct
         states = torch.from_numpy(states_np.view(np.int32)).to(dev)
-        out_k = replay(states, tables)
+        out_k = replay(states, ct)
         out_p = replay_plain(states, tables)
         err = max_abs_err(out_k, out_p)
         check(err == 0, "K5 disagrees with the plain replay")
         n_units, n_rows, w_words = states.shape
         out = torch.empty_like(states)
         n_cmds = tables.shape[1]
-        k5["ms"] += time_ms(lambda: replay(states, tables), 10)
-        k5["device_ms"] += time_ms(lambda: build.launch(
+        k5["ms"] += time_ms(lambda: replay(states, ct), 10)
+        wave_ms = time_ms(lambda: build.launch(
             "replay", "replay_launch", states.data_ptr(), out.data_ptr(),
-            tables.data_ptr(), n_cmds * CMD_WIDTH, n_units, n_rows, w_words,
-            n_cmds), 10)
+            tables.data_ptr(), n_cmds * CMD_WIDTH, schedule.data_ptr(),
+            n_units, n_rows, w_words, n_cmds), 10)
+        k5["device_ms"] += wave_ms
         k5["plain_ms"] += time_ms(lambda: replay_plain(states, tables), 1,
                                   warmup=0)
-        k5["ops"] += replay_ops_per_word(tables.cpu().numpy()) * w_words
-        k5["bytes"] += 2 * states.numel() * 4 + tables.numel() * 4
+        k5["ops"] += replay_ops_per_word(
+            tables.cpu().numpy(), schedule[0].cpu().numpy()) * w_words
+        k5["bytes"] += 2 * states.numel() * 4
+        add_replay_wave(k5, wave_ms, tables, schedule)
     k5["bound"] = bound(k5["bytes"], k5["ops"])
     k5["shape"] = (f"sum over the mix queue's {len(waves)} fused waves, "
                    f"{DDR4.n_banks} units x {lanes} columns")
     kern["replay"] = k5
     print(f"[4] K5 vs plain replay on {len(waves)} mix waves: bit-exact; "
-          f"kernel total {k5['ms']:.3f} ms, bound {k5['bound'][0]:.4f} ms")
+          f"kernel total {k5['ms']:.3f} ms, per wave (device) "
+          f"{fmt_list(k5['wave_device_ms'])} ms at longest real counts "
+          f"{k5['longest_unit_cmds']} ({fmt_list(k5['ns_per_real_cmd'])} "
+          f"ns per command); bound {k5['bound'][0]:.4f} ms")
 
     # the same dispatches again, warm (every μProgram compiled, every
     # wave's tables cached), then once more under the profiler: where a
@@ -492,6 +528,9 @@ def run() -> dict:
           "a kernel of its path was not launched")
     check(counts_mm["popmatmul"] > 0 and counts_fault["faulty_replay"] > 0,
           "K4 or K6 was not launched on its path")
+    check(counts_bank["replay"] == 5,
+          f"expected 5 K5 launches on the bank path, got "
+          f"{counts_bank['replay']}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
@@ -523,6 +562,10 @@ def run() -> dict:
             "device_ms": k["device_ms"], "shape": k["shape"],
             "tolerance": "bit-exact (max_abs_err 0 over int32 words)",
         })
+        for key in ("wave_device_ms", "longest_unit_cmds",
+                    "ns_per_real_cmd"):
+            if key in k:
+                line[-1][key] = k[key]
     record["kernels"] = line
     record["launches_fast_path"] = counts_fast
     record["launches_bank"] = counts_bank
@@ -695,6 +738,11 @@ def fault_phase(dev, record: dict, mix_queue):
     n_wrong = sum(n for n, _ in wrong.values())
     check(n_wrong <= WRONG_LANE_SHARE * len(fmix) * FAULT_LANES,
           f"{n_wrong} lanes differ from the fault-free dispatch: {wrong}")
+    seed0 = {"wrong_lanes": n_wrong,
+             "faulty_replay_launches": counts["faulty_replay"]}
+    record["sigma_seed0"] = seed0
+    check(seed0 == SIGMA_SEED0, f"the sigma = 0.15 run at fault seed 0 "
+          f"gave {seed0}, not {SIGMA_SEED0} as before the redesign")
     check(fs.injected > 0 and fs.detected > 0 and fs.corrected > 0,
           f"faults were not injected, detected and corrected: {fs}")
     record["fault_stats"] = fs.as_dict()
@@ -768,17 +816,19 @@ def fault_phase(dev, record: dict, mix_queue):
     dead = torch.from_numpy(ddev.bank()._fault_rt.dead.copy()).to(dev)
     thr = flip_threshold(p_flip)
     k6 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-          "bytes": 0, "ops": 0}
+          "bytes": 0, "ops": 0, "wave_device_ms": [],
+          "longest_unit_cmds": [], "ns_per_real_cmd": []}
     flips = 0
     for wave in waves:
-        states_np, tables, _ = bank._pack_wave(rep, wave, q_lanes, {})
+        states_np, ct, _ = bank._pack_wave(rep, wave, q_lanes, {})
+        tables, schedule = ct
         states = torch.from_numpy(states_np.view(np.int32)).to(dev)
         n_rows, w_words = states.shape[1:]
         keys = torch.from_numpy(rt.draw_keys().view(np.int32)).to(dev)
         s0 = torch.from_numpy(s0_all[:, :w_words].view(np.int32)).to(dev)
         s1 = torch.from_numpy(s1_all[:, :w_words].view(np.int32)).to(dev)
         args = (states, tables, keys, s0, s1, dead, p_flip)
-        out_k, n_k = faulty_bank_replay(*args)
+        out_k, n_k = faulty_bank_replay(states, ct, *args[2:])
         t_plain = time.perf_counter()
         out_p, n_p = faulty_replay_plain(*args)
         torch.cuda.synchronize()
@@ -789,16 +839,20 @@ def fault_phase(dev, record: dict, mix_queue):
         out = torch.empty_like(states)
         cnt = torch.zeros(n_units, dtype=torch.int64, device=dev)
         n_cmds = tables.shape[1]
-        k6["ms"] += time_ms(lambda: faulty_bank_replay(*args), 10)
-        k6["device_ms"] += time_ms(lambda: build.launch(
+        k6["ms"] += time_ms(
+            lambda: faulty_bank_replay(states, ct, *args[2:]), 10)
+        wave_ms = time_ms(lambda: build.launch(
             "replay", "faulty_replay_launch", states.data_ptr(),
-            out.data_ptr(), tables.data_ptr(), n_cmds * 13, keys.data_ptr(),
-            s0.data_ptr(), s1.data_ptr(), dead.data_ptr(), cnt.data_ptr(),
-            thr, n_units, n_rows, w_words, n_cmds), 10)
-        k6["ops"] += replay_ops_per_word(tables.cpu().numpy(), thr) * w_words
-        k6["bytes"] += (2 * states.numel() * 4 + tables.numel() * 4
-                        + keys.numel() * 4 + 2 * s0.numel() * 4
-                        + n_units + n_units * 8)
+            out.data_ptr(), tables.data_ptr(), n_cmds * 13,
+            schedule.data_ptr(), keys.data_ptr(), s0.data_ptr(),
+            s1.data_ptr(), dead.data_ptr(), cnt.data_ptr(), thr, n_units,
+            n_rows, w_words, n_cmds), 10)
+        k6["device_ms"] += wave_ms
+        k6["ops"] += replay_ops_per_word(
+            tables.cpu().numpy(), schedule[0].cpu().numpy(), thr) * w_words
+        k6["bytes"] += (2 * states.numel() * 4 + keys.numel() * 4
+                        + 2 * s0.numel() * 4 + n_units + n_units * 8)
+        add_replay_wave(k6, wave_ms, tables, schedule)
     check(flips > 0, "the K6 comparison drew no flips")
     k6["bound"] = bound(k6["bytes"], k6["ops"])
     k6["shape"] = (f"sum over the replicated mix queue's {len(waves)} waves, "
@@ -807,7 +861,10 @@ def fault_phase(dev, record: dict, mix_queue):
                    f"unit(s)")
     print(f"[6] K6 vs plain on {len(waves)} waves ({flips} flips): "
           f"bit-exact, states and flip counts; kernel total "
-          f"{k6['ms']:.3f} ms, plain {k6['plain_ms']:.0f} ms, bound "
+          f"{k6['ms']:.3f} ms, per wave (device) "
+          f"{fmt_list(k6['wave_device_ms'])} ms at longest real counts "
+          f"{k6['longest_unit_cmds']} ({fmt_list(k6['ns_per_real_cmd'])} "
+          f"ns per command); plain {k6['plain_ms']:.0f} ms, bound "
           f"{k6['bound'][0]:.4f} ms ({k6['bound'][1]})")
 
     # a disabled model costs nothing: no K6 launch, the fault-free replay

@@ -56,7 +56,8 @@ import torch
 from ..kernels import ops as kops
 from ..kernels.build import resolve_device
 from . import bitplane
-from .control_unit import (CMD_WIDTH, TABLE_CACHE, batched_interpreter,
+from .control_unit import (CMD_WIDTH, TABLE_CACHE, CommandTables,
+                           batched_interpreter,
                            encode_uprogram, faulty_batched_interpreter,
                            hetero_batched_interpreter, load_state,
                            output_plane_rows, pad_command_table,
@@ -951,8 +952,10 @@ class Bank:
         descending lane demand take the subarrays with the lightest
         cumulative lane load (results never depend on slot choice).
 
-        Returns ``(states, tables, entries)``; ``tables`` is a device
-        tensor from :data:`~repro_torch.core.control_unit.TABLE_CACHE`.
+        Returns ``(states, tables, entries)``; ``tables`` is the
+        :class:`~repro_torch.core.control_unit.CommandTables` (device
+        tables and their schedule) from
+        :data:`~repro_torch.core.control_unit.TABLE_CACHE`.
         """
         metas = [cached_table(queue[i].op, queue[i].n_bits, self.style)
                  for i in wave]
@@ -1002,9 +1005,10 @@ class Bank:
         wave_key = (self.style, n_cmds, tuple(slot_ops))
         return states, self._cached_wave_tables(wave_key), entries
 
-    def _cached_wave_tables(self, wave_key) -> torch.Tensor:
-        """Device-resident (n_subarrays, n_cmds, 13) stacked tables for
-        one wave composition, built once per distinct key."""
+    def _cached_wave_tables(self, wave_key) -> CommandTables:
+        """Device-resident (n_subarrays, n_cmds, 13) stacked tables and
+        their schedule for one wave composition, built once per distinct
+        key."""
         return TABLE_CACHE.get(
             ("bank", self.n_subarrays, str(self.device)) + wave_key,
             lambda: _build_stacked_tables(wave_key, self.n_subarrays),

@@ -6,7 +6,10 @@ sequence whenever the CPU issues a ``bbop``: the same hardware executes
 any μProgram, because programs are data.  :func:`encode_uprogram` turns a
 μProgram into a dense ``(n_cmds, 13)`` int32 command table, and one
 replay kernel (K5, ``csrc/replay.cu``) runs any table over any state, so
-swapping the table never builds anything new.
+swapping the table never builds anything new.  K5 stops each unit at
+its last real command: :func:`command_schedule` works out those counts,
+and the order in which the kernel places the units, once per table
+(:class:`CommandTables`, :data:`TABLE_CACHE`).
 
 Command word layout (int32 × 13)::
 
@@ -33,7 +36,7 @@ is the same replay with fault injection, and
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +47,7 @@ from .bitplane import to_i32_bits
 from .uprogram import C1, TRIPLES, UProgram
 
 CMD_WIDTH = 13
+KERNEL_MAX_ROWS = 256     # K5 and K6 keep row numbers in 8 bits
 
 
 # ---------------------------------------------------------------------------
@@ -159,22 +163,88 @@ def replay_plain(states: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     return st
 
 
-def _replay_kernel(states: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+class CommandTables(NamedTuple):
+    """Stacked command tables with the schedule K5 and K6 replay them by
+    (:func:`command_schedule`), worked out once where the tables are
+    built or cached (:func:`tables_from_numpy`, :data:`TABLE_CACHE`), so
+    that a schedule always travels with the tables it was made from.
+    :func:`replay` and :func:`faulty_bank_replay` take one wherever they
+    take a table tensor."""
+    tables: torch.Tensor      # (n_units, n_cmds, 13) int32
+    schedule: torch.Tensor    # (2, n_units) int32, on the same device
+
+
+def command_schedule(tables, n_units: Optional[int] = None) -> torch.Tensor:
+    """(2, n_units) int32 on the tables' device: row 0 is each unit's
+    real command count (the index of its last non-NOP command + 1; the
+    all-zero NOPs after it change nothing), row 1 the units in
+    decreasing order of that count (ties by unit index), the order in
+    which K5 and K6 place their blocks.  ``tables`` is (n_units, n_cmds,
+    13), or (n_cmds, 13) shared by ``n_units`` units; a host array is
+    worked out on the CPU.  Tensor ops only: on the card, no host sync."""
+    if not isinstance(tables, torch.Tensor):
+        tables = torch.from_numpy(np.ascontiguousarray(tables, np.int32))
+    t = tables if tables.dim() == 3 else tables[None]
+    n_cmds = t.shape[1]
+    idx = torch.arange(1, n_cmds + 1, dtype=torch.int32, device=t.device)
+    counts = (t.ne(0).any(dim=2).to(torch.int32) * idx).amax(dim=1) \
+        if n_cmds else torch.zeros(t.shape[0], dtype=torch.int32,
+                                   device=t.device)
+    if tables.dim() == 2:
+        counts = counts.expand(n_units).contiguous()
+    order = torch.argsort(counts, descending=True, stable=True)
+    return torch.stack([counts, order.to(torch.int32)])
+
+
+def _split_tables(tables):
+    """``(table tensor, schedule or None)`` of a tensor or a
+    :class:`CommandTables`."""
+    if isinstance(tables, CommandTables):
+        return tables.tables, tables.schedule
+    return tables, None
+
+
+def _kernel_schedule(states: torch.Tensor, tables: torch.Tensor,
+                     schedule: Optional[torch.Tensor]) -> torch.Tensor:
+    """The schedule a K5 or K6 launch reads: the one carried by the
+    tables, checked, or one worked out on the device."""
+    n_units, n_rows, _ = states.shape
+    if n_rows > KERNEL_MAX_ROWS:
+        raise ValueError(f"the replay kernels take at most "
+                         f"{KERNEL_MAX_ROWS} state rows, got {n_rows}")
+    if schedule is None:
+        return command_schedule(tables, n_units)
+    if (tuple(schedule.shape) != (2, n_units)
+            or schedule.dtype != torch.int32
+            or schedule.device != states.device):
+        raise ValueError(f"schedule must be int32 of shape (2, {n_units}) "
+                         f"on {states.device}, got {schedule.dtype} of "
+                         f"shape {tuple(schedule.shape)} on "
+                         f"{schedule.device}")
+    return schedule.contiguous()
+
+
+def _replay_kernel(states: torch.Tensor, tables: torch.Tensor,
+                   schedule: torch.Tensor) -> torch.Tensor:
     n_units, n_rows, n_words = states.shape
     out = torch.empty_like(states)
     n_cmds = tables.shape[-2]
     stride = 0 if tables.dim() == 2 else n_cmds * CMD_WIDTH
     build.launch("replay", "replay_launch", states.data_ptr(), out.data_ptr(),
-                 tables.data_ptr(), stride, n_units, n_rows, n_words, n_cmds)
+                 tables.data_ptr(), stride, schedule.data_ptr(), n_units,
+                 n_rows, n_words, n_cmds)
     build.LAUNCHES["replay"] += 1
     return out
 
 
-def replay(states: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+def replay(states: torch.Tensor, tables) -> torch.Tensor:
     """Replay command tables over (n_units, n_rows, n_words) int32 states:
     the K5 kernel for CUDA tensors, :func:`replay_plain` for CPU tensors.
     ``tables`` is (n_units, n_cmds, 13) — one table per unit — or
-    (n_cmds, 13) shared by every unit.  Returns the executed states."""
+    (n_cmds, 13) shared by every unit, or a :class:`CommandTables`, whose
+    schedule the kernel then reads; for a bare tensor it works the
+    schedule out on the device.  Returns the executed states."""
+    tables, schedule = _split_tables(tables)
     if states.dim() != 3 or tables.dim() not in (2, 3):
         raise ValueError(f"states must be 3-D and tables 2-D or 3-D, got "
                          f"{tuple(states.shape)} and {tuple(tables.shape)}")
@@ -194,7 +264,8 @@ def replay(states: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {states.device}")
     if states.numel() == 0:
         return states.clone()
-    return _replay_kernel(states, tables)
+    return _replay_kernel(states, tables,
+                          _kernel_schedule(states, tables, schedule))
 
 
 def _check_table(table: np.ndarray, n_rows: int) -> None:
@@ -219,7 +290,10 @@ def _state_tensor(state, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.int32, copy=False)).to(device)
 
 
-def _table_tensor(table, device: torch.device, n_rows: int) -> torch.Tensor:
+def _table_tensor(table, device: torch.device, n_rows: int):
+    if isinstance(table, CommandTables):
+        return CommandTables(table.tables.to(device),
+                             table.schedule.to(device))
     if isinstance(table, torch.Tensor):
         return table.to(device)
     arr = np.ascontiguousarray(table, dtype=np.int32)
@@ -228,11 +302,11 @@ def _table_tensor(table, device: torch.device, n_rows: int) -> torch.Tensor:
 
 
 def tables_from_numpy(tables: Sequence[np.ndarray], device="cuda",
-                      n_cmds: Optional[int] = None) -> torch.Tensor:
+                      n_cmds: Optional[int] = None) -> CommandTables:
     """Stack host (n_cmds_i, 13) int32 tables — e.g. the reference
     package's ``encode_uprogram`` output — into one (n_units, n_cmds, 13)
     int32 tensor on ``device``, NOP-padding each to ``n_cmds`` (default:
-    the longest)."""
+    the longest), with its :func:`command_schedule`."""
     arrs = [np.asarray(t, dtype=np.int32).reshape(-1, CMD_WIDTH)
             for t in tables]
     width = max((a.shape[0] for a in arrs), default=0)
@@ -244,7 +318,9 @@ def tables_from_numpy(tables: Sequence[np.ndarray], device="cuda",
         raise ValueError("is_ap and port-negation flags must be 0 or 1")
     if out.size and out[..., 1::2].min() < 0:
         raise ValueError("negative row address in a command table")
-    return torch.from_numpy(out).to(build.resolve_device(device))
+    dev = build.resolve_device(device)
+    host = torch.from_numpy(out)
+    return CommandTables(host.to(dev), command_schedule(host).to(dev))
 
 
 def run_command_table(state, table, device="cuda") -> torch.Tensor:
@@ -275,9 +351,10 @@ def batched_interpreter(device="cuda"):
 
 def hetero_batched_interpreter(device="cuda"):
     """``run(states, tables)``: (n_subarrays, n_rows, n_words) states ×
-    (n_subarrays, n_cmds, 13) per-subarray tables — one replay executes a
-    different μProgram on every subarray (shorter programs NOP-padded to
-    the wave's command bucket).  One K5 launch."""
+    (n_subarrays, n_cmds, 13) per-subarray tables, or their
+    :class:`CommandTables` — one replay executes a different μProgram on
+    every subarray (shorter programs NOP-padded to the wave's command
+    bucket).  One K5 launch."""
     dev = build.resolve_device(device)
 
     def run(states, tables):
@@ -453,16 +530,18 @@ def faulty_replay_plain(states, tables, keys, stuck0, stuck1, dead,
     return st, counts
 
 
-def _faulty_replay_kernel(states, tables, keys, stuck0, stuck1, dead, thr):
+def _faulty_replay_kernel(states, tables, schedule, keys, stuck0, stuck1,
+                          dead, thr):
     n_units, n_rows, n_words = states.shape
     out = torch.empty_like(states)
     counts = torch.zeros(n_units, dtype=torch.int64, device=states.device)
     n_cmds = tables.shape[-2]
     stride = 0 if tables.dim() == 2 else n_cmds * CMD_WIDTH
     build.launch("replay", "faulty_replay_launch", states.data_ptr(),
-                 out.data_ptr(), tables.data_ptr(), stride, keys.data_ptr(),
-                 stuck0.data_ptr(), stuck1.data_ptr(), dead.data_ptr(),
-                 counts.data_ptr(), thr, n_units, n_rows, n_words, n_cmds)
+                 out.data_ptr(), tables.data_ptr(), stride,
+                 schedule.data_ptr(), keys.data_ptr(), stuck0.data_ptr(),
+                 stuck1.data_ptr(), dead.data_ptr(), counts.data_ptr(), thr,
+                 n_units, n_rows, n_words, n_cmds)
     build.LAUNCHES["faulty_replay"] += 1
     return out, counts
 
@@ -473,7 +552,8 @@ def faulty_bank_replay(states, tables, keys, stuck0, stuck1, dead, p_flip):
 
     Args:
         states: (n_units, n_rows, n_words) int32.
-        tables: (n_units, n_cmds, 13) int32, or (n_cmds, 13) shared.
+        tables: (n_units, n_cmds, 13) int32, or (n_cmds, 13) shared, or
+            their :class:`CommandTables` (as :func:`replay` takes them).
         keys:   (n_units, 2) int32 — the bit-views of the per-unit uint32
             Philox keys.
         stuck0/stuck1: (n_units, n_words) int32 — stuck-at-0/1 column
@@ -485,6 +565,7 @@ def faulty_bank_replay(states, tables, keys, stuck0, stuck1, dead, p_flip):
         ``(out_states, flip_counts)`` — executed states with faults
         applied, and the injected AP bit flips per unit (int64).
     """
+    tables, schedule = _split_tables(tables)
     if states.dim() != 3 or tables.dim() not in (2, 3):
         raise ValueError(f"states must be 3-D and tables 2-D or 3-D, got "
                          f"{tuple(states.shape)} and {tuple(tables.shape)}")
@@ -517,8 +598,9 @@ def faulty_bank_replay(states, tables, keys, stuck0, stuck1, dead, p_flip):
     if states.numel() == 0:
         return (states.clone(),
                 torch.zeros(n_units, dtype=torch.int64, device=states.device))
-    return _faulty_replay_kernel(states, tables, keys, stuck0, stuck1, dead,
-                                 thr)
+    return _faulty_replay_kernel(
+        states, tables, _kernel_schedule(states, tables, schedule), keys,
+        stuck0, stuck1, dead, thr)
 
 
 def faulty_batched_interpreter(device="cuda"):
@@ -526,7 +608,8 @@ def faulty_batched_interpreter(device="cuda"):
     ``(out_states, flip_counts)`` on ``device``: the bank tier's faulty
     wave executor, one K6 launch.  Takes host arrays as the reference's
     ``faulty_execute`` builds them (uint32 states, keys and masks, bool
-    dead) or tensors, and returns device tensors."""
+    dead) or tensors (tables also as :class:`CommandTables`), and
+    returns device tensors."""
     dev = build.resolve_device(device)
 
     def run(states, tables, keys, stuck0, stuck1, dead, p_flip):
@@ -593,8 +676,9 @@ def table_bucket(n_cmds: int, min_bucket: int = 16) -> int:
 
 class TableCache:
     """Memoizes encoded+padded+stacked command tables as device tensors,
-    keyed by the wave's composition — (op, width, style) per slot plus
-    the shared command bucket (and the device).  A dispatch that replays
+    with their :func:`command_schedule`, keyed by the wave's composition
+    — (op, width, style) per slot plus the shared command bucket (and the
+    device).  A dispatch that replays
     a composition seen before pays zero host-side table work: no
     re-encode, no NOP re-pad, no host→device copy (the paper's μProgram
     memory: programs are written once and replayed forever).  Like that
@@ -610,20 +694,21 @@ class TableCache:
         self.misses = 0
         self.evictions = 0
 
-    def get(self, key, build_table, device) -> torch.Tensor:
-        """Return the cached device tensor for ``key``, building it with
-        ``build_table()`` (a host int32 array) and copying it to
-        ``device`` on first use."""
+    def get(self, key, build_table, device) -> CommandTables:
+        """Return the cached device tables for ``key``, building them with
+        ``build_table()`` (a host int32 array), working out their schedule
+        and copying both to ``device`` on first use."""
         t = self._store.get(key)
         if t is None:
             self.misses += 1
-            arr = build_table()
-            t = self._store[key] = torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.int32)).to(device)
-            self.bytes += int(arr.nbytes)
+            host = torch.from_numpy(
+                np.ascontiguousarray(build_table(), dtype=np.int32))
+            t = self._store[key] = CommandTables(
+                host.to(device), command_schedule(host).to(device))
+            self.bytes += _nbytes(t)
             while self.bytes > self.max_bytes and len(self._store) > 1:
                 _, old = self._store.popitem(last=False)
-                self.bytes -= int(old.numel() * old.element_size())
+                self.bytes -= _nbytes(old)
                 self.evictions += 1
         else:
             self.hits += 1
@@ -641,6 +726,10 @@ class TableCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+
+def _nbytes(entry: CommandTables) -> int:
+    return sum(int(t.numel() * t.element_size()) for t in entry)
 
 
 TABLE_CACHE = TableCache()

@@ -389,7 +389,9 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
             ``(out_states, flip_counts)``.
         states: the packed host-side state stack; every axis before the
             last two is a unit axis, the last unit axis is subarrays.
-        tables: the stacked (device-resident) command tables.
+        tables: the stacked device-resident command tables with their
+            schedule (a :class:`~repro_torch.core.control_unit
+            .CommandTables`).
         slabs: ``[(idx, entries, runtime), ...]`` — ``idx`` indexes the
             unit axes *before* the subarray axis (``()`` at bank tier,
             ``(b,)`` at chip tier, ``(c, b)`` at channel tier),
@@ -419,16 +421,17 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
         m0, m1 = rt.stuck_masks(n_words)
         s0[idx], s1[idx] = m0, m1
         dead[idx] = rt.dead
-    # ``tables`` is the wave's device tensor; the rest crosses to its
-    # device once, and only the keys change between runs
+    # ``tables`` lives on the wave's device; the rest crosses to it once,
+    # and only the keys change between runs
+    dev = tables.tables.device
+
     def to_dev(a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(a).to(tables.device)
+        return torch.from_numpy(a).to(dev)
 
     states_dev = to_dev(states)
-    tables_dev = tables
     s0_dev, s1_dev = to_dev(s0), to_dev(s1)
     dead_dev = to_dev(dead)
     p = np.float32(model.flip_probability())
@@ -460,7 +463,7 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
             keys = np.zeros(unit_shape + (2,), np.uint32)
             for idx, _, rt in slabs:
                 keys[idx] = rt.draw_keys()
-            out_dev, nflips = run(states_dev, tables_dev, to_dev(keys),
+            out_dev, nflips = run(states_dev, tables, to_dev(keys),
                                   s0_dev, s1_dev, dead_dev, p)
             flips = int(nflips.sum())
             stats.injected += flips

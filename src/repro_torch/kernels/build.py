@@ -52,9 +52,9 @@ LIBRARIES = {
         "circuit_launch": [_P, _I, _I, _P, _P, _I, _P],
     }),
     "replay": ("replay.cu", {
-        "replay_launch": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
-        "faulty_replay_launch": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _U64,
-                                 _I, _I, _I, _I, _P],
+        "replay_launch": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P],
+        "faulty_replay_launch": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
+                                 _U64, _I, _I, _I, _I, _P],
     }),
     "popmatmul": ("popmatmul.cu", {
         "popmatmul_launch": [_P, _P, _P, _I, _I, _I, _P],

@@ -93,12 +93,109 @@ def _wave(ops, lanes, n_rows=None):
 def test_replay_kernel_matches_plain(cuda, ops, n_rows):
     states_np, tables = _wave(ops, 4096 + 32 * 3, n_rows)
     states = torch.from_numpy(states_np.view(np.int32)).to(cuda)
-    t = tables_from_numpy(tables, device=cuda)
-    torch.testing.assert_close(replay(states, t), replay_plain(states, t),
+    ct = tables_from_numpy(tables, device=cuda)
+    torch.testing.assert_close(replay(states, ct),
+                               replay_plain(states, ct.tables),
                                rtol=0, atol=0)
-    shared = t[0]
+    shared = ct.tables[0]
     torch.testing.assert_close(replay(states, shared),
                                replay_plain(states, shared), rtol=0, atol=0)
+
+
+def _random_tables(rng, counts, n_cmds, n_rows):
+    """(len(counts), n_cmds, 13) random command tables, unit u real up to
+    counts[u] (its last real command reads a row above 0, so it is not a
+    NOP) and NOP-padded after it; flags 0 or 1, rows below n_rows."""
+    t = np.zeros((len(counts), n_cmds, 13), np.int32)
+    for u, c in enumerate(counts):
+        t[u, :c, 0::2] = rng.integers(0, 2, (c, 7))
+        t[u, :c, 1::2] = rng.integers(0, n_rows, (c, 6))
+        if c:
+            t[u, c - 1, 1] = rng.integers(1, n_rows)
+    return torch.from_numpy(t)
+
+
+def _random_states(rng, n_units, n_rows, n_words):
+    return torch.from_numpy(rng.integers(
+        0, 2**32, (n_units, n_rows, n_words), dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("n_rows", [64, 240, 256])
+def test_replay_kernel_stops_at_each_units_count(cuda, n_rows):
+    """Ragged counts (0 and the full bucket among them), a ragged last
+    block, up to 256 rows beside the staging ring: the kernel, with the
+    schedule carried by CommandTables or worked out on the card, equals
+    the plain replay of the padded tables."""
+    from repro_torch.core.control_unit import CommandTables, command_schedule
+    rng = np.random.default_rng(n_rows)
+    n_cmds, n_words = 300, 1000 + 7
+    counts = [0, n_cmds, 1, 64, 65, 129, 250]
+    states = _random_states(rng, len(counts), n_rows, n_words).to(cuda)
+    t = _random_tables(rng, counts, n_cmds, n_rows).to(cuda)
+    schedule = command_schedule(t)
+    assert schedule[0].tolist() == counts
+    want = replay_plain(states, t)
+    before = build.LAUNCHES["replay"]
+    torch.testing.assert_close(replay(states, CommandTables(t, schedule)),
+                               want, rtol=0, atol=0)
+    torch.testing.assert_close(replay(states, t), want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["replay"] == before + 2
+
+
+@pytest.mark.parametrize("n_words", [1, 33, 4096 + 5])
+def test_replay_kernel_shared_random_table(cuda, n_words):
+    rng = np.random.default_rng(n_words)
+    states = _random_states(rng, 5, 96, n_words).to(cuda)
+    t = _random_tables(rng, [200], 256, 96)[0].to(cuda)
+    torch.testing.assert_close(replay(states, t), replay_plain(states, t),
+                               rtol=0, atol=0)
+
+
+def test_replay_kernel_at_the_largest_bucket(cuda):
+    """A synthetic table at the 32,768-command bucket, one unit real to
+    its end; plain compared over the whole length."""
+    rng = np.random.default_rng(32768)
+    states = _random_states(rng, 3, 128, 40).to(cuda)
+    t = _random_tables(rng, [32768, 20000, 0], 32768, 128).to(cuda)
+    torch.testing.assert_close(replay(states, t), replay_plain(states, t),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_rows", [2, 5])
+@pytest.mark.parametrize("p_flip", [None, 0.3])
+def test_replay_kernels_on_rows_just_written(cuda, n_rows, p_flip):
+    """Random tables over a few rows: most reads hit a row the previous
+    command wrote, often through two or three of its ports; K5 (and K6
+    with stuck masks) equal their plain versions."""
+    from repro_torch.core.control_unit import (faulty_bank_replay,
+                                               faulty_replay_plain)
+    rng = np.random.default_rng(n_rows)
+    n_words = 300
+    counts = [500, 64, 65, 1]
+    states = _random_states(rng, len(counts), n_rows, n_words).to(cuda)
+    t = _random_tables(rng, counts, 500, n_rows).to(cuda)
+    if p_flip is None:
+        torch.testing.assert_close(replay(states, t),
+                                   replay_plain(states, t), rtol=0, atol=0)
+        return
+    n_units = len(counts)
+    keys = _lanes(2 * n_units, 21).reshape(n_units, 2).to(cuda)
+    s0 = _lanes(n_units * n_words, 22).reshape(n_units, n_words).to(cuda)
+    s1 = _lanes(n_units * n_words, 23).reshape(n_units, n_words).to(cuda)
+    args = (states, t, keys, s0 & 0x00030000, s1 & 0x0C000001,
+            torch.zeros(n_units, dtype=torch.bool, device=cuda), p_flip)
+    got, n_got = faulty_bank_replay(*args)
+    want, n_want = faulty_replay_plain(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(n_got, n_want, rtol=0, atol=0)
+
+
+def test_replay_kernel_rejects_more_than_256_rows(cuda):
+    states = torch.zeros((2, 257, 4), dtype=torch.int32, device=cuda)
+    t = torch.zeros((2, 8, 13), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 256 state rows"):
+        replay(states, t)
 
 
 @pytest.mark.parametrize("engine", ["bitplane", "cuda"])
@@ -206,7 +303,7 @@ def test_faulty_replay_kernel_matches_plain(cuda, p_flip, shared):
     states_np, tables = _wave([("addition", 8), ("greater", 16),
                                ("multiplication", 8)], 4096 + 32 * 3, 64)
     states = torch.from_numpy(states_np.view(np.int32)).to(cuda)
-    t = tables_from_numpy(tables, device=cuda)
+    t = tables_from_numpy(tables, device=cuda).tables
     t = t[1] if shared else t
     n_units, _, n_words = states.shape
     keys = _lanes(2 * n_units, 1).reshape(n_units, 2).to(cuda)
@@ -221,6 +318,38 @@ def test_faulty_replay_kernel_matches_plain(cuda, p_flip, shared):
     want, n_want = faulty_replay_plain(states, t, keys, s0, s1, dead, p_flip)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(n_got, n_want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("p_flip", [0.0, 7e-5, 1.0])
+@pytest.mark.parametrize("n_rows", [64, 256])
+def test_faulty_replay_kernel_stops_at_each_units_count(cuda, p_flip,
+                                                        n_rows):
+    """K6 on ragged counts with stuck masks and dead units: states and
+    flip counts equal the plain version on the padded tables."""
+    from repro_torch.core.control_unit import (CommandTables,
+                                               command_schedule,
+                                               faulty_bank_replay,
+                                               faulty_replay_plain)
+    rng = np.random.default_rng(n_rows + int(p_flip * 1e5))
+    n_cmds, n_words = 200, 700 + 3
+    counts = [0, n_cmds, 1, 64, 65, 129]
+    n_units = len(counts)
+    states = _random_states(rng, n_units, n_rows, n_words).to(cuda)
+    t = _random_tables(rng, counts, n_cmds, n_rows).to(cuda)
+    keys = _lanes(2 * n_units, 11).reshape(n_units, 2).to(cuda)
+    s0 = _lanes(n_units * n_words, 12).reshape(n_units, n_words).to(cuda)
+    s1 = _lanes(n_units * n_words, 13).reshape(n_units, n_words).to(cuda)
+    s0, s1 = s0 & 0x00010200, s1 & 0x40000004
+    dead = torch.tensor([False, True, False, False, True, False],
+                        device=cuda)
+    args = (keys, s0, s1, dead, p_flip)
+    want, n_want = faulty_replay_plain(states, t, *args)
+    for tables in (CommandTables(t, command_schedule(t)), t):
+        got, n_got = faulty_bank_replay(states, tables, *args)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(n_got, n_want, rtol=0, atol=0)
+    if p_flip == 1.0:
+        assert int(n_want[1]) == 32 * n_words * int(t[1, :, 0].sum())
 
 
 def _fault_queue(lanes=300):

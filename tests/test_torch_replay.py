@@ -70,9 +70,10 @@ def test_shared_table_batched_replay_matches_reference():
 def test_tables_from_numpy_pads_with_nops():
     a = np.ones((3, 13), np.int32)
     b = np.zeros((5, 13), np.int32)
-    t = cu.tables_from_numpy([a, b], device="cpu", n_cmds=8)
+    t, schedule = cu.tables_from_numpy([a, b], device="cpu", n_cmds=8)
     assert t.shape == (2, 8, 13) and t.dtype == torch.int32
     assert t[0, 3:].abs().sum() == 0 and t[0, :3].eq(1).all()
+    assert schedule.tolist() == [[3, 0], [0, 1]]
 
 
 @pytest.mark.parametrize("bad,match", [
