@@ -8,12 +8,16 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
      and print the ptxas register / shared-memory / spill lines;
-  2. K1/K2: transpose 1,048,576 random lanes; the round trip is exact and
-     each kernel equals its plain version bit for bit;
+  2. K1/K2: transpose 1,048,576 random lanes at 8, 16 and 32 planes; the
+     round trip is exact and each kernel equals its plain version bit for
+     bit; each width's wrapper time, bare-launch time (CUDA events), host
+     time per launch and kernel-only time (``torch.profiler``);
   3. the fast path: ``SimdramDevice(backend="cuda").bbop`` for all 16 ops
      at 8 bits and addition/multiplication/greater at 16 bits, at
      ``DDR4.simd_lanes`` lanes, checked against each op's oracle, plus
-     one ``backend="bitplane"`` call; then K3 against the plain circuit;
+     one ``backend="bitplane"`` call; then K3 against the plain circuit,
+     with each op's times as in phase 2 and its program's gates, levels,
+     slots and warps;
   4. the slice: ``SimdramDevice(backend="bank").dispatch`` of the mix and
      chain queues of ``benchmarks/bank_scaling.py`` at 65,536 lanes per
      instruction, checked against the numpy oracle, with 5 K5 launches;
@@ -40,11 +44,12 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
      against its plain version bit for bit on every wave; a disabled
      model launches no K6;
   7. one JSON line with every kernel's launches on its path, its
-     agreement with its plain version, its time (CUDA events), the plain
-     version's time, its bound on the card and, where one PyTorch call
-     computes the same function, that call's time; K5 and K6 add each
-     wave's device time, the longest unit's real command count and ns
-     per real command.
+     agreement with its plain version, its time (CUDA events), its
+     kernel-only time (profiler), the plain version's time, its bound on
+     the card and, where one PyTorch call computes the same function,
+     that call's time; K5 and K6 add each wave's device and kernel time,
+     the longest unit's real command count and ns per real command; and
+     the kernels ranked by launches x (kernel time - bound) per call.
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6) and read just after; comparison launches come after the read.
@@ -103,6 +108,7 @@ WRONG_LANE_SHARE = 5e-5
 # and the vote, so the outcome must not move
 SIGMA_SEED0 = {"wrong_lanes": 24, "faulty_replay_launches": 9}
 
+TRANSPOSE_WIDTHS = (8, 16, 32)
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
 FAST_PATH = [(op, 8) for op in (
     "abs", "addition", "and_red", "bitcount", "division", "equal", "greater",
@@ -158,6 +164,56 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host ms per call of ``fn`` (a bare launch) over ``reps`` calls: the
+    time to enqueue, on the host's clock, with the card kept busy."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without namespace, return type,
+    template arguments or parameters."""
+    name = key.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+
+
+def kernel_ms(fn, reps: int, name: str, attempts: int = 3) -> float:
+    """Kernel-only ms per launch: ``torch.profiler``'s self device time of
+    the kernel ``name`` over ``reps`` calls of ``fn`` (after one warm-up
+    call), divided by the kernel's launches in them.  A session that
+    records none of the launches (the profiler drops one now and then)
+    is repeated, up to ``attempts`` sessions in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and kernel_name(e.key) == name):
+                us += e.self_device_time_total
+                n += e.count
+        if n > 0:
+            return us / n / 1e3
+    raise SmokeFailure(f"the profiler saw no {name} launch in {attempts} "
+                       f"sessions")
 
 
 def device_breakdown(fn) -> dict:
@@ -285,6 +341,7 @@ def run() -> dict:
     from repro_torch.core.ops_library import get_op
     from repro_torch.core.timing import DDR4
     from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_ops import _launch as k3_launch
     from repro_torch.kernels.bitplane_ops import (circuit_on_planes,
                                                   circuit_plain, slot_program)
     from repro_torch.kernels.ops import h2v
@@ -317,27 +374,52 @@ def run() -> dict:
     check(err_h2v == 0 and err_v2h == 0, "K1/K2 disagree with plain")
     check(torch.equal(back, vals), "h2v -> v2h round trip is not exact")
     n_words = n_lanes // 32
-    tr_bound = bound(2 * 4 * n_lanes, 0)
-    kern = {
-        "h2v": {"max_abs_err": err_h2v,
-                "ms": time_ms(lambda: h2v_cuda(vals), 50),
-                "device_ms": time_ms(lambda: build.launch(
-                    "transpose", "h2v_launch", vals.data_ptr(),
-                    planes.data_ptr(), n_words, 32), 50),
-                "plain_ms": time_ms(lambda: h2v_plain(vals), 5),
-                "bound": tr_bound,
-                "shape": f"{n_lanes} lanes x 32 planes"},
-        "v2h": {"max_abs_err": err_v2h,
-                "ms": time_ms(lambda: v2h_cuda(planes), 50),
-                "device_ms": time_ms(lambda: build.launch(
-                    "transpose", "v2h_launch", planes.data_ptr(),
-                    back.data_ptr(), n_words, 32), 50),
-                "plain_ms": time_ms(lambda: v2h_plain(planes), 5),
-                "bound": tr_bound,
-                "shape": f"{n_lanes} lanes x 32 planes"},
-    }
-    print(f"[2] K1/K2 round trip on {n_lanes} lanes: bit-exact; "
-          f"h2v {kern['h2v']['ms']:.4f} ms, v2h {kern['v2h']['ms']:.4f} ms")
+    # each kernel at 8, 16 and 32 planes: the wrapper, the bare launch
+    # (CUDA events over a loop of launches, and the host's enqueue time),
+    # and the kernel alone (the profiler); bytes: each lane value once and
+    # each plane word once
+    kern = {"h2v": {"per_width": {}}, "v2h": {"per_width": {}}}
+    for k in TRANSPOSE_WIDTHS:
+        pk = h2v_cuda(vals, k)
+        vk = v2h_cuda(pk)
+        err_h = max_abs_err(pk, h2v_plain(vals, k))
+        err_v = max_abs_err(vk, v2h_plain(pk))
+        torch.cuda.synchronize()
+        check(err_h == 0 and err_v == 0,
+              f"K1/K2 at {k} planes disagree with plain")
+        h2v_bare = (lambda: build.launch(
+            "transpose", "h2v_launch", vals.data_ptr(), pk.data_ptr(),
+            n_words, k))
+        v2h_bare = (lambda: build.launch(
+            "transpose", "v2h_launch", pk.data_ptr(), vk.data_ptr(),
+            n_words, k))
+        for name, wrapper, bare in (
+                ("h2v", lambda: h2v_cuda(vals, k), h2v_bare),
+                ("v2h", lambda: v2h_cuda(pk), v2h_bare)):
+            row = {"ms": time_ms(wrapper, 50),
+                   "device_ms": time_ms(bare, 50),
+                   "kernel_ms": kernel_ms(bare, 50, f"{name}_kernel"),
+                   "launch_host_ms": host_ms(bare, 50),
+                   "bound_ms": bound((4 + k / 8) * n_lanes, 0)[0]}
+            kern[name]["per_width"][k] = row
+            print(f"[2] {name} at {k} planes: kernel {row['kernel_ms']:.4f} "
+                  f"ms (profiler), bare launch {row['device_ms']:.4f} ms "
+                  f"(events; host {row['launch_host_ms']:.4f} ms a call), "
+                  f"wrapper {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms")
+    for name, plain, arg in (("h2v", h2v_plain, vals),
+                             ("v2h", v2h_plain, planes)):
+        k = kern[name]
+        k.update({key: k["per_width"][32][key] for key in (
+            "ms", "device_ms", "kernel_ms", "launch_host_ms")})
+        k["max_abs_err"] = err_h2v if name == "h2v" else err_v2h
+        k["plain_ms"] = time_ms(lambda: plain(arg), 5)
+        k["bound"] = bound(2 * 4 * n_lanes, 0)
+        k["shape"] = f"{n_lanes} lanes x 32 planes"
+        k["n_calls"] = 1
+    print(f"[2] K1/K2 round trip on {n_lanes} lanes: bit-exact at "
+          f"{TRANSPOSE_WIDTHS} planes; at 32: h2v {kern['h2v']['ms']:.4f} "
+          f"ms, v2h {kern['v2h']['ms']:.4f} ms")
 
     # -- 3. the fast path: bbop on backend="cuda" (main path) -------------
     inputs = {}
@@ -368,9 +450,10 @@ def run() -> dict:
           f"{n_lanes} lanes match spec.oracle; backend='bitplane' launched "
           f"K3 {counts_fast['circuit'] - before}x; launches {counts_fast}")
 
-    # K3 against the plain circuit on the card, and its times
-    k3 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-          "bytes": 0, "ops": 0}
+    # K3 against the plain circuit on the card, and its times: the
+    # wrapper, the bare launch (events) and the kernel alone (profiler)
+    k3 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "kernel_ms": 0.0,
+          "plain_ms": 0.0, "bytes": 0, "ops": 0, "n_calls": len(FAST_PATH)}
     per_op = {}
     for op, w in FAST_PATH:
         spec, circ, ids = bitplane._compiled_op(op, w)
@@ -381,27 +464,37 @@ def run() -> dict:
         check(err == 0, f"K3 {op}/{w} disagrees with the plain circuit")
         prog = slot_program(circ, ids)
         code = torch.from_numpy(prog.code).to(dev)
-        inp = torch.cat(ops_planes).contiguous()
-        words = inp.shape[1]
+        words = out.shape[1]
+        bare = (lambda: k3_launch(prog, code, ops_planes, out))
         row = {
             "ms": time_ms(lambda: circuit_on_planes(circ, ids, ops_planes),
                           20),
-            "device_ms": time_ms(lambda: build.launch(
-                "circuit", "circuit_launch", code.data_ptr(),
-                int(code.shape[0]), prog.n_slots, inp.data_ptr(),
-                out.data_ptr(), words), 20),
+            "device_ms": time_ms(bare, 20),
+            "kernel_ms": kernel_ms(bare, 20, "circuit_kernel"),
+            "launch_host_ms": host_ms(bare, 20),
             "plain_ms": time_ms(lambda: circuit_plain(circ, ids, ops_planes),
                                 2, warmup=1),
-            "slots": prog.n_slots, "logic_ops": prog.n_logic,
+            "gates": prog.n_gates, "levels": prog.n_levels,
+            "steps": prog.n_steps, "slots": prog.n_slots,
+            "warps": prog.warps, "chunks": len(prog.chunks) - 1,
+            "shared_bytes": prog.shared_bytes,
         }
         n_bytes = 4 * words * (prog.n_inputs + prog.n_outputs)
         n_ops = prog.n_logic * words
         row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
         per_op[f"{op}/{w}"] = row
-        for k in ("ms", "device_ms", "plain_ms"):
+        print(f"[3] K3 {op}/{w}: kernel {row['kernel_ms']:.4f} ms "
+              f"(profiler), bare launch {row['device_ms']:.4f} ms (host "
+              f"{row['launch_host_ms']:.4f} ms a call), bound "
+              f"{row['bound_ms']:.4f} ms; {prog.n_gates} gates, "
+              f"{prog.n_levels} levels, {prog.n_slots} slots, "
+              f"{prog.warps} warps")
+        for k in ("ms", "device_ms", "kernel_ms", "plain_ms"):
             k3[k] += row[k]
         k3["bytes"] += n_bytes
         k3["ops"] += n_ops
+    k3["launch_host_ms"] = float(np.mean([r["launch_host_ms"]
+                                          for r in per_op.values()]))
     k3_bound_ms = sum(r["bound_ms"] for r in per_op.values())
     k3["bound"] = (k3_bound_ms, bound(k3["bytes"], k3["ops"])[1])
     k3["shape"] = (f"sum over {len(FAST_PATH)} ops (16 at 8 bits, 3 at 16 "
@@ -409,8 +502,9 @@ def run() -> dict:
     kern["circuit"] = k3
     record["k3_per_op"] = per_op
     print(f"[3] K3 vs plain circuit on the card: bit-exact for "
-          f"{len(FAST_PATH)} ops; kernel total {k3['ms']:.3f} ms, "
-          f"bound {k3_bound_ms:.4f} ms")
+          f"{len(FAST_PATH)} ops; kernel total {k3['kernel_ms']:.4f} ms "
+          f"(profiler), wrapper {k3['ms']:.3f} ms, bound "
+          f"{k3_bound_ms:.4f} ms")
 
     # -- 4. the slice: fused bank dispatch (main path) ---------------------
     lanes = DDR4.columns_per_subarray
@@ -454,7 +548,7 @@ def run() -> dict:
     q_lanes, stage, _ = plan_queue(mix)
     waves = bank._build_waves(mix, list(range(len(mix))), stage, q_lanes)
     k5 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-          "bytes": 0, "ops": 0, "wave_device_ms": [],
+          "bytes": 0, "ops": 0, "wave_device_ms": [], "wave_kernel_ms": [],
           "longest_unit_cmds": [], "ns_per_real_cmd": []}
     for wave in waves:
         states_np, ct, _ = bank._pack_wave(mix, wave, q_lanes, {})
@@ -468,24 +562,30 @@ def run() -> dict:
         out = torch.empty_like(states)
         n_cmds = tables.shape[1]
         k5["ms"] += time_ms(lambda: replay(states, ct), 10)
-        wave_ms = time_ms(lambda: build.launch(
+        bare = (lambda: build.launch(
             "replay", "replay_launch", states.data_ptr(), out.data_ptr(),
             tables.data_ptr(), n_cmds * CMD_WIDTH, schedule.data_ptr(),
-            n_units, n_rows, w_words, n_cmds), 10)
+            n_units, n_rows, w_words, n_cmds))
+        wave_ms = time_ms(bare, 10)
         k5["device_ms"] += wave_ms
+        k5["wave_kernel_ms"].append(kernel_ms(bare, 10, "replay_kernel"))
+        k5["launch_host_ms"] = host_ms(bare, 10)
         k5["plain_ms"] += time_ms(lambda: replay_plain(states, tables), 1,
                                   warmup=0)
         k5["ops"] += replay_ops_per_word(
             tables.cpu().numpy(), schedule[0].cpu().numpy()) * w_words
         k5["bytes"] += 2 * states.numel() * 4
         add_replay_wave(k5, wave_ms, tables, schedule)
+    k5["kernel_ms"] = sum(k5["wave_kernel_ms"])
+    k5["n_calls"] = len(waves)
     k5["bound"] = bound(k5["bytes"], k5["ops"])
     k5["shape"] = (f"sum over the mix queue's {len(waves)} fused waves, "
                    f"{DDR4.n_banks} units x {lanes} columns")
     kern["replay"] = k5
     print(f"[4] K5 vs plain replay on {len(waves)} mix waves: bit-exact; "
           f"kernel total {k5['ms']:.3f} ms, per wave (device) "
-          f"{fmt_list(k5['wave_device_ms'])} ms at longest real counts "
+          f"{fmt_list(k5['wave_device_ms'])} ms, (profiler) "
+          f"{fmt_list(k5['wave_kernel_ms'])} ms at longest real counts "
           f"{k5['longest_unit_cmds']} ({fmt_list(k5['ns_per_real_cmd'])} "
           f"ns per command); bound {k5['bound'][0]:.4f} ms")
 
@@ -559,14 +659,21 @@ def run() -> dict:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k.get("library_ms"),
-            "device_ms": k["device_ms"], "shape": k["shape"],
+            "device_ms": k["device_ms"], "kernel_ms": k["kernel_ms"],
+            "launch_host_ms": k["launch_host_ms"],
+            "rank_ms": launches[name] * (k["kernel_ms"] - k["bound"][0])
+            / k["n_calls"],
+            "shape": k["shape"],
             "tolerance": "bit-exact (max_abs_err 0 over int32 words)",
         })
-        for key in ("wave_device_ms", "longest_unit_cmds",
-                    "ns_per_real_cmd"):
+        for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
+                    "ns_per_real_cmd", "per_width"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
+    order = sorted(line, key=lambda k: -k["rank_ms"])
+    print("[7] launches x (kernel ms - bound ms) per call: " + ", ".join(
+        f"{k['name']} {k['rank_ms']:.4f}" for k in order))
     record["launches_fast_path"] = counts_fast
     record["launches_bank"] = counts_bank
     record["launches_matmul"] = counts_mm
@@ -657,11 +764,15 @@ def matmul_phase(dev, record: dict):
         row = {
             "shape": f"{name}: M={m}, K={32 * kw}, N={n}, one binary product",
             "ms": time_ms(lambda: binary_matmul(ap, wp), 20),
-            "device_ms": time_ms(lambda: build.launch(
-                "popmatmul", "popmatmul_launch", ap.data_ptr(), wp.data_ptr(),
-                out.data_ptr(), m, n, kw), 20),
             "library_ms": time_ms(lambda: torch._int_mm(a8, w8), 20),
         }
+        bare = (lambda: build.launch(
+            "popmatmul", "popmatmul_launch", ap.data_ptr(), wp.data_ptr(),
+            out.data_ptr(), m, n, kw))
+        row["device_ms"] = time_ms(bare, 20)
+        row["kernel_ms"] = kernel_ms(bare, 20, "popmatmul_kernel")
+        row["launch_host_ms"] = host_ms(bare, 20)
+        row["n_calls"] = 1
         row["bound"] = bound(4 * (m * kw + kw * n + m * n), m * n * kw,
                              POPC_PER_S)
         if name == "conv3_2":
@@ -673,7 +784,8 @@ def matmul_phase(dev, record: dict):
             entry = row
         per_shape[name] = row
         print(f"[5] K4 at {row['shape']}: {row['ms']:.4f} ms (device "
-              f"{row['device_ms']:.4f}), torch._int_mm "
+              f"{row['device_ms']:.4f}, kernel {row['kernel_ms']:.4f} "
+              f"profiled), torch._int_mm "
               f"{row['library_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
               f"({row['bound'][1]})")
     record["k4_per_shape"] = per_shape
@@ -816,7 +928,7 @@ def fault_phase(dev, record: dict, mix_queue):
     dead = torch.from_numpy(ddev.bank()._fault_rt.dead.copy()).to(dev)
     thr = flip_threshold(p_flip)
     k6 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-          "bytes": 0, "ops": 0, "wave_device_ms": [],
+          "bytes": 0, "ops": 0, "wave_device_ms": [], "wave_kernel_ms": [],
           "longest_unit_cmds": [], "ns_per_real_cmd": []}
     flips = 0
     for wave in waves:
@@ -841,19 +953,25 @@ def fault_phase(dev, record: dict, mix_queue):
         n_cmds = tables.shape[1]
         k6["ms"] += time_ms(
             lambda: faulty_bank_replay(states, ct, *args[2:]), 10)
-        wave_ms = time_ms(lambda: build.launch(
+        bare = (lambda: build.launch(
             "replay", "faulty_replay_launch", states.data_ptr(),
             out.data_ptr(), tables.data_ptr(), n_cmds * 13,
             schedule.data_ptr(), keys.data_ptr(), s0.data_ptr(),
             s1.data_ptr(), dead.data_ptr(), cnt.data_ptr(), thr, n_units,
-            n_rows, w_words, n_cmds), 10)
+            n_rows, w_words, n_cmds))
+        wave_ms = time_ms(bare, 10)
         k6["device_ms"] += wave_ms
+        k6["wave_kernel_ms"].append(
+            kernel_ms(bare, 10, "faulty_replay_kernel"))
+        k6["launch_host_ms"] = host_ms(bare, 10)
         k6["ops"] += replay_ops_per_word(
             tables.cpu().numpy(), schedule[0].cpu().numpy(), thr) * w_words
         k6["bytes"] += (2 * states.numel() * 4 + keys.numel() * 4
                         + 2 * s0.numel() * 4 + n_units + n_units * 8)
         add_replay_wave(k6, wave_ms, tables, schedule)
     check(flips > 0, "the K6 comparison drew no flips")
+    k6["kernel_ms"] = sum(k6["wave_kernel_ms"])
+    k6["n_calls"] = len(waves)
     k6["bound"] = bound(k6["bytes"], k6["ops"])
     k6["shape"] = (f"sum over the replicated mix queue's {len(waves)} waves, "
                    f"{n_units} units x {32 * w_words} columns, p_flip "
@@ -862,7 +980,8 @@ def fault_phase(dev, record: dict, mix_queue):
     print(f"[6] K6 vs plain on {len(waves)} waves ({flips} flips): "
           f"bit-exact, states and flip counts; kernel total "
           f"{k6['ms']:.3f} ms, per wave (device) "
-          f"{fmt_list(k6['wave_device_ms'])} ms at longest real counts "
+          f"{fmt_list(k6['wave_device_ms'])} ms, (profiler) "
+          f"{fmt_list(k6['wave_kernel_ms'])} ms at longest real counts "
           f"{k6['longest_unit_cmds']} ({fmt_list(k6['ns_per_real_cmd'])} "
           f"ns per command); plain {k6['plain_ms']:.0f} ms, bound "
           f"{k6['bound'][0]:.4f} ms ({k6['bound'][1]})")

@@ -6,17 +6,30 @@
 // 32b .. 32b+31, lane l at bit l % 32.
 //
 // Bound on an H100: bytes.  Each lane value is read once and each plane
-// word written once (8 B per lane for 32 planes); the transpose itself is
-// 32 warp ballots per 32 lanes, no arithmetic worth counting.
+// word written once: 4 + n_bits / 8 bytes per lane (1.6 us at 8 planes,
+// 2.5 us at 32 for 1,048,576 lanes at 3.35 TB/s); the transpose itself
+// is a few dozen bitwise instructions per 32 lanes.
 //
-// Design: one warp per 32 lanes.  For h2v, lane l holds lane value
-// 32b+l and 32 __ballot_sync calls build the 32 plane words of word b
-// (ballot j = bit j across the warp); lane j keeps ballot j.  v2h is the
-// mirror image: lane j holds plane word j and ballot l = bit l across
-// the planes gives lane value 32b+l.  A block covers 32 consecutive
-// words and stages the (32 planes x 32 words) tile in shared memory so
-// that both the plane-major and the lane-major side are read and written
-// coalesced.
+// K1 (h2v) design: every thread issues its one 16-byte load before any
+// other work, so the whole input is in flight at once (32 words, 1 KB of
+// lanes per 256-thread block; 1,048,576 lanes fit the card's resident
+// blocks in one wave).  A thread's four values are four rows of one
+// word's 32x32 bit tile; the tile is transposed in registers by the SWAR
+// network, two rounds within the thread and three across lanes with
+// __shfl_xor_sync, so thread t ends up holding planes 4(t%8)..4(t%8)+3 of
+// word t/8 of its warp's four words.  The block stages the (32 planes x
+// 32 words) result in shared memory and writes only the n_bits planes
+// asked for, each plane's 32 words as 16-byte stores of 8 threads (plain
+// stores at a ragged edge or a word count not a multiple of 4).  The
+// earlier design, 32 warp ballots per word with one 4-byte load per loop
+// trip, took 16 us at every width on an H100: its loads were never in
+// flight together.
+//
+// K2 (v2h): one warp per 32 lanes.  Lane j holds plane word j and ballot
+// l = bit l across the planes gives lane value 32b+l.  A block covers 32
+// consecutive words and stages the (32 planes x 32 words) tile in shared
+// memory so that both the plane-major and the lane-major side are read
+// and written coalesced.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,33 +39,69 @@ namespace {
 constexpr int kWarps = 8;             // warps per block
 constexpr int kWordsPerBlock = 32;    // words (32 lanes each) per block
 
+// rows lo and hi of a 32x32 bit tile exchange the off-diagonal d x d
+// blocks of one SWAR round (m selects the low d bits of each 2d)
+__device__ __forceinline__ void swar_pair(uint32_t& lo, uint32_t& hi, int d,
+                                          uint32_t m) {
+    const uint32_t a = lo, b = hi;
+    lo = (a & m) | ((b & m) << d);
+    hi = ((a >> d) & m) | (b & ~m);
+}
+
+// the same round between the rows of lane t and lane t ^ lanes
+__device__ __forceinline__ void swar_lanes(uint32_t& x, int d, uint32_t m,
+                                           int lanes, bool hi) {
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, lanes);
+    x = hi ? ((y >> d) & m) | (x & ~m) : (x & m) | ((y & m) << d);
+}
+
 // values: (32 * n_words,) lane values; planes: (n_bits, n_words)
-__global__ void h2v_kernel(const uint32_t* __restrict__ values,
-                           uint32_t* __restrict__ planes,
-                           int n_words, int n_bits) {
+__global__ void __launch_bounds__(kWarps * 32)
+h2v_kernel(const uint32_t* __restrict__ values,
+           uint32_t* __restrict__ planes, int n_words, int n_bits) {
     __shared__ uint32_t tile[32][kWordsPerBlock + 1];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const long long b0 = (long long)blockIdx.x * kWordsPerBlock;
-    for (int k = warp; k < kWordsPerBlock; k += kWarps) {
-        const long long b = b0 + k;
-        uint32_t v = 0;
-        if (b < n_words) v = values[b * 32 + lane];
-        uint32_t mine = 0;
+    // values 4t..4t+3 of the block: rows 4(t%8)..4(t%8)+3 of word t/8
+    const long long v = b0 * 32 + 4 * threadIdx.x;
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (v < 32LL * n_words)
+        q = __ldg(reinterpret_cast<const uint4*>(values + v));
+    uint32_t x0 = q.x, x1 = q.y, x2 = q.z, x3 = q.w;
+    swar_pair(x0, x1, 1, 0x55555555u);
+    swar_pair(x2, x3, 1, 0x55555555u);
+    swar_pair(x0, x2, 2, 0x33333333u);
+    swar_pair(x1, x3, 2, 0x33333333u);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-            const uint32_t word = __ballot_sync(0xffffffffu, (v >> j) & 1u);
-            if (lane == j) mine = word;
-        }
-        tile[lane][k] = mine;
+    for (int s = 0; s < 3; ++s) {       // rows 4, 8, 16 apart: lanes 1, 2, 4
+        const int d = 4 << s, lanes = 1 << s;
+        const uint32_t m = s == 0 ? 0x0F0F0F0Fu
+                         : s == 1 ? 0x00FF00FFu : 0x0000FFFFu;
+        const bool hi = lane & lanes;
+        swar_lanes(x0, d, m, lanes, hi);
+        swar_lanes(x1, d, m, lanes, hi);
+        swar_lanes(x2, d, m, lanes, hi);
+        swar_lanes(x3, d, m, lanes, hi);
     }
+    const int b = 4 * warp + (lane >> 3), p = 4 * (lane & 7);
+    tile[p][b] = x0;
+    tile[p + 1][b] = x1;
+    tile[p + 2][b] = x2;
+    tile[p + 3][b] = x3;
     __syncthreads();
-    for (int idx = threadIdx.x; idx < n_bits * kWordsPerBlock;
-         idx += blockDim.x) {
-        const int p = idx / kWordsPerBlock;
-        const int k = idx % kWordsPerBlock;
-        const long long b = b0 + k;
-        if (b < n_words) planes[(long long)p * n_words + b] = tile[p][k];
+    const int plane = threadIdx.x >> 3, k = 4 * (threadIdx.x & 7);
+    if (plane >= n_bits) return;
+    uint32_t* row = planes + (long long)plane * n_words + b0 + k;
+    const uint4 w = make_uint4(tile[plane][k], tile[plane][k + 1],
+                               tile[plane][k + 2], tile[plane][k + 3]);
+    if ((n_words & 3) == 0 && b0 + k + 4 <= n_words) {
+        *reinterpret_cast<uint4*>(row) = w;
+    } else {
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            if (b0 + k + i < n_words) row[i] = ws[i];
     }
 }
 

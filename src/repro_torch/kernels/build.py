@@ -49,7 +49,7 @@ LIBRARIES = {
         "v2h_launch": [_P, _P, _I, _I, _P],
     }),
     "circuit": ("circuit.cu", {
-        "circuit_launch": [_P, _I, _I, _P, _P, _I, _P],
+        "circuit_launch": [_P] + [_I] * 9 + [_P] * 5 + [_I, _P],
     }),
     "replay": ("replay.cu", {
         "replay_launch": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P],

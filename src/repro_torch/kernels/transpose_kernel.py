@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`repro.kernels.transpose_kernel` (``h2v_pallas`` /
 ``v2h_pallas``, a SWAR 32x32 bit transpose per tile).  The CUDA kernels
-in ``csrc/transpose.cu`` use one warp per 32 lanes and 32 warp ballots;
-the plain versions beside them run the same SWAR network as the
-reference, on int32 bit-views of the uint32 words.
+are in ``csrc/transpose.cu``: K1 runs the SWAR network in registers and
+across lanes with warp shuffles, K2 uses one warp per 32 lanes and 32
+warp ballots; the plain versions beside them run the same SWAR network
+as the reference, on int32 bit-views of the uint32 words.
 
 Layout contract (as :func:`repro_torch.core.bitplane.pack`):
   values (N,) int32       lane l's value (N a multiple of 32)
@@ -84,6 +85,8 @@ def h2v_cuda(values: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
                          f"N={n}, n_bits={n_bits}")
     if values.device.type == "cpu":
         return h2v_plain(values, n_bits)
+    if values.data_ptr() % 16:        # the kernel reads 16-byte vectors
+        values = values.clone()
     planes = torch.empty((n_bits, n // 32), dtype=torch.int32,
                          device=values.device)
     if n:

@@ -1,6 +1,7 @@
 """K3 (the fused circuit): the port's plain version against the JAX
-package's Pallas kernel in interpret mode, and the slot-program lowering
-that the CUDA kernel executes against ``Circuit.evaluate_outputs``."""
+package's Pallas kernel in interpret mode, and the level-parallel
+slot-program lowering that the CUDA kernel executes against
+``Circuit.evaluate_outputs``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,9 @@ from repro_torch.core import bitplane
 from repro_torch.core.isa import SimdramDevice
 from repro_torch.core.ops_library import ALL_OPS, get_op
 from repro_torch.kernels import ops
-from repro_torch.kernels.bitplane_ops import (OPCODES, circuit_on_planes,
+from repro_torch.kernels.bitplane_ops import (CHUNK_GATES, LOOKAHEAD,
+                                              MAX_SHARED_BYTES, SLOT_BYTES,
+                                              circuit_on_planes,
                                               lower_circuit)
 
 # 16-bit multiplication runs slowly in interpret mode: see
@@ -74,54 +77,94 @@ def test_aig_circuits_match_reference_kernel(op):
                                   np.asarray(want))
 
 
-def run_slot_program(prog, in_planes: torch.Tensor) -> torch.Tensor:
-    """What csrc/circuit.cu does with a slot program, in torch: every
-    operand slot is read before dst is written."""
-    w = in_planes.shape[1]
+def run_slot_program(prog, operands) -> torch.Tensor:
+    """What csrc/circuit.cu does with a slot program, in torch, step by
+    step: a step's loads land first, then every gate of the step and
+    every store read the slots as they stood, then the gates write.  A
+    gate that read a slot its own step writes would read the value
+    before the write, and the result would be wrong."""
+    w = operands[0].shape[1]
     slots = torch.zeros((prog.n_slots, w), dtype=torch.int32)
     out = torch.zeros((prog.n_outputs, w), dtype=torch.int32)
-    for x, a, b, c in prog.code.tolist():
-        op, dst = x & 0xFF, x >> 8
-        if op == OPCODES["out"]:
-            out[dst] = slots[a]
-            continue
-        if op == OPCODES["in"]:
-            r = in_planes[a].clone()
-        elif op == OPCODES["c0"]:
-            r = torch.zeros(w, dtype=torch.int32)
-        elif op == OPCODES["c1"]:
-            r = torch.full((w,), -1, dtype=torch.int32)
-        elif op == OPCODES["not"]:
-            r = slots[a] ^ -1
-        elif op == OPCODES["and"]:
-            r = slots[a] & slots[b]
-        elif op == OPCODES["or"]:
-            r = slots[a] | slots[b]
-        elif op == OPCODES["xor"]:
-            r = slots[a] ^ slots[b]
-        else:
-            assert op == OPCODES["maj"]
-            va, vb, vc = slots[a], slots[b], slots[c]
-            r = (va & vb) | (va & vc) | (vb & vc)
-        slots[dst] = r
+    for s in range(prog.n_steps):
+        (g0, l0, o0), (g1, l1, o1) = prog.steps[s], prog.steps[s + 1]
+        for op, plane, dst in prog.loads[l0:l1].tolist():
+            slots[dst // SLOT_BYTES] = operands[op][plane]
+        old = slots.clone()
+        for xa, xb, xc, dst in prog.gates[g0:g1].tolist():
+            a, b, c = (old[x // SLOT_BYTES] for x in (xa, xb, xc))
+            if xa & 1:
+                r = a ^ b ^ c
+            else:
+                c = c ^ -(xc & 1)
+                r = (a & b) | (a & c) | (b & c)
+            slots[dst // SLOT_BYTES] = r
+        for plane, src, m in prog.stores[o0:o1].tolist():
+            out[plane] = old[src // SLOT_BYTES] ^ m
     return out
+
+
+def _style_circuit(op, n_bits, style):
+    if style == "mig":
+        _, circ, ids = bitplane._compiled_op(op, n_bits)
+    else:
+        circ, ids = get_op(op, n_bits).build("aig")
+    return circ, ids
+
+
+@pytest.mark.parametrize("n_bits", [8, 16, 32])
+@pytest.mark.parametrize("op", ALL_OPS)
+@pytest.mark.parametrize("style", ["mig", "aig"])
+def test_slot_program_equals_circuit(op, style, n_bits):
+    """Up to the widest ops the repo compiles (32-bit division has the
+    most gates and levels), the program fits a block's shared memory."""
+    spec = get_op(op, n_bits)
+    circ, ids = _style_circuit(op, n_bits, style)
+    prog = lower_circuit(circ, ids)
+    assert prog.n_slots <= len(circ.live_nodes())
+    assert prog.shared_bytes <= MAX_SHARED_BYTES
+    vals = _operands(spec, 128, 11)
+    planes = _planes(spec, vals, (circ, ids))
+    want = circuit_on_planes(circ, ids, planes)
+    got = run_slot_program(prog, planes)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("op", ALL_OPS)
 @pytest.mark.parametrize("style", ["mig", "aig"])
-def test_slot_program_equals_circuit(op, style):
-    spec = get_op(op, 8)
-    if style == "mig":
-        _, circ, ids = bitplane._compiled_op(op, 8)
-    else:
-        circ, ids = spec.build("aig")
+def test_slot_program_reads_only_earlier_levels(op, style):
+    """Every gate reads values written at earlier steps (a load counts
+    from LOOKAHEAD steps after its issue), no step reads a slot that it
+    writes or that a load still in flight writes, and the slot count
+    stays within the live node count."""
+    circ, ids = _style_circuit(op, 16 if style == "mig" else 8, style)
     prog = lower_circuit(circ, ids)
     assert prog.n_slots <= len(circ.live_nodes())
-    vals = _operands(spec, 128, 11)
-    planes = _planes(spec, vals, (circ, ids))
-    want = circuit_on_planes(circ, ids, planes)
-    got = run_slot_program(prog, torch.cat(planes))
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert prog.n_levels <= prog.n_steps - LOOKAHEAD
+    ready = {0: -1}            # slot -> first step that may read it
+    busy = {}                  # slot -> last step of a load in flight
+    for s in range(prog.n_steps):
+        (g0, l0, o0), (g1, l1, o1) = prog.steps[s], prog.steps[s + 1]
+        gates = prog.gates[g0:g1]
+        reads = {int(x) // SLOT_BYTES for x in gates[:, :3].ravel()}
+        reads |= {int(x) // SLOT_BYTES for x in prog.stores[o0:o1, 1]}
+        writes = [int(x) // SLOT_BYTES for x in gates[:, 3]]
+        assert len(set(writes)) == len(writes)
+        assert not reads & set(writes), f"step {s} reads what it writes"
+        for _, _, dst in prog.loads[l0:l1].tolist():
+            slot = dst // SLOT_BYTES
+            assert slot != 0
+            ready[slot], busy[slot] = s + LOOKAHEAD, s + LOOKAHEAD - 1
+        for r in reads:
+            assert ready[r] <= s, f"step {s} reads slot {r} too early"
+        for slot in writes:
+            assert slot != 0 and busy.get(slot, -1) < s
+            ready[slot] = s + 1
+    assert (prog.chunks[1:] > prog.chunks[:-1]).all()
+    assert np.diff(prog.steps[prog.chunks, 0]).max(initial=0) \
+        <= prog.chunk_cap <= CHUNK_GATES
+    assert 1 <= prog.warps <= 8
+    assert prog.has_xor or not (prog.gates[:, 0] & 1).any()
 
 
 @pytest.mark.parametrize("op,n_bits", [("addition", 8), ("bitcount", 8),

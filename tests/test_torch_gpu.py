@@ -63,6 +63,75 @@ def test_circuit_kernel_matches_plain(cuda, op, n_bits):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_bits", [1, 8, 16, 31, 32])
+@pytest.mark.parametrize("n_words", [1, 3, 33, 4096 + 5])
+def test_h2v_kernel_on_ragged_word_counts(cuda, n_bits, n_words):
+    vals = _lanes(32 * n_words, 7 * n_words + n_bits).to(cuda)
+    torch.testing.assert_close(h2v_cuda(vals, n_bits),
+                               h2v_plain(vals, n_bits), rtol=0, atol=0)
+
+
+def test_h2v_kernel_on_an_unaligned_view(cuda):
+    vals = _lanes(32 * 70 + 1, 3).to(cuda)[1:]     # 4 bytes past 16
+    torch.testing.assert_close(h2v_cuda(vals, 16), h2v_plain(vals, 16),
+                               rtol=0, atol=0)
+
+
+def _k3_bare(prog, circ, ids, planes):
+    """K3 launched on ``prog`` directly (no counter), and the plain
+    circuit on the same planes."""
+    from repro_torch.kernels.bitplane_ops import _launch
+    out = torch.full((prog.n_outputs, planes[0].shape[1]), 7,
+                     dtype=torch.int32, device=planes[0].device)
+    _launch(prog, torch.from_numpy(prog.code).to(out.device), planes, out)
+    return out, circuit_plain(circ, ids, planes)
+
+
+@pytest.mark.parametrize("warps", range(1, 9))
+@pytest.mark.parametrize("op,n_bits,style", [
+    ("multiplication", 16, "mig"), ("xor_red", 8, "aig")])
+def test_circuit_kernel_at_every_warp_count(cuda, warps, op, n_bits, style):
+    """Every W the host can pick, on a word count that is not a multiple
+    of the 64-word tile; the AIG circuit runs the XOR form."""
+    import dataclasses
+    from repro_torch.kernels.bitplane_ops import lower_circuit
+    spec = get_op(op, n_bits)
+    if style == "mig":
+        _, circ, ids = bitplane._compiled_op(op, n_bits)
+    else:
+        circ, ids = spec.build("aig")
+    planes = [h2v_cuda(_lanes(32 * 999, j).to(cuda), w)
+              for j, w in enumerate(spec.operand_bits)]
+    prog = dataclasses.replace(lower_circuit(circ, ids), warps=warps)
+    assert prog.has_xor == (style == "aig")
+    got, want = _k3_bare(prog, circ, ids, planes)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("op,n_bits,chunk_gates", [
+    ("multiplication", 16, None), ("multiplication", 8, 64),
+    ("division", 16, None), ("multiplication", 32, None),
+    ("division", 32, None)])
+def test_circuit_kernel_over_many_tiles_per_block(cuda, monkeypatch, op,
+                                                  n_bits, chunk_gates):
+    """More tiles than resident blocks, so each block loops over tiles;
+    a program streamed through shared memory in chunks (16- and 32-bit
+    multiplication and division, and 8-bit multiplication cut into
+    chunks of 64 gates) reloads every chunk for every tile."""
+    from repro_torch.kernels import bitplane_ops
+    if chunk_gates:
+        monkeypatch.setattr(bitplane_ops, "CHUNK_GATES", chunk_gates)
+    spec, circ, ids = bitplane._compiled_op(op, n_bits)
+    prog = bitplane_ops.lower_circuit(circ, ids)
+    n_words = (1 << 17) + 37
+    planes = [h2v_cuda(_lanes(32 * n_words, 5 + j).to(cuda), w)
+              for j, w in enumerate(spec.operand_bits)]
+    got, want = _k3_bare(prog, circ, ids, planes)
+    if chunk_gates or op == "division" or n_bits == 32:
+        assert len(prog.chunks) > 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_circuit_kernel_runs_aig_gates(cuda):
     spec = get_op("xor_red", 8)
     circ, ids = spec.build("aig")
