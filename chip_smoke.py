@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py [--json PATH]
 
-Run from a checkout; it puts the checkout's ``src/`` on ``sys.path``
-itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
+Run from a checkout; it puts the checkout's ``src/`` and ``experiments/``
+on ``sys.path`` itself and imports only ``repro_torch`` and
+``popmma_probe`` (no JAX).  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
      and print the ptxas register / shared-memory / spill lines;
   2. K1/K2: transpose 1,048,576 random lanes at 8, 16 and 32 planes; the
      round trip is exact and each kernel equals its plain version bit for
-     bit; each width's wrapper time, bare-launch time (CUDA events), host
-     time per launch and kernel-only time (``torch.profiler``);
+     bit (K2 signed and unsigned); each width's wrapper time, bare-launch
+     time (CUDA events), host time per launch and kernel-only time
+     (``torch.profiler``);
   3. the fast path: ``SimdramDevice(backend="cuda").bbop`` for all 16 ops
      at 8 bits and addition/multiplication/greater at 16 bits, at
      ``DDR4.simd_lanes`` lanes, checked against each op's oracle, plus
@@ -28,10 +30,14 @@ itself and imports only ``repro_torch`` (no JAX).  Phases, one line each:
      device time by kernel and copy, the device's idle share);
   5. the bit-serial matmul (K4): ``bitserial_matmul`` of 2-bit unsigned
      activations by 2-bit signed weights at the im2col shapes of three
-     VGG-16 layers at 224 x 224, checked against exact integer oracles,
-     plus a 1 x 1-bit and a 4 x 4-bit ``quantized_matmul`` (both
-     branches); then K4 against its plain version and beside
-     ``torch._int_mm`` on the unpacked binary matrices;
+     VGG-16 layers at 224 x 224, one fused K4 launch each, checked against
+     exact integer oracles, plus a 1 x 1-bit and a 4 x 4-bit
+     ``quantized_matmul`` (both branches); then the binary MAC rate of
+     each unit K4 could run on (``experiments/popmma_probe.py``, built in
+     phase 1), of which the fastest sets K4's bound; then at each shape
+     K4's fused product against its plain version and ``torch._int_mm``
+     on the 2-bit values, and one binary product against
+     ``torch._int_mm`` on the bits;
   6. the fault path (K6): ``SimdramDevice(backend="bank", fault=...)``
      over the mix queue at 32,768 logical lanes (two replicas fill each
      unit's 65,536 columns) at the paper's sigma = 0.15, checked against
@@ -71,6 +77,7 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src"
+EXPERIMENTS = Path(__file__).resolve().parent / "experiments"
 
 # H100 SXM peaks used for the bounds: HBM3 at
 # 3.35 TB/s; 32-bit bitwise LOP3 (and 32-bit integer add, multiply and
@@ -79,7 +86,13 @@ SRC = Path(__file__).resolve().parent / "src"
 # 4.18 T/s
 HBM_BYTES_PER_S = 3.35e12
 LOP3_PER_S = 64 * 132 * 1.98e9
-POPC_PER_S = 16 * 132 * 1.98e9
+# int8 tensor cores, dense: 1,979 T operations/s (data sheet), half as many
+# multiply-accumulates.  K4's bound takes the larger of this and the
+# binary MAC rates experiments/popmma_probe.py measures in this run (the
+# b1 forms have no data-sheet rate); an int8 MAC on {0, 1} bits is one
+# binary MAC
+INT8_MACS_PER_S = 1979e12 / 2
+PROBE_LIBRARIES = ("units", "wgmma_b1", "wgmma_s8")
 # K6's integer operations, counted from csrc/replay.cu: per word and AP
 # command 8 Philox calls of 10 rounds (2 multiply-high, 2 multiply-low,
 # two 3-input XORs of one LOP3 each) and 2 operations per uniform
@@ -347,19 +360,32 @@ def run() -> dict:
     from repro_torch.kernels.ops import h2v
     from repro_torch.kernels.transpose_kernel import (h2v_cuda, h2v_plain,
                                                       v2h_cuda, v2h_plain)
+    import popmma_probe
 
     dev = torch.device("cuda")
     record: dict = {"card": nvidia_smi("name,power.limit")}
 
     # -- 1. build --------------------------------------------------------
+    # the unit-rate probes of K4's bound (phase 5) build beside the kernels
+    t0 = time.perf_counter()
+    probes = popmma_probe.start_builds(build, PROBE_LIBRARIES)
     build_s = build.build_all()
-    record["build_s"] = build_s
+    probe_libs = popmma_probe.finish_builds(probes)
+    record["build_s"] = time.perf_counter() - t0
     print(f"[1] built {len(build.LIBRARIES)} kernel libraries in "
-          f"{build_s:.1f} s (nvcc runs: {sum(build.BUILDS.values())})")
+          f"{build_s:.1f} s (nvcc runs: {sum(build.BUILDS.values())}) and "
+          f"{len(PROBE_LIBRARIES)} unit-rate probes, "
+          f"{record['build_s']:.1f} s in all")
     for line in build.build_log().splitlines():
         if line.startswith("==") or any(k in line for k in (
                 "Compiling entry", "registers", "spill")):
             print("[1]   " + line.strip())
+    for name, lib in probe_libs.items():
+        log = lib if isinstance(lib, str) else lib.build_log
+        refused = " (refused by nvcc)" if isinstance(lib, str) else ""
+        for line in log.splitlines():
+            if isinstance(lib, str) or "arning" in line:
+                print(f"[1]   probe {name}{refused}: {line.strip()}")
 
     # -- 2. K1/K2 at 1,048,576 lanes --------------------------------------
     n_lanes = DDR4.simd_lanes
@@ -383,16 +409,19 @@ def run() -> dict:
         pk = h2v_cuda(vals, k)
         vk = v2h_cuda(pk)
         err_h = max_abs_err(pk, h2v_plain(vals, k))
-        err_v = max_abs_err(vk, v2h_plain(pk))
+        err_v = max(max_abs_err(vk, v2h_plain(pk)),
+                    max_abs_err(v2h_cuda(pk, signed=True),
+                                v2h_plain(pk, signed=True)))
         torch.cuda.synchronize()
         check(err_h == 0 and err_v == 0,
-              f"K1/K2 at {k} planes disagree with plain")
+              f"K1/K2 at {k} planes disagree with plain (K2 signed and "
+              f"unsigned)")
         h2v_bare = (lambda: build.launch(
             "transpose", "h2v_launch", vals.data_ptr(), pk.data_ptr(),
             n_words, k))
         v2h_bare = (lambda: build.launch(
             "transpose", "v2h_launch", pk.data_ptr(), vk.data_ptr(),
-            n_words, k))
+            n_words, k, 0))
         for name, wrapper, bare in (
                 ("h2v", lambda: h2v_cuda(vals, k), h2v_bare),
                 ("v2h", lambda: v2h_cuda(pk), v2h_bare)):
@@ -418,8 +447,8 @@ def run() -> dict:
         k["shape"] = f"{n_lanes} lanes x 32 planes"
         k["n_calls"] = 1
     print(f"[2] K1/K2 round trip on {n_lanes} lanes: bit-exact at "
-          f"{TRANSPOSE_WIDTHS} planes; at 32: h2v {kern['h2v']['ms']:.4f} "
-          f"ms, v2h {kern['v2h']['ms']:.4f} ms")
+          f"{TRANSPOSE_WIDTHS} planes, K2 signed and unsigned; at 32: h2v "
+          f"{kern['h2v']['ms']:.4f} ms, v2h {kern['v2h']['ms']:.4f} ms")
 
     # -- 3. the fast path: bbop on backend="cuda" (main path) -------------
     inputs = {}
@@ -616,7 +645,7 @@ def run() -> dict:
               f"device busy {b['device_busy_ms']:.3f} ms, idle share "
               f"{b['idle_share']:.4f}; device ms {json.dumps(b['device_ms'])}")
 
-    kern["popmatmul"], counts_mm = matmul_phase(dev, record)
+    kern["popmatmul"], counts_mm = matmul_phase(dev, record, probe_libs)
     kern["faulty_replay"], counts_fault = fault_phase(dev, record, mix_queue)
 
     # -- 7. the kernels line ------------------------------------------------
@@ -681,15 +710,18 @@ def run() -> dict:
     return record
 
 
-def matmul_phase(dev, record: dict):
+def matmul_phase(dev, record: dict, probe_libs: dict):
     """Phase 5: the bit-serial matmul path on K4.  Returns the kernel's
     entry and the launch counts of the path's run."""
     import torch
 
+    import popmma_probe
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.bitserial_matmul import binary_matmul
-    from repro_torch.kernels.ref import binary_matmul_ref
+    from repro_torch.kernels.bitserial_matmul import (binary_matmul,
+                                                      bitserial_planes)
+    from repro_torch.kernels.ref import (binary_matmul_ref,
+                                         bitserial_planes_ref)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     mats = {}
@@ -713,12 +745,13 @@ def matmul_phase(dev, record: dict):
     prods = {name: kops.bitserial_matmul(a, w, 2, 2)
              for name, (a, w) in mats.items()}
     q1_out = kops.quantized_matmul(*q1, 1, 1)       # bit-serial branch
-    q4_out = kops.quantized_matmul(*q4, 4, 4)       # exact float64 branch
+    q4_out = kops.quantized_matmul(*q4, 4, 4)       # 16-bit limb branch
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.LAUNCHES)
-    check(counts["popmatmul"] == 4 * len(VGG16_SHAPES) + 1,
-          f"expected {4 * len(VGG16_SHAPES) + 1} K4 launches, got "
+    # one fused K4 launch per product, all plane pairs inside it
+    check(counts["popmatmul"] == len(VGG16_SHAPES) + 1,
+          f"expected {len(VGG16_SHAPES) + 1} K4 launches, got "
           f"{counts['popmatmul']}")
 
     # exact integer oracles: a float64 product on the card is exact here
@@ -740,54 +773,102 @@ def matmul_phase(dev, record: dict):
                          q4_np[0].astype(np.int64) @ q4_np[1]),
           "quantized_matmul 4x4 disagrees with numpy")
     check(torch.equal(kops.bitserial_matmul(*q4, 4, 4), q4_out),
-          "the bit-serial and float64 routes disagree at 4x4 bits")
+          "the bit-serial and limb routes disagree at 4x4 bits")
     print(f"[5] bitserial_matmul 2x2 bits at VGG-16 "
           f"{', '.join(n for n, *_ in VGG16_SHAPES)}: exact; "
-          f"quantized_matmul 1x1 (K4) and 4x4 (float64) exact; "
+          f"quantized_matmul 1x1 (K4) and 4x4 (16-bit limbs) exact; "
           f"{wall:.3f} s host wall; launches {counts}")
 
-    # K4 against its plain version at conv3_2, and its times beside
-    # torch._int_mm on the unpacked binary matrices of every shape
+    # the units K4 could run on: binary MACs a second, fed from registers
+    # (experiments/popmma_probe.py); the bound takes the fastest exact one
+    rates = popmma_probe.peak_rates(probe_libs, time_ms)
+    record["k4_unit_rates"] = rates
+    units = {u: (r["macs_per_s"], f"{r['label']}, measured")
+             for u, r in rates.items() if "macs_per_s" in r}
+    units["int8_data_sheet"] = (INT8_MACS_PER_S,
+                                "int8 tensor cores, data sheet")
+    best = max(units, key=lambda u: units[u][0])
+    unit_rate, unit_label = units[best]
+    record["k4_bound_unit"] = {"unit": best, "label": unit_label,
+                               "macs_per_s": unit_rate}
+    print("[5] K4's candidate units, binary MACs/s (measured, fed from "
+          "registers): " + ", ".join(
+              f"{u} {r['macs_per_s'] / 1e12:.1f} T" if "macs_per_s" in r
+              else f"{u} refused by nvcc ({r['refused'].splitlines()[-1]})"
+              for u, r in rates.items())
+          + f"; int8 data sheet {INT8_MACS_PER_S / 1e12:.1f} T; the bound "
+          f"takes {best} ({unit_label})")
+
+    # K4 at each shape: the path's fused 2 x 2-bit product (the launch the
+    # path makes) against its plain version and torch._int_mm on the
+    # 2-bit values, and one binary product (plane 0 of each operand)
+    # against torch._int_mm on the bits; bounds: A and W read once, out
+    # written once, and the binary MACs over the fastest unit
     per_shape = {}
     entry = None
+    iw = torch.arange(2, dtype=torch.int32, device=dev)
     for name, (a, w) in mats.items():
-        a_bits, w_bits = a & 1, w & 1               # plane 0 of each
-        ap = kops._pack_bits_matrix(a_bits, 1)
-        wp = kops._pack_bits_matrix(w_bits, 0)
-        m, kw = ap.shape
-        n = wp.shape[1]
-        out = binary_matmul(ap, wp)
-        a8, w8 = a_bits.to(torch.int8), w_bits.to(torch.int8)
-        lib = torch._int_mm(a8, w8)
-        check(torch.equal(lib, out), f"K4 and torch._int_mm disagree at "
-                                     f"{name}")
+        m, n = a.shape[0], w.shape[1]
+        a_pl = kops._pack_bits_matrix((a >> iw[:, None, None]) & 1, 2)
+        w_pl = kops._pack_bits_matrix(((w & 3) >> iw[:, None, None]) & 1, 1)
+        kw = a_pl.shape[2]
+        fused = bitserial_planes(a_pl, w_pl, False, True)
+        a8, w8 = a.to(torch.int8), w.to(torch.int8)
+        check(torch.equal(fused, torch._int_mm(a8, w8)),
+              f"K4 (fused) and torch._int_mm disagree at {name}")
+        fused_out = torch.empty_like(fused)
+        fused_bare = (lambda: build.launch(
+            "popmatmul", "popmatmul_launch", a_pl.data_ptr(),
+            w_pl.data_ptr(), fused_out.data_ptr(), m, n, kw, 2, 2, 0, 1))
         row = {
-            "shape": f"{name}: M={m}, K={32 * kw}, N={n}, one binary product",
-            "ms": time_ms(lambda: binary_matmul(ap, wp), 20),
+            "shape": f"{name}: M={m}, K={32 * kw}, N={n}, 2 x 2 bits "
+                     f"(4 plane pairs, one launch)",
+            "ms": time_ms(lambda: bitserial_planes(a_pl, w_pl, False, True),
+                          20),
+            "device_ms": time_ms(fused_bare, 20),
+            "kernel_ms": kernel_ms(fused_bare, 20, "popmatmul_kernel"),
+            "launch_host_ms": host_ms(fused_bare, 20),
             "library_ms": time_ms(lambda: torch._int_mm(a8, w8), 20),
+            "n_calls": 1,
+            "bound": bound(4 * (2 * m * kw + 2 * kw * n + m * n),
+                           4 * m * n * 32 * kw, unit_rate),
         }
-        bare = (lambda: build.launch(
+        # one binary product
+        ap, wp = a_pl[0], w_pl[0]
+        out = binary_matmul(ap, wp)
+        a1, w1 = (a & 1).to(torch.int8), (w & 1).to(torch.int8)
+        check(torch.equal(torch._int_mm(a1, w1), out),
+              f"K4 and torch._int_mm disagree at {name}")
+        one_bare = (lambda: build.launch(
             "popmatmul", "popmatmul_launch", ap.data_ptr(), wp.data_ptr(),
-            out.data_ptr(), m, n, kw))
-        row["device_ms"] = time_ms(bare, 20)
-        row["kernel_ms"] = kernel_ms(bare, 20, "popmatmul_kernel")
-        row["launch_host_ms"] = host_ms(bare, 20)
-        row["n_calls"] = 1
-        row["bound"] = bound(4 * (m * kw + kw * n + m * n), m * n * kw,
-                             POPC_PER_S)
+            out.data_ptr(), m, n, kw, 1, 1, 0, 0))
+        row["binary"] = {
+            "kernel_ms": kernel_ms(one_bare, 20, "popmatmul_kernel"),
+            "device_ms": time_ms(one_bare, 20),
+            "library_ms": time_ms(lambda: torch._int_mm(a1, w1), 20),
+            "bound": bound(4 * (m * kw + kw * n + m * n), m * n * 32 * kw,
+                           unit_rate),
+        }
         if name == "conv3_2":
-            err = max_abs_err(out, binary_matmul_ref(ap, wp))
-            check(err == 0, "K4 disagrees with its plain version")
-            row["plain_ms"] = time_ms(lambda: binary_matmul_ref(ap, wp), 1,
-                                      warmup=0)
+            err = max(max_abs_err(fused, bitserial_planes_ref(a_pl, w_pl,
+                                                               False, True)),
+                      max_abs_err(out, binary_matmul_ref(ap, wp)))
+            check(err == 0, "K4 disagrees with its plain versions")
+            row["plain_ms"] = time_ms(
+                lambda: bitserial_planes_ref(a_pl, w_pl, False, True), 1,
+                warmup=0)
             row["max_abs_err"] = err
             entry = row
         per_shape[name] = row
-        print(f"[5] K4 at {row['shape']}: {row['ms']:.4f} ms (device "
-              f"{row['device_ms']:.4f}, kernel {row['kernel_ms']:.4f} "
-              f"profiled), torch._int_mm "
+        one = row["binary"]
+        print(f"[5] K4 at {row['shape']}: kernel {row['kernel_ms']:.4f} ms "
+              f"(profiler; bare launch {row['device_ms']:.4f}, wrapper "
+              f"{row['ms']:.4f} by events), torch._int_mm "
               f"{row['library_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
-              f"({row['bound'][1]})")
+              f"({row['bound'][1]}); one binary product: kernel "
+              f"{one['kernel_ms']:.4f} ms, torch._int_mm "
+              f"{one['library_ms']:.4f} ms, bound {one['bound'][0]:.4f} ms "
+              f"({one['bound'][1]})")
     record["k4_per_shape"] = per_shape
     record["matmul_wall_s"] = wall
     b = device_breakdown(lambda: [kops.bitserial_matmul(a, w, 2, 2)
@@ -1025,10 +1106,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
+    if not (SRC / "repro_torch").is_dir() or not (
+            EXPERIMENTS / "popmma_probe.py").is_file():
+        print(f"chip_smoke: no port package under {SRC} or no "
+              f"{EXPERIMENTS / 'popmma_probe.py'}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path[:0] = [str(SRC), str(EXPERIMENTS)]
     card = nvidia_smi("name,power.limit")
     print(f"[0] {card}")
     print(f"[0] python {sys.version.split()[0]}, torch {torch.__version__}, "

@@ -5,9 +5,11 @@ SIMDRAM stores PuM operands *vertically* while the CPU reads/writes
 between layouts on the fly so both coexist.  Counterpart of
 :mod:`repro.core.transpose`:
 
-  - the conversion's executable spec, :func:`swar_transpose_32x32_np`
-    (the conversion itself runs in :mod:`repro_torch.kernels.ops`,
-    ``h2v``/``v2h`` on the K1/K2 kernels);
+  - the conversion itself (`h2v` / `v2h`), a bit-matrix transpose: the
+    plain torch version here (:func:`repro_torch.core.bitplane.pack` /
+    ``unpack``) is the reference's jnp one; the K1/K2 kernels run it in
+    :mod:`repro_torch.kernels.ops`; and its executable spec,
+    :func:`swar_transpose_32x32_np`;
   - its *cost* (`transpose_cost_s`): the unit processes one 64-byte cache
     line per controller cycle, overlapping with DRAM traffic, so cost =
     bytes / channel bandwidth — identical to a plain DRAM stream of the
@@ -18,8 +20,21 @@ between layouts on the fly so both coexist.  Counterpart of
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .timing import DDR4, DramConfig
+
+
+def h2v(values: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Horizontal (N,) ints -> vertical (n_bits, N//32) int32 planes."""
+    from .bitplane import pack
+    return pack(values, n_bits)
+
+
+def v2h(planes: torch.Tensor, signed: bool = False) -> torch.Tensor:
+    """Vertical planes -> horizontal ints."""
+    from .bitplane import unpack
+    return unpack(planes, signed=signed)
 
 
 def swar_transpose_32x32_np(block: np.ndarray) -> np.ndarray:

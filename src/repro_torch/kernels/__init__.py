@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for SIMDRAM's hot spots, with plain versions.
 
-  transpose_kernel.py  K1/K2: the transposition unit (warp ballots)
+  transpose_kernel.py  K1/K2: the transposition unit (SWAR in registers
+                       and warp shuffles)
   bitplane_ops.py      K3: a synthesized circuit as a slot program
   bitserial_matmul.py  K4: the binary popcount matmul
   ops.py               wrappers: padding, sign extension, bbop_cuda,

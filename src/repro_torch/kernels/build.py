@@ -46,7 +46,7 @@ _U64 = ctypes.c_ulonglong
 LIBRARIES = {
     "transpose": ("transpose.cu", {
         "h2v_launch": [_P, _P, _I, _I, _P],
-        "v2h_launch": [_P, _P, _I, _I, _P],
+        "v2h_launch": [_P, _P, _I, _I, _I, _P],
     }),
     "circuit": ("circuit.cu", {
         "circuit_launch": [_P] + [_I] * 9 + [_P] * 5 + [_I, _P],
@@ -57,7 +57,7 @@ LIBRARIES = {
                                  _U64, _I, _I, _I, _I, _P],
     }),
     "popmatmul": ("popmatmul.cu", {
-        "popmatmul_launch": [_P, _P, _P, _I, _I, _I, _P],
+        "popmatmul_launch": [_P, _P, _P] + [_I] * 7 + [_P],
     }),
 }
 

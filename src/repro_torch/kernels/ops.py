@@ -7,7 +7,8 @@ Counterpart of :mod:`repro.kernels.ops`:
               ``bbop_pallas``
   h2v / v2h   the transposition unit (K1/K2)
   bitserial_matmul / quantized_matmul
-              integer matmuls as sums of binary popcount matmuls (K4)
+              integer matmuls as sums of binary popcount matmuls, fused
+              into one K4 launch
 
 Each wrapper runs the device its input tensors are on: the kernels for
 CUDA tensors, the plain versions for CPU tensors.
@@ -20,7 +21,7 @@ import torch
 
 from ..core.bitplane import _compiled_op, host_i32, to_i32_bits
 from .bitplane_ops import circuit_on_planes
-from .bitserial_matmul import binary_matmul
+from .bitserial_matmul import bitserial_planes
 from .build import resolve_device
 from .transpose_kernel import h2v_cuda, v2h_cuda
 
@@ -45,13 +46,8 @@ def v2h(planes: torch.Tensor, *, signed: bool = False) -> torch.Tensor:
     """Transposition unit, vertical -> horizontal: (k <= 32, W) int32 planes
     -> (32 W,) int32 values.  Planes k..31 read as zero; ``signed``
     sign-extends from bit k-1 for k < 32 (a 32-bit result is already the
-    two's-complement view)."""
-    k = planes.shape[0]
-    vals = v2h_cuda(planes.contiguous())
-    if signed and k < 32:
-        sign = (vals >> (k - 1)) & 1
-        return vals - (sign << k)
-    return vals
+    two's-complement view), inside K2's store on a card."""
+    return v2h_cuda(planes.contiguous(), signed)
 
 
 def _lanes_i32(values, dev: torch.device) -> torch.Tensor:
@@ -112,13 +108,14 @@ def bitserial_matmul(a, w, a_bits: int, w_bits: int, *,
                      device=None) -> torch.Tensor:
     """Integer matmul (M, K) x (K, N) -> (M, N) int32, computed bit-serially.
 
-    Decomposes into ``a_bits * w_bits`` binary popcount matmuls, one K4
-    launch each (on CUDA tensors); the MSB planes of signed operands carry
-    negative weight, and the int32 sum wraps as the reference's does.
-    Operands are tensors (run on their device) or host arrays (run on
-    ``device``, default ``"cuda"``).  The reference's TPU tile arguments
-    (``bm``, ``bn``, ``bk``, ``interpret``) have no counterpart: K is
-    padded to whole words only."""
+    Decomposes into ``a_bits * w_bits`` binary popcount matmuls, all in one
+    K4 launch (:func:`~repro_torch.kernels.bitserial_matmul.bitserial_planes`
+    on CUDA tensors); the MSB planes of signed operands carry negative
+    weight, and the int32 sum wraps as the reference's does.  Operands are
+    tensors (run on their device) or host arrays (run on ``device``,
+    default ``"cuda"``).  The reference's TPU tile arguments (``bm``,
+    ``bn``, ``bk``, ``interpret``) have no counterpart: K is padded to
+    whole words only."""
     a = _matmul_operand(a, device)
     w = _matmul_operand(w, a.device if device is None else device)
     m, k = a.shape
@@ -133,51 +130,59 @@ def bitserial_matmul(a, w, a_bits: int, w_bits: int, *,
     pad = -k % 32            # zero features change no popcount
     au = torch.nn.functional.pad(au, (0, pad))
     wu = torch.nn.functional.pad(wu, (0, 0, 0, pad))
-
-    w_planes = [_pack_bits_matrix((wu >> j) & 1, axis_k=0)
-                for j in range(w_bits)]                       # (Kw, N)
-    out = torch.zeros((m, n), dtype=torch.int32, device=a.device)
-    for i in range(a_bits):
-        sa = -1 if (a_signed and i == a_bits - 1) else 1
-        a_planes = _pack_bits_matrix((au >> i) & 1, axis_k=1)   # (M, Kw)
-        for j in range(w_bits):
-            sw = -1 if (w_signed and j == w_bits - 1) else 1
-            part = binary_matmul(a_planes, w_planes[j])
-            out = out + (sa * sw) * (part << (i + j))
-    return out
+    ia = torch.arange(a_bits, dtype=torch.int32, device=a.device)
+    iw = torch.arange(w_bits, dtype=torch.int32, device=a.device)
+    a_planes = _pack_bits_matrix((au >> ia[:, None, None]) & 1, axis_k=2)
+    w_planes = _pack_bits_matrix((wu >> iw[:, None, None]) & 1, axis_k=1)
+    return bitserial_planes(a_planes, w_planes, a_signed, w_signed)
 
 
-# float64 represents every integer below 2**53 exactly
-_F64_EXACT = 1 << 53
+# rows of K per float64 product of 16-bit limbs: a sum of 2 * 2**21 terms
+# below 2**31 each stays below 2**53, where float64 is exact
+_F64_CHUNK = 1 << 21
+_LOW32 = 0xFFFFFFFF
+
+
+def _wrapped_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` of int32 matrices modulo 2**32, as int32: the wrap of the
+    reference's ``jnp.dot(..., preferred_element_type=int32)``, exact for
+    every input.
+
+    PyTorch has no int32 matmul on CUDA, so each operand splits into
+    16-bit limbs, ``x = x_hi 2**16 + x_lo`` with ``x_lo`` in [0, 2**16):
+    ``a w = a_lo w_lo + 2**16 (a_lo w_hi + a_hi w_lo) (mod 2**32)``.
+    ``a_lo w_lo`` and the two cross products (one product over 2K) are
+    float64 matmuls whose terms are below 2**32 and 2**31, so every
+    partial sum is an integer below 2**53, exact in any order, while K
+    is at most ``_F64_CHUNK``; longer K runs in chunks whose sums are
+    taken modulo 2**32 and added."""
+    a = a.to(torch.int64)
+    w = w.to(torch.int64)
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    w_lo, w_hi = w & 0xFFFF, w >> 16
+    out = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.int64,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], _F64_CHUNK):
+        ks = slice(k0, k0 + _F64_CHUNK)
+        low = torch.matmul(a_lo[:, ks].double(), w_lo[ks].double())
+        cross = torch.matmul(torch.cat([a_lo[:, ks], a_hi[:, ks]], 1).double(),
+                             torch.cat([w_hi[ks], w_lo[ks]], 0).double())
+        part = low.to(torch.int64) + ((cross.to(torch.int64) & _LOW32) << 16)
+        out = (out + part) & _LOW32
+    return to_i32_bits(out)
 
 
 def quantized_matmul(a, w, a_bits: int, w_bits: int, **kw) -> torch.Tensor:
     """Offload-style dispatch (the paper's section 4 decision): bit-serial
     for very low precision (``a_bits * w_bits <= 4``, the reference's
-    rule), else a plain integer matmul.
-
-    PyTorch has no int32 matmul on CUDA, so the plain branch takes an
-    exact route: a float64 ``torch.matmul``, which is exact while every
-    partial sum stays below 2**53 — guaranteed when
-    ``K * max|a| * max|w| < 2**53`` (with values inside their widths,
-    ``K (2^a_bits - 1)(2^w_bits - 1) < 2**53``), checked here and raised
-    beyond — then int64, then the low 32 bits as int32: the wrap of the
-    reference's ``jnp.dot(..., preferred_element_type=int32)``, whose
-    int32 sum equals the true sum modulo 2**32."""
+    rule), else a plain integer matmul whose int32 sum wraps as the
+    reference's does, for every int32 input (:func:`_wrapped_matmul`)."""
     if a_bits * w_bits <= 4:
         return bitserial_matmul(a, w, a_bits, w_bits, **kw)
     device = kw.get("device")
     a = _matmul_operand(a, device)
     w = _matmul_operand(w, a.device if device is None else device)
-    k = a.shape[1]
-    amax = int(a.to(torch.int64).abs().max()) if a.numel() else 0
-    wmax = int(w.to(torch.int64).abs().max()) if w.numel() else 0
-    if k * amax * wmax >= _F64_EXACT:
-        raise ValueError(
-            f"K * max|a| * max|w| = {k * amax * wmax} reaches 2**53: a "
-            "float64 matmul would not be exact")
-    exact = torch.matmul(a.to(torch.float64), w.to(torch.float64))
-    return to_i32_bits(exact.to(torch.int64))
+    return _wrapped_matmul(a, w)
 
 
 def to_host(result):

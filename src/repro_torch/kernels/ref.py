@@ -64,6 +64,32 @@ def binary_matmul_ref(a_words: torch.Tensor,
     return out
 
 
+def bitserial_planes_ref(a_planes: torch.Tensor, w_planes: torch.Tensor,
+                         a_signed: bool = False,
+                         w_signed: bool = False) -> torch.Tensor:
+    """The plain version of K4's fused entry: sum over plane pairs of
+    s_i s_j 2^(i+j) binary_matmul_ref(a_planes[i], w_planes[j]), modulo
+    2**32, as int32 (s = -1 on the last plane of a signed operand; a
+    weight of 2**32 or more is 0 modulo 2**32).
+
+    a_planes: (n_a, M, Kw) int32 words, w_planes: (n_w, Kw, N) int32
+    words.  Each popcount sum is below 2**31 and each weight is taken
+    modulo 2**32 first, so every int64 product is exact."""
+    from ..core.bitplane import to_i32_bits
+
+    n_a, n_w = a_planes.shape[0], w_planes.shape[0]
+    out = torch.zeros((a_planes.shape[1], w_planes.shape[2]),
+                      dtype=torch.int64, device=a_planes.device)
+    for i in range(n_a):
+        sa = -1 if (a_signed and i == n_a - 1) else 1
+        for j in range(n_w):
+            sw = -1 if (w_signed and j == n_w - 1) else 1
+            weight = (sa * sw << (i + j)) & 0xFFFFFFFF
+            part = binary_matmul_ref(a_planes[i], w_planes[j])
+            out = (out + part.to(torch.int64) * weight) & 0xFFFFFFFF
+    return to_i32_bits(out)
+
+
 def bitserial_matmul_ref(
     a: torch.Tensor, w: torch.Tensor, a_bits: int, w_bits: int,
     a_signed: bool = False, w_signed: bool = True,

@@ -2,10 +2,11 @@
 
 Counterpart of :mod:`repro.kernels.transpose_kernel` (``h2v_pallas`` /
 ``v2h_pallas``, a SWAR 32x32 bit transpose per tile).  The CUDA kernels
-are in ``csrc/transpose.cu``: K1 runs the SWAR network in registers and
-across lanes with warp shuffles, K2 uses one warp per 32 lanes and 32
-warp ballots; the plain versions beside them run the same SWAR network
-as the reference, on int32 bit-views of the uint32 words.
+are in ``csrc/transpose.cu``: both run the SWAR network in registers and
+across lanes with warp shuffles, with every 16-byte load issued first;
+K2 also sign-extends in its store when asked.  The plain versions beside
+them run the same SWAR network as the reference, on int32 bit-views of
+the uint32 words.
 
 Layout contract (as :func:`repro_torch.core.bitplane.pack`):
   values (N,) int32       lane l's value (N a multiple of 32)
@@ -59,13 +60,18 @@ def h2v_plain(values: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     return _swar_transpose_tile(tiles).T[:n_bits].contiguous()
 
 
-def v2h_plain(planes: torch.Tensor) -> torch.Tensor:
+def v2h_plain(planes: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """(k <= 32, W) int32 planes -> (32 W,) int32 lane values; planes k..31
-    read as zero."""
+    read as zero, and ``signed`` sign-extends from bit k - 1 for k < 32,
+    as the reference's ``ops.v2h(signed=True)`` does (a 1-bit value is
+    then {0, -1}; a 32-bit value is already its two's-complement view)."""
     k, w = planes.shape
     full = torch.zeros((32, w), dtype=torch.int32, device=planes.device)
     full[:k] = planes
-    return _swar_transpose_tile(full.T.contiguous()).reshape(32 * w)
+    vals = _swar_transpose_tile(full.T.contiguous()).reshape(32 * w)
+    if signed and k < 32:
+        return vals - (((vals >> (k - 1)) & 1) << k)
+    return vals
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -96,18 +102,18 @@ def h2v_cuda(values: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
     return planes
 
 
-def v2h_cuda(planes: torch.Tensor) -> torch.Tensor:
+def v2h_cuda(planes: torch.Tensor, signed: bool = False) -> torch.Tensor:
     """K2: (k <= 32, W) int32 planes -> (32 W,) int32 lane values; planes
-    k..31 read as zero."""
+    k..31 read as zero; ``signed`` sign-extends as :func:`v2h_plain`."""
     _check(planes, "planes")
     k, w = planes.shape
     if not 1 <= k <= 32:
         raise ValueError(f"v2h takes 1..32 planes, got {k}")
     if planes.device.type == "cpu":
-        return v2h_plain(planes)
+        return v2h_plain(planes, signed)
     values = torch.empty((32 * w,), dtype=torch.int32, device=planes.device)
     if w:
         build.launch("transpose", "v2h_launch", planes.data_ptr(),
-                     values.data_ptr(), w, k)
+                     values.data_ptr(), w, k, int(signed))
         build.LAUNCHES["v2h"] += 1
     return values

@@ -77,6 +77,30 @@ def test_h2v_kernel_on_an_unaligned_view(cuda):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("k", range(1, 33))
+@pytest.mark.parametrize("signed", [False, True])
+def test_v2h_kernel_at_every_width(cuda, k, signed):
+    """K2 at every plane count, on ragged word counts (the tail of a
+    32-word block, and word counts not a multiple of 4: plain loads)."""
+    before = build.LAUNCHES["v2h"]
+    for n_words in (1, 3, 33, 64, 4096 + 5):
+        planes = _lanes(k * n_words, 31 * k + n_words).reshape(
+            k, n_words).to(cuda)
+        torch.testing.assert_close(v2h_cuda(planes, signed),
+                                   v2h_plain(planes, signed), rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["v2h"] == before + 5
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 31])
+def test_v2h_kernel_on_an_unaligned_view(cuda, signed, k):
+    planes = _lanes(k * 64 + 1, k).to(cuda)[1:].reshape(k, 64)  # 4 bytes
+    assert planes.data_ptr() % 16                               # past 16
+    torch.testing.assert_close(v2h_cuda(planes, signed),
+                               v2h_plain(planes, signed), rtol=0, atol=0)
+
+
 def _k3_bare(prog, circ, ids, planes):
     """K3 launched on ``prog`` directly (no counter), and the plain
     circuit on the same planes."""
@@ -328,8 +352,12 @@ def test_bank_dispatch_on_card_equals_cpu(cuda):
 
 # -- K4: the binary popcount matmul ------------------------------------------
 
-@pytest.mark.parametrize("m,kw,n", [(100, 7, 70), (64, 32, 64), (1, 1, 1),
-                                    (3136, 72, 256)])
+@pytest.mark.parametrize("m,kw,n", [
+    (100, 7, 70), (64, 32, 64), (1, 1, 1), (3136, 72, 256),
+    (65, 17, 63), (64, 16, 64), (130, 34, 129),    # tile and stage edges
+    (5, 64, 5), (200, 130, 70), (70, 49, 200),     # split K, ragged splits
+    (50176, 18, 64), (784, 144, 512),              # VGG-16 conv1_2, conv4_2
+])
 def test_popmatmul_kernel_matches_plain(cuda, m, kw, n):
     from repro_torch.kernels.bitserial_matmul import binary_matmul
     from repro_torch.kernels.ref import binary_matmul_ref
@@ -350,7 +378,7 @@ def test_bitserial_and_quantized_matmul_on_card_equal_cpu(cuda):
     want = a.to(torch.int64) @ w.to(torch.int64)
     before = build.LAUNCHES["popmatmul"]
     got = ops.bitserial_matmul(a.to(cuda), w.to(cuda), 2, 2)
-    assert build.LAUNCHES["popmatmul"] == before + 4
+    assert build.LAUNCHES["popmatmul"] == before + 1     # pairs fused
     torch.testing.assert_close(got.cpu(), want.to(torch.int32), rtol=0,
                                atol=0)
     a8 = torch.from_numpy(rng.integers(-2**15, 2**15, (64, 96))
@@ -360,6 +388,34 @@ def test_bitserial_and_quantized_matmul_on_card_equal_cpu(cuda):
     torch.testing.assert_close(
         ops.quantized_matmul(a8.to(cuda), w8.to(cuda), 16, 16).cpu(),
         ops.quantized_matmul(a8, w8, 16, 16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n,a_bits,w_bits,a_signed,w_signed", [
+    (100, 300, 70, 1, 1, False, False),
+    (100, 300, 70, 2, 2, False, True),
+    (65, 1000, 129, 3, 4, True, True),   # runs that begin inside pairs
+    (33, 2304, 40, 8, 8, True, True),
+    (20, 64, 9, 32, 32, True, True),     # weights of 2**32 and more
+    (784, 4608, 512, 2, 2, False, True),  # VGG-16 conv4_2
+])
+def test_fused_planes_kernel_matches_plain(cuda, m, k, n, a_bits, w_bits,
+                                           a_signed, w_signed):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(m + k + n + a_bits)
+    lo_a = -(1 << (a_bits - 1)) if a_signed else 0
+    lo_w = -(1 << (w_bits - 1)) if w_signed else 0
+    a = torch.from_numpy(rng.integers(lo_a, lo_a + (1 << a_bits), (m, k))
+                         .astype(np.int32))
+    w = torch.from_numpy(rng.integers(lo_w, lo_w + (1 << w_bits), (k, n))
+                         .astype(np.int32))
+    before = build.LAUNCHES["popmatmul"]
+    got = ops.bitserial_matmul(a.to(cuda), w.to(cuda), a_bits, w_bits,
+                               a_signed=a_signed, w_signed=w_signed)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["popmatmul"] == before + 1
+    want = ops.bitserial_matmul(a, w, a_bits, w_bits, a_signed=a_signed,
+                                w_signed=w_signed)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 # -- K6: the fault-injected replay -------------------------------------------

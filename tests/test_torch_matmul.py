@@ -14,7 +14,8 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.kernels.bitserial_matmul import binary_matmul as ref_binary_matmul
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bitserial_matmul import binary_matmul
+from repro_torch.kernels.bitserial_matmul import (binary_matmul,
+                                                  bitserial_planes)
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -152,11 +153,33 @@ def test_quantized_matmul_matches_reference(a_bits, w_bits, a_range,
         assert np.abs(exact).max() >= 2**31        # the case wraps
 
 
-def test_quantized_matmul_raises_where_float64_is_not_exact():
-    a = torch.full((2, 4), 2**30, dtype=torch.int32)
-    w = torch.full((4, 2), 2**30, dtype=torch.int32)
-    with pytest.raises(ValueError, match="2\\*\\*53"):
-        ops.quantized_matmul(a, w, 31, 31)
+@pytest.mark.parametrize("m,k,n,bits", [
+    (5, 1, 4, 32),       # full-range int32: one product already wraps
+    (5, 7, 4, 32),
+    (6, 300, 5, 32),
+    (6, 300, 5, 16),     # 16-bit operands
+    (2, (1 << 21) + 5, 2, 32),   # K over one float64 chunk
+])
+def test_quantized_matmul_wraps_as_the_reference_at_every_width(m, k, n,
+                                                                bits):
+    rng = np.random.default_rng(k + bits)
+    lo, hi = -(1 << (bits - 1)), 1 << (bits - 1)
+    a = rng.integers(lo, hi, size=(m, k)).astype(np.int32)
+    w = rng.integers(lo, hi, size=(k, n)).astype(np.int32)
+    a[0, 0], w[0, 0] = lo, lo              # the extremes of the width
+    if k > 1:
+        a[-1, -1], w[-1, -1] = hi - 1, hi - 1
+    want = np.asarray(ref_ops.quantized_matmul(jnp.asarray(a),
+                                               jnp.asarray(w), bits, bits))
+    got = ops.quantized_matmul(torch.from_numpy(a), torch.from_numpy(w),
+                               bits, bits)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if k < 1000:     # Python integers: the true sum, wrapped to int32
+        wrapped = [[(sum(int(x) * int(y) for x, y in zip(a[i], w[:, j]))
+                     + 2**31) % 2**32 - 2**31 for j in range(n)]
+                   for i in range(m)]
+        np.testing.assert_array_equal(want, np.array(wrapped, np.int64))
 
 
 def test_pack_bits_matrix_matches_reference():
@@ -168,3 +191,63 @@ def test_pack_bits_matrix_matches_reference():
     want0 = np.asarray(ref_ops._pack_bits_matrix(jnp.asarray(x.T), 0))
     got0 = ops._pack_bits_matrix(torch.from_numpy(x.T.copy()), 0)
     np.testing.assert_array_equal(got0.numpy().view(np.uint32), want0)
+
+
+@pytest.mark.parametrize("a_bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("w_bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("signed", [False, True])
+def test_fused_planes_plain_matches_reference(a_bits, w_bits, signed):
+    """K4's fused entry (every plane pair in one launch on a card) through
+    its plain version, against the reference's bitserial_matmul."""
+    rng = np.random.default_rng(a_bits * 100 + w_bits * 10 + signed)
+    m, k, n = 9, 70, 6                       # K pads to three words
+    alo = -(1 << (a_bits - 1)) if signed and a_bits > 1 else 0
+    wlo = -(1 << (w_bits - 1)) if signed and w_bits > 1 else 0
+    a = rng.integers(alo, alo + (1 << a_bits), size=(m, k)).astype(np.int32)
+    w = rng.integers(wlo, wlo + (1 << w_bits), size=(k, n)).astype(np.int32)
+    want = np.asarray(ref_ops.bitserial_matmul(
+        jnp.asarray(a), jnp.asarray(w), a_bits, w_bits, a_signed=signed,
+        w_signed=signed, bm=8, bn=8, bk=1))
+    np.testing.assert_array_equal(want, a.astype(np.int64) @ w)
+    au = (a & ((1 << a_bits) - 1)).astype(np.int64)
+    wu = (w & ((1 << w_bits) - 1)).astype(np.int64)
+    au = np.pad(au, ((0, 0), (0, 26)))
+    wu = np.pad(wu, ((0, 26), (0, 0)))
+    a_planes = np.stack([np.asarray(ref_ops._pack_bits_matrix(
+        jnp.asarray((au >> i) & 1), 1)) for i in range(a_bits)])
+    w_planes = np.stack([np.asarray(ref_ops._pack_bits_matrix(
+        jnp.asarray((wu >> j) & 1), 0)) for j in range(w_bits)])
+    # as ops.bitserial_matmul passes them: a 1-bit operand is unsigned
+    sa, sw = signed and a_bits > 1, signed and w_bits > 1
+    got = bitserial_planes(_i32(a_planes), _i32(w_planes), sa, sw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ref.bitserial_planes_ref(_i32(a_planes), _i32(w_planes), sa,
+                                 sw).numpy(), want)
+
+
+def test_fused_planes_weights_wrap_modulo_2_to_the_32():
+    """Plane pairs whose weight reaches 2**32 add nothing, and the sum
+    wraps: 32 x 32-bit operands give the true product modulo 2**32 (the
+    reference cannot run 32-bit planes: its mask ``(1 << 32) - 1``
+    overflows int32)."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(-2**31, 2**31, size=(4, 64)).astype(np.int32)
+    w = rng.integers(-2**31, 2**31, size=(64, 3)).astype(np.int32)
+    exact = a.astype(object) @ w.astype(object)
+    wrapped = np.vectorize(lambda v: (v + 2**31) % 2**32 - 2**31)(exact)
+    got = ops.bitserial_matmul(torch.from_numpy(a), torch.from_numpy(w), 32,
+                               32, a_signed=True, w_signed=True)
+    np.testing.assert_array_equal(got.numpy(), wrapped.astype(np.int64))
+
+
+def test_fused_planes_rejects_bad_inputs():
+    a = torch.zeros((2, 4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="inner dimensions"):
+        bitserial_planes(a, torch.zeros((2, 4, 5), dtype=torch.int32))
+    with pytest.raises(ValueError, match="3-D"):
+        bitserial_planes(a[0], torch.zeros((3, 5), dtype=torch.int32))
+    with pytest.raises(ValueError, match="1..32 planes"):
+        bitserial_planes(torch.zeros((33, 4, 3), dtype=torch.int32),
+                         torch.zeros((1, 3, 5), dtype=torch.int32))
