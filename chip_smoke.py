@@ -18,13 +18,18 @@ on ``sys.path`` itself and imports only ``repro_torch`` and
      at 8 bits and addition/multiplication/greater at 16 bits, at
      ``DDR4.simd_lanes`` lanes, checked against each op's oracle, plus
      one ``backend="bitplane"`` call; then K3 against the plain circuit,
-     with each op's times as in phase 2 and its program's gates, levels,
-     slots and warps;
+     and K1 and K2 against theirs at each op's operand and output
+     widths, with each op's times as in phase 2 and its program's gates,
+     levels, slots and warps (the ``bitplane`` call's K3 launch repeats
+     addition/8's at its shape, so 19 comparisons cover 20 launches);
   4. the slice: ``SimdramDevice(backend="bank").dispatch`` of the mix and
      chain queues of ``benchmarks/bank_scaling.py`` at 65,536 lanes per
      instruction, checked against the numpy oracle, with 5 K5 launches;
-     then each of the mix queue's fused waves through K5 (with the wave's
-     cached schedule) and through the plain replay, each wave's device
+     K1 on the chain's entry operand and K2 on its vertical results
+     against their plain versions; then each of the mix queue's fused
+     waves through K5 (with the wave's cached schedule) and through the
+     plain replay, and the chain queue's waves of a repeat of its
+     dispatch likewise; each mix wave's device
      time, longest real command count and time per command, and a
      repeat of both dispatches under ``torch.profiler`` (host wall,
      device time by kernel and copy, the device's idle share);
@@ -37,7 +42,8 @@ on ``sys.path`` itself and imports only ``repro_torch`` and
      phase 1), of which the fastest sets K4's bound; then at each shape
      K4's fused product against its plain version and ``torch._int_mm``
      on the 2-bit values, and one binary product against
-     ``torch._int_mm`` on the bits;
+     ``torch._int_mm`` on the bits; every K4 launch of the path has its
+     twin compared with the plain version;
   6. the fault path (K6): ``SimdramDevice(backend="bank", fault=...)``
      over the mix queue at 32,768 logical lanes (two replicas fill each
      unit's 65,536 columns) at the paper's sigma = 0.15, checked against
@@ -47,18 +53,43 @@ on ``sys.path`` itself and imports only ``repro_torch`` and
      a dead-unit run that must heal exactly by blacklisting; a
      stuck-column run with 1e-3 flips that must exhaust every unit as the
      reference does, or return exact results; K6
-     against its plain version bit for bit on every wave; a disabled
+     against its plain version bit for bit on every attempt of the sigma
+     run and on every wave with all three failure modes; a disabled
      model launches no K6;
-  7. one JSON line with every kernel's launches on its path, its
-     agreement with its plain version, its time (CUDA events), its
+  7. the ladder at full width (``DDR4``, 65,536 columns a subarray, 16
+     banks a chip): ``SimdramDevice(backend="chip")`` (16 units),
+     ``backend="channel"`` with 8 chips (128 units) and ``backend="rank"``
+     with 2 channels of 8 chips (256 units) each dispatch the mix queue
+     with two instructions a unit and the chain queue at 65,536 lanes an
+     instruction, and run one ``bbop`` over all their lanes; every result
+     equals the oracle and the tier's ``sequential_*`` baseline, and each
+     stacked round is one K5 launch.  Per tier: first and warm wall, pack
+     wall, table-cache hits, misses and bytes, the card's busy time and
+     idle share and host-to-device copies (profiler), each round's K5
+     kernel time beside its bound, and the modeled latency and transfer
+     fields.  Every round of a repeat of the counted run (its twin) goes
+     through K5 and the plain replay, which must agree bit for bit, and
+     K1 and K2 of the chain queue are held against theirs.  Then the
+     fault wrappers on the chip and a 2-chip channel: sigma 0.15 with
+     two replicas (wrong lanes bounded as in phase 6), dead units and
+     sparse stuck columns (both exact), one K6 launch per attempt of a
+     round, and K6 against its plain version, states and flip counts,
+     on every attempt of the three runs;
+  8. one JSON line with every kernel's launches on its path, its
+     agreement with its plain version (per path: the launches, the
+     calls compared at the path's shapes and their largest error;
+     ``max_abs_err`` is the largest over the paths, and every path with
+     a launch must have a comparison), its time (CUDA events), its
      kernel-only time (profiler), the plain version's time, its bound on
      the card and, where one PyTorch call computes the same function,
      that call's time; K5 and K6 add each wave's device and kernel time,
-     the longest unit's real command count and ns per real command; and
-     the kernels ranked by launches x (kernel time - bound) per call.
+     the longest unit's real command count and ns per real command, and
+     the ladder's rounds; and the kernels ranked by launches x (kernel
+     time - bound) per call.
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
-and 6) and read just after; comparison launches come after the read.
+and 6, and each tier of phase 7) and read just after; comparison
+launches come after the read.
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line.  The last line is the device
 JSON.
@@ -67,6 +98,7 @@ JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -109,6 +141,15 @@ VGG16_SHAPES = (("conv1_2", 224 * 224, 9 * 64, 64),
                 ("conv4_2", 28 * 28, 9 * 512, 512))
 FAULT_LANES = 32768
 STUCK_LANES = 16384          # three replicas fill 49,152 of 65,536 columns
+# the ladder's tiers at full width: (backend, chips a channel, channels);
+# two mix instructions a unit
+LADDER = (("chip", 1, 1), ("channel", 8, 1), ("rank", 8, 2))
+LADDER_FAULT = (("chip", 1), ("channel", 2))
+# the ladder's stuck-only run: at the bank run's 0.02 every unit holds
+# lanes with two replicas on stuck columns and is retired (phase 6); at
+# 1e-4 a unit holds about one cluster of 4 stuck columns, so the vote
+# outvotes each stuck replica and the run must be exact
+LADDER_STUCK_RATE = 1e-4
 # The fault layer's vote accepts a wrong value when the replicas of a
 # lane were corrupted alike, in the reference as in the port, so the
 # sigma = 0.15 run is not exact at this scale.  experiments/fault_share.py
@@ -225,8 +266,10 @@ def kernel_ms(fn, reps: int, name: str, attempts: int = 3) -> float:
                 n += e.count
         if n > 0:
             return us / n / 1e3
+    seen = sorted({kernel_name(e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
     raise SmokeFailure(f"the profiler saw no {name} launch in {attempts} "
-                       f"sessions")
+                       f"sessions; the last saw device events {seen}")
 
 
 def device_breakdown(fn) -> dict:
@@ -405,6 +448,7 @@ def run() -> dict:
     # and the kernel alone (the profiler); bytes: each lane value once and
     # each plane word once
     kern = {"h2v": {"per_width": {}}, "v2h": {"per_width": {}}}
+    errs_t = {"h2v": [err_h2v], "v2h": [err_v2h]}
     for k in TRANSPOSE_WIDTHS:
         pk = h2v_cuda(vals, k)
         vk = v2h_cuda(pk)
@@ -416,6 +460,8 @@ def run() -> dict:
         check(err_h == 0 and err_v == 0,
               f"K1/K2 at {k} planes disagree with plain (K2 signed and "
               f"unsigned)")
+        errs_t["h2v"].append(err_h)
+        errs_t["v2h"].append(err_v)
         h2v_bare = (lambda: build.launch(
             "transpose", "h2v_launch", vals.data_ptr(), pk.data_ptr(),
             n_words, k))
@@ -483,14 +529,30 @@ def run() -> dict:
     # wrapper, the bare launch (events) and the kernel alone (profiler)
     k3 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "kernel_ms": 0.0,
           "plain_ms": 0.0, "bytes": 0, "ops": 0, "n_calls": len(FAST_PATH)}
-    per_op = {}
+    per_op, errs_k3 = {}, []
     for op, w in FAST_PATH:
         spec, circ, ids = bitplane._compiled_op(op, w)
-        ops_planes = [h2v(torch.from_numpy(bitplane.host_i32(v)).to(dev), b)
-                      for v, b in zip(inputs[(op, w)], spec.operand_bits)]
+        vals_t = [torch.from_numpy(bitplane.host_i32(v)).to(dev)
+                  for v in inputs[(op, w)]]
+        ops_planes = [h2v(t, b) for t, b in zip(vals_t, spec.operand_bits)]
         out = circuit_on_planes(circ, ids, ops_planes)
         err = max_abs_err(out, circuit_plain(circ, ids, ops_planes))
         check(err == 0, f"K3 {op}/{w} disagrees with the plain circuit")
+        errs_k3.append(err)
+        # the fast path's transposes at this op's widths: K1 on each
+        # operand, K2 (unsigned and signed) on each output
+        errs_t["h2v"] += [max_abs_err(pl, h2v_plain(t, b)) for pl, t, b in
+                          zip(ops_planes, vals_t, spec.operand_bits)]
+        ends = np.cumsum(spec.out_bits)
+        check(ends[-1] == out.shape[0], f"{op}/{w}: {out.shape[0]} output "
+              f"planes for widths {spec.out_bits}")
+        for lo, hi in zip(ends - spec.out_bits, ends):
+            sl = out[lo:hi].contiguous()
+            errs_t["v2h"] += [max_abs_err(v2h_cuda(sl, signed=sg),
+                                          v2h_plain(sl, signed=sg))
+                              for sg in (False, True)]
+        check(max(errs_t["h2v"] + errs_t["v2h"]) == 0,
+              f"K1/K2 at {op}/{w}'s widths disagree with plain")
         prog = slot_program(circ, ids)
         code = torch.from_numpy(prog.code).to(dev)
         words = out.shape[1]
@@ -530,6 +592,12 @@ def run() -> dict:
                    f"bits) x {n_lanes} lanes")
     kern["circuit"] = k3
     record["k3_per_op"] = per_op
+    # the fast path's transposes run at phase 2's lanes and widths
+    for name, errs in errs_t.items():
+        kern[name]["agreement"] = {}
+        _agree(kern[name]["agreement"], "fast", counts_fast[name], errs)
+    k3["agreement"] = {}
+    _agree(k3["agreement"], "fast", counts_fast["circuit"], errs_k3)
     print(f"[3] K3 vs plain circuit on the card: bit-exact for "
           f"{len(FAST_PATH)} ops; kernel total {k3['kernel_ms']:.4f} ms "
           f"(profiler), wrapper {k3['ms']:.3f} ms, bound "
@@ -548,6 +616,9 @@ def run() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts_bank = dict(build.LAUNCHES)
+    for name, errs in _chain_transposes(dev, chain, chain_raw, res_chain,
+                                        [v[0] for v in chain_vals]).items():
+        _agree(kern[name]["agreement"], "bank", counts_bank[name], errs)
     for i, ins in enumerate(mix):
         spec = get_op(ins.op, ins.n_bits)
         check(masked_equal(res_mix[i], spec.oracle(*ins.operands),
@@ -579,6 +650,7 @@ def run() -> dict:
     k5 = {"max_abs_err": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
           "bytes": 0, "ops": 0, "wave_device_ms": [], "wave_kernel_ms": [],
           "longest_unit_cmds": [], "ns_per_real_cmd": []}
+    errs_k5 = []
     for wave in waves:
         states_np, ct, _ = bank._pack_wave(mix, wave, q_lanes, {})
         tables, schedule = ct
@@ -587,6 +659,7 @@ def run() -> dict:
         out_p = replay_plain(states, tables)
         err = max_abs_err(out_k, out_p)
         check(err == 0, "K5 disagrees with the plain replay")
+        errs_k5.append(err)
         n_units, n_rows, w_words = states.shape
         out = torch.empty_like(states)
         n_cmds = tables.shape[1]
@@ -607,6 +680,17 @@ def run() -> dict:
         add_replay_wave(k5, wave_ms, tables, schedule)
     k5["kernel_ms"] = sum(k5["wave_kernel_ms"])
     k5["n_calls"] = len(waves)
+    # the chain queue's waves forward planes between waves, so they are
+    # taken from a repeat of its dispatch
+    with _RecordedInterpreter(bank_mod, "hetero_batched_interpreter") as rec:
+        [flatten_result(r) for r in SimdramDevice(
+            backend="bank", device="cuda").dispatch(chain)]
+    check(len(waves) + len(rec) == counts_bank["replay"],
+          f"{len(waves)} mix and {len(rec)} chain waves for "
+          f"{counts_bank['replay']} K5 launches")
+    errs_k5 += [_round_k5(dev, st, ct, reps=1)[2] for st, ct in rec]
+    k5["agreement"] = {}
+    _agree(k5["agreement"], "bank", counts_bank["replay"], errs_k5)
     k5["bound"] = bound(k5["bytes"], k5["ops"])
     k5["shape"] = (f"sum over the mix queue's {len(waves)} fused waves, "
                    f"{DDR4.n_banks} units x {lanes} columns")
@@ -647,8 +731,9 @@ def run() -> dict:
 
     kern["popmatmul"], counts_mm = matmul_phase(dev, record, probe_libs)
     kern["faulty_replay"], counts_fault = fault_phase(dev, record, mix_queue)
+    counts_ladder = ladder_phase(dev, record, kern)
 
-    # -- 7. the kernels line ------------------------------------------------
+    # -- 8. the kernels line ------------------------------------------------
     for name in ("h2v", "v2h", "circuit", "replay"):
         n = counts_fast[name] + counts_bank[name]
         check(n > 0, f"kernel {name} was not launched on the main path")
@@ -661,9 +746,11 @@ def run() -> dict:
           f"expected 5 K5 launches on the bank path, got "
           f"{counts_bank['replay']}")
     launches = {name: counts_fast[name] + counts_bank[name]
+                + counts_ladder[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
-    launches["faulty_replay"] = counts_fault["faulty_replay"]
+    launches["faulty_replay"] = (counts_fault["faulty_replay"]
+                                 + counts_ladder["faulty_replay"])
     meta = {
         "h2v": ("src/repro_torch/csrc/transpose.cu",
                 "src/repro/kernels/transpose_kernel.py:75"),
@@ -681,11 +768,21 @@ def run() -> dict:
     line = []
     for name, (source, replaces) in meta.items():
         k = kern[name]
+        # every launch of the main path had a twin at its shape compared
+        # with the plain version; max_abs_err covers those comparisons
+        agreement = k["agreement"]
+        on_path = sum(a["launches"] for a in agreement.values())
+        check(on_path == launches[name], f"{name}: {on_path} launches in "
+              f"its agreement, {launches[name]} on the main path")
+        check(all(a["compared"] > 0 for a in agreement.values()),
+              f"{name}: a path without a comparison: {agreement}")
+        k["max_abs_err"] = max(a["max_abs_err"] for a in agreement.values())
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "max_abs_err": k["max_abs_err"], "agreement": agreement,
+            "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k.get("library_ms"),
             "device_ms": k["device_ms"], "kernel_ms": k["kernel_ms"],
@@ -696,17 +793,18 @@ def run() -> dict:
             "tolerance": "bit-exact (max_abs_err 0 over int32 words)",
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
-                    "ns_per_real_cmd", "per_width"):
+                    "ns_per_real_cmd", "per_width", "ladder"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
     order = sorted(line, key=lambda k: -k["rank_ms"])
-    print("[7] launches x (kernel ms - bound ms) per call: " + ", ".join(
+    print("[8] launches x (kernel ms - bound ms) per call: " + ", ".join(
         f"{k['name']} {k['rank_ms']:.4f}" for k in order))
     record["launches_fast_path"] = counts_fast
     record["launches_bank"] = counts_bank
     record["launches_matmul"] = counts_mm
     record["launches_fault"] = counts_fault
+    record["launches_ladder"] = counts_ladder
     return record
 
 
@@ -774,6 +872,12 @@ def matmul_phase(dev, record: dict, probe_libs: dict):
           "quantized_matmul 4x4 disagrees with numpy")
     check(torch.equal(kops.bitserial_matmul(*q4, 4, 4), q4_out),
           "the bit-serial and limb routes disagree at 4x4 bits")
+    # the 1 x 1-bit product's K4 launch against the plain version, which
+    # the same entry point runs on CPU tensors
+    errs_k4 = [max_abs_err(q1_out, kops.quantized_matmul(
+        *[x.cpu() for x in q1], 1, 1).to(dev))]
+    check(errs_k4[0] == 0, "quantized_matmul 1x1 disagrees with its plain "
+          "version")
     print(f"[5] bitserial_matmul 2x2 bits at VGG-16 "
           f"{', '.join(n for n, *_ in VGG16_SHAPES)}: exact; "
           f"quantized_matmul 1x1 (K4) and 4x4 (16-bit limbs) exact; "
@@ -849,15 +953,16 @@ def matmul_phase(dev, record: dict, probe_libs: dict):
             "bound": bound(4 * (m * kw + kw * n + m * n), m * n * 32 * kw,
                            unit_rate),
         }
+        err = max(max_abs_err(fused, bitserial_planes_ref(a_pl, w_pl,
+                                                           False, True)),
+                  max_abs_err(out, binary_matmul_ref(ap, wp)))
+        check(err == 0, f"K4 disagrees with its plain versions at {name}")
+        errs_k4.append(err)
+        row["max_abs_err"] = err
         if name == "conv3_2":
-            err = max(max_abs_err(fused, bitserial_planes_ref(a_pl, w_pl,
-                                                               False, True)),
-                      max_abs_err(out, binary_matmul_ref(ap, wp)))
-            check(err == 0, "K4 disagrees with its plain versions")
             row["plain_ms"] = time_ms(
                 lambda: bitserial_planes_ref(a_pl, w_pl, False, True), 1,
                 warmup=0)
-            row["max_abs_err"] = err
             entry = row
         per_shape[name] = row
         one = row["binary"]
@@ -871,6 +976,11 @@ def matmul_phase(dev, record: dict, probe_libs: dict):
               f"({one['bound'][1]})")
     record["k4_per_shape"] = per_shape
     record["matmul_wall_s"] = wall
+    # the path's launches are the three fused products and the 1 x 1-bit
+    # product, each compared above
+    entry["agreement"] = {}
+    _agree(entry["agreement"], "matmul", counts["popmatmul"], errs_k4)
+    entry["max_abs_err"] = max(errs_k4)
     b = device_breakdown(lambda: [kops.bitserial_matmul(a, w, 2, 2)
                                   for a, w in mats.values()])
     record["matmul_breakdown"] = b
@@ -907,11 +1017,16 @@ def fault_phase(dev, record: dict, mix_queue):
 
     build.reset_launches()
     t0 = time.perf_counter()
-    fdev = SimdramDevice(backend="bank", device=dev, fault=model)
-    res = fdev.dispatch(fmix)
-    torch.cuda.synchronize()
+    with _RecordedInterpreter(bank_mod, "faulty_batched_interpreter") as rec:
+        fdev = SimdramDevice(backend="bank", device=dev, fault=model)
+        res = fdev.dispatch(fmix)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.LAUNCHES)
+    check(len(rec) == counts["faulty_replay"],
+          f"{len(rec)} faulty runs for {counts['faulty_replay']} K6 launches")
+    # K6 against its plain version on every attempt of this run
+    errs_k6 = [_k6_attempt(dev, args, timed=False)[0] for args in rec]
     fs = fdev.bank().stats.faults
     check(counts["faulty_replay"] > 0, "the fault path did not launch K6")
 
@@ -1028,6 +1143,7 @@ def fault_phase(dev, record: dict, mix_queue):
         k6["plain_ms"] += (time.perf_counter() - t_plain) * 1e3
         err = max(max_abs_err(out_k, out_p), max_abs_err(n_k, n_p))
         check(err == 0, "K6 disagrees with its plain version")
+        errs_k6.append(err)
         flips += int(n_k.sum())
         out = torch.empty_like(states)
         cnt = torch.zeros(n_units, dtype=torch.int64, device=dev)
@@ -1051,6 +1167,8 @@ def fault_phase(dev, record: dict, mix_queue):
                         + 2 * s0.numel() * 4 + n_units + n_units * 8)
         add_replay_wave(k6, wave_ms, tables, schedule)
     check(flips > 0, "the K6 comparison drew no flips")
+    k6["agreement"] = {}
+    _agree(k6["agreement"], "faulty bank", counts["faulty_replay"], errs_k6)
     k6["kernel_ms"] = sum(k6["wave_kernel_ms"])
     k6["n_calls"] = len(waves)
     k6["bound"] = bound(k6["bytes"], k6["ops"])
@@ -1092,6 +1210,507 @@ def fault_phase(dev, record: dict, mix_queue):
           f"busy {b['device_busy_ms']:.3f} ms, idle share "
           f"{b['idle_share']:.4f}; device ms {json.dumps(b['device_ms'])}")
     return k6, counts
+
+
+def _recording(executor, calls: list):
+    """``executor`` with a ``run`` that keeps the arguments of every call
+    in ``calls``."""
+    run = executor.run
+
+    def rec(*args):
+        calls.append(args)
+        return run(*args)
+
+    return dataclasses.replace(executor, run=rec)
+
+
+class _RecordedInterpreter:
+    """Within ``with``: the bank's replay interpreter factory ``name`` in
+    ``bank_mod`` (``hetero_batched_interpreter`` or
+    ``faulty_batched_interpreter``) makes callables that keep the
+    arguments of every call in ``calls``."""
+
+    def __init__(self, bank_mod, name: str):
+        self.mod, self.name, self.calls = bank_mod, name, []
+
+    def __enter__(self):
+        make = self.made = getattr(self.mod, self.name)
+
+        def recording(device):
+            run = make(device)
+
+            def rec(*args):
+                self.calls.append(args)
+                return run(*args)
+            return rec
+
+        setattr(self.mod, self.name, recording)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.made)
+
+
+def _flat(results):
+    from repro_torch.core.bank import flatten_result
+    return [np.asarray(x) for r in results for x in flatten_result(r)]
+
+
+def _agree(agreement: dict, path: str, launches: int, errs: list) -> None:
+    """Record a path's agreement with the plain version: its launches on
+    the path, the calls held against the plain version at the path's
+    shapes and their largest error."""
+    agreement[path] = {"launches": int(launches), "compared": len(errs),
+                       "max_abs_err": max(errs, default=0)}
+
+
+def _chain_transposes(dev, chain, chain_raw, results, values) -> dict:
+    """K1 on the chain queue's entry operand and K2 on each of its
+    vertical results, against their plain versions on the same inputs:
+    ``{"h2v": [max_abs_err], "v2h": [max_abs_err per result]}``."""
+    import torch
+
+    from repro_torch.core.bank import VerticalOperand
+    from repro_torch.core.bitplane import host_i32
+    from repro_torch.kernels.transpose_kernel import h2v_plain, v2h_plain
+    entry = chain[1].operands[1]
+    check(isinstance(entry, VerticalOperand) and len(values) == len(results),
+          "the chain queue lost its vertical entry operand")
+    z = torch.from_numpy(host_i32(chain_raw[0][2])).to(dev)
+    planes = torch.from_numpy(entry.planes.view(np.int32)).to(dev)
+    errs = {"h2v": [max_abs_err(planes, h2v_plain(z, planes.shape[0]))],
+            "v2h": []}
+    for r, v in zip(results, values):
+        if isinstance(r, VerticalOperand):
+            pl = torch.from_numpy(np.ascontiguousarray(
+                r.planes, dtype=np.uint32).view(np.int32)).to(dev)
+            errs["v2h"].append(max_abs_err(
+                torch.from_numpy(np.asarray(v)).to(dev),
+                v2h_plain(pl)[:r.lanes]))
+    check(errs["v2h"] and max(errs["h2v"] + errs["v2h"]) == 0,
+          f"K1/K2 on the chain queue disagree with plain: {errs}")
+    return errs
+
+
+def _round_k5(dev, states_np, ct, reps: int = 5):
+    """One captured stacked round (or bank wave) through K5, held against
+    the plain replay on the same inputs: (kernel ms by the profiler,
+    (bound ms, by), max_abs_err, plain s, the states tensor)."""
+    import torch
+
+    from repro_torch.core.control_unit import (CMD_WIDTH, replay,
+                                               replay_plain)
+    from repro_torch.kernels import build
+    tables, schedule = ct
+    n_rows, n_words = states_np.shape[-2:]
+    states = torch.from_numpy(np.ascontiguousarray(
+        states_np.reshape(-1, n_rows, n_words)).view(np.int32)).to(dev)
+    out = torch.empty_like(states)
+    n_units, n_cmds = states.shape[0], tables.shape[1]
+    bare = (lambda: build.launch(
+        "replay", "replay_launch", states.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), n_cmds * CMD_WIDTH, schedule.data_ptr(), n_units,
+        n_rows, n_words, n_cmds))
+    ms = kernel_ms(bare, reps, "replay_kernel")
+    out_k = replay(states, ct)
+    t_plain = time.perf_counter()
+    out_p = replay_plain(states, tables)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t_plain
+    err = max_abs_err(out_k, out_p)
+    check(err == 0, f"K5 disagrees with the plain replay on a "
+          f"{tuple(states.shape)} round")
+    counts = schedule[0].cpu().numpy()
+    n_bytes = 2 * states.numel() * 4 + int(counts.sum()) * CMD_WIDTH * 4
+    n_ops = replay_ops_per_word(tables.cpu().numpy(), counts) * n_words
+    return ms, bound(n_bytes, n_ops), err, plain_s, states
+
+
+def _k6_attempt(dev, args, reps: int = 5, timed: bool = True):
+    """One captured attempt of a faulty round (or bank wave) through a
+    bare K6 launch over its inputs flattened to one unit axis, held
+    against the plain version on the same inputs, states and flip counts:
+    (max_abs_err, plain s, kernel ms by the profiler, (bound ms, by)),
+    the last two ``None`` unless ``timed``."""
+    import torch
+
+    from repro_torch.core.control_unit import (CMD_WIDTH, faulty_replay_plain,
+                                               flip_threshold)
+    from repro_torch.kernels import build
+    states, ct, keys, s0, s1, dead, p_flip = args
+    tables, schedule = ct
+    n_rows, n_words = states.shape[-2:]
+    st = states.reshape(-1, n_rows, n_words).contiguous()
+    n_units, n_cmds = st.shape[0], tables.shape[1]
+    k = keys.reshape(n_units, 2).contiguous()
+    m0 = s0.reshape(n_units, n_words).contiguous()
+    m1 = s1.reshape(n_units, n_words).contiguous()
+    dd = dead.reshape(n_units).to(torch.bool).contiguous()
+    out = torch.empty_like(st)
+    cnt = torch.zeros(n_units, dtype=torch.int64, device=dev)
+    thr = flip_threshold(p_flip)
+    bare = (lambda: build.launch(
+        "replay", "faulty_replay_launch", st.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), n_cmds * CMD_WIDTH, schedule.data_ptr(),
+        k.data_ptr(), m0.data_ptr(), m1.data_ptr(), dd.data_ptr(),
+        cnt.data_ptr(), thr, n_units, n_rows, n_words, n_cmds))
+    bare()
+    t_plain = time.perf_counter()
+    out_p, cnt_p = faulty_replay_plain(st, tables, k, m0, m1, dd, p_flip)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t_plain
+    err = max(max_abs_err(out, out_p), max_abs_err(cnt, cnt_p))
+    check(err == 0, f"K6 disagrees with its plain version on a "
+          f"{tuple(st.shape)} attempt")
+    del out_p, cnt_p
+    if not timed:
+        return err, plain_s, None, None
+    counts = schedule[0].cpu().numpy()
+    n_bytes = (2 * st.numel() * 4 + k.numel() * 4 + 2 * m0.numel() * 4
+               + n_units + n_units * 8 + int(counts.sum()) * CMD_WIDTH * 4)
+    n_ops = replay_ops_per_word(tables.cpu().numpy(), counts, thr) * n_words
+    return (err, plain_s, kernel_ms(bare, reps, "faulty_replay_kernel"),
+            bound(n_bytes, n_ops))
+
+
+def ladder_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 7: the chip, channel and rank tiers at full width, and the
+    fault wrappers of the chip and channel.  Adds the ladder's rounds to
+    K5's and K6's entries and returns the launch counts of the tiers'
+    counted runs, summed."""
+    import torch
+
+    from repro_torch.core import bank as bank_mod
+    from repro_torch.core.channel import sequential_channel_dispatch
+    from repro_torch.core.chip import sequential_dispatch
+    from repro_torch.core.control_unit import TABLE_CACHE
+    from repro_torch.core.fault import FaultModel, FaultRuntime
+    from repro_torch.core.isa import SimdramDevice
+    from repro_torch.core.ops_library import get_op
+    from repro_torch.core.rank import sequential_rank_dispatch
+    from repro_torch.core.timing import DDR4
+    from repro_torch.kernels import build
+
+    lanes = DDR4.columns_per_subarray
+    per_unit = DDR4.n_banks * DDR4.subarrays_per_bank
+    total = {k: 0 for k in build.LAUNCHES}
+    k5_ladder, k6_ladder, rows = {}, {}, {}
+    agreement = {name: kern[name].setdefault("agreement", {})
+                 for name in ("h2v", "v2h", "replay", "faulty_replay")}
+    for tier, n_chips, n_channels in LADDER:
+        cfg = dataclasses.replace(DDR4, n_chips=n_chips,
+                                  n_channels=n_channels)
+        units = n_channels * n_chips * per_unit
+        mix = mix_queue(bank_mod, get_op, lanes, n_instrs=2 * units)
+        rng = np.random.default_rng(7)
+        x, y = (rng.integers(0, 256, units * lanes) for _ in range(2))
+
+        # the counted run: the mix queue, the chain queue, one bbop over
+        # every lane of the tier
+        build.reset_launches()
+        cache0 = TABLE_CACHE.stats()
+        t0 = time.perf_counter()
+        tdev = SimdramDevice(cfg=cfg, backend=tier, device=dev)
+        chain, chain_raw = chain_queue(bank_mod, lanes, dev)
+        res_mix = tdev.dispatch(mix)
+        raw_chain = tdev.dispatch(chain)
+        res_chain = _flat(raw_chain)                      # relu via K2
+        got = tdev.bbop("addition", x, y, n_bits=8)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        cache1 = TABLE_CACHE.stats()
+        eng = getattr(tdev, tier)()
+        st = eng.stats
+        n_rounds = st.rounds if tier == "chip" else st.super_rounds
+        check(counts["replay"] == n_rounds,
+              f"{tier}: {counts['replay']} K5 launches for {n_rounds} "
+              f"stacked rounds")
+        check(counts["h2v"] > 0 and counts["v2h"] > 0
+              and counts["faulty_replay"] == 0 and counts["circuit"] == 0,
+              f"{tier}: unexpected launches {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        for name, errs in _chain_transposes(dev, chain, chain_raw, raw_chain,
+                                            res_chain).items():
+            _agree(agreement[name], tier, counts[name], errs)
+        del raw_chain
+
+        for i, ins in enumerate(mix):
+            spec = get_op(ins.op, ins.n_bits)
+            check(masked_equal(res_mix[i], spec.oracle(*ins.operands),
+                               spec.out_bits),
+                  f"{tier}: mix instruction {i} ({ins.op}/{ins.n_bits}) "
+                  f"is wrong")
+        mul, add, relu = (get_op(op, w) for op, w in (
+            ("multiplication", 8), ("addition", 16), ("relu", 16)))
+        for c, (cx, cy, cz) in enumerate(chain_raw):
+            m = mul.oracle(cx, cy)[0]
+            a = add.oracle(m, cz)[0]
+            want = (m, a, relu.oracle(a)[0])
+            check(all(masked_equal(res_chain[3 * c + j], (want[j],),
+                                   (16,)) for j in range(3)),
+                  f"{tier}: chain {c} is wrong")
+        check(masked_equal(got, get_op("addition", 8).oracle(
+            x.astype(np.uint64), y.astype(np.uint64)), (8,)),
+            f"{tier}: the bbop over {units * lanes} lanes is wrong")
+        geo = dict(n_banks=cfg.n_banks, n_subarrays=cfg.subarrays_per_bank,
+                   cfg=cfg, device=dev)
+        if tier == "chip":
+            seq = lambda q: sequential_dispatch(q, **geo)[0]  # noqa: E731
+        elif tier == "channel":
+            seq = lambda q: sequential_channel_dispatch(  # noqa: E731
+                q, n_chips=n_chips, **geo)[0]
+        else:
+            seq = lambda q: sequential_rank_dispatch(  # noqa: E731
+                q, n_channels=n_channels, n_chips=n_chips, **geo)[0]
+        for name, q, res in (("mix", mix, _flat(res_mix)),
+                             ("chain", chain, res_chain)):
+            check(all(np.array_equal(g, e) for g, e in zip(res, _flat(
+                seq(q)))), f"{tier}: the {name} queue differs from the "
+                f"sequential baseline")
+        stats = st.as_dict()
+
+        # warm: the same dispatches on the same engine (lane loads reset,
+        # so the same placement), each round's inputs kept; the bbop's
+        # round is kept too, after the timed repeat, so every round of the
+        # counted run has its twin; then the mix dispatch once more under
+        # the profiler
+        eng.reset_stats()
+        rounds: list = []
+        executor = eng.executor
+        eng.executor = _recording(executor, rounds)
+        cache_w = TABLE_CACHE.stats()
+        t0 = time.perf_counter()
+        tdev.dispatch(mix)
+        _flat(tdev.dispatch(chain))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_pack = eng.stats.pack_wall_s
+        cache2 = TABLE_CACHE.stats()
+        tdev.bbop("addition", x, y, n_bits=8)
+        eng.executor = executor
+        check(len(rounds) == n_rounds, f"{tier}: the repeat ran "
+              f"{len(rounds)} rounds, the counted run {n_rounds}")
+        eng.reset_stats()
+        prof = device_breakdown(lambda: tdev.dispatch(mix))
+        check(any("replay_kernel" in k for k in prof["device_ms"]),
+              f"{tier}: the profiler saw no replay kernel")
+        h2d_ms = sum(v for k, v in prof["device_ms"].items() if "HtoD" in k)
+
+        # K5 on every round of the repeat, against the plain replay on the
+        # same stack, and beside its bound
+        per_round = []
+        for states_np, ct in rounds:
+            ms, bnd, err, plain_s, states = _round_k5(dev, states_np, ct)
+            per_round.append({"kernel_ms": ms, "bound_ms": bnd[0],
+                              "bound_by": bnd[1], "max_abs_err": err,
+                              "plain_s": plain_s,
+                              "units": int(states.shape[0]),
+                              "rows": int(states.shape[1]),
+                              "words": int(states.shape[2]),
+                              "cmds": int(ct.tables.shape[1]),
+                              "table_bytes": int(ct.tables.numel()) * 4})
+            print(f"[7] {tier} round {len(per_round) - 1}: "
+                  f"{json.dumps(per_round[-1])}", flush=True)
+            del states
+        _agree(agreement["replay"], tier, counts["replay"],
+               [r["max_abs_err"] for r in per_round])
+        print(f"[7] {tier}: K5 equals the plain replay bit for bit on all "
+              f"{len(per_round)} rounds (plain " + ", ".join(
+                  f"{r['plain_s']:.2f}" for r in per_round) + " s)")
+        row = {
+            "units": units, "lanes": units * lanes,
+            "instructions": {"mix": len(mix), "chain": len(chain), "bbop": 1},
+            "launches": counts, "rounds": n_rounds,
+            "first_wall_s": first_s, "first_pack_wall_s": stats["pack_wall_s"],
+            "warm_wall_s": warm_s, "warm_pack_wall_s": warm_pack,
+            "table_cache": {
+                "first": {k: cache1[k] - cache0[k]
+                          for k in ("hits", "misses", "evictions")},
+                "warm": {k: cache2[k] - cache_w[k]
+                         for k in ("hits", "misses", "evictions")},
+                "bytes": cache2["bytes"], "entries": cache2["entries"]},
+            "profiled_mix": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "idle_share", "device_ms")},
+            "h2d_ms": h2d_ms,
+            "warm_rounds": per_round,
+            "modeled": {k: stats[k] for k in stats if k in (
+                "latency_s", "total_latency_s", "transfer_bytes",
+                "transfer_s", "transfer_h2d_s", "transfer_d2h_s",
+                "transfer_overlapped_s", "exposed_transfer_s",
+                "crossover_chips", "transfer_bound", "elements")},
+        }
+        rows[tier] = row
+        k5_ladder[tier] = {
+            "launches": counts["replay"], "rounds": n_rounds,
+            "round_kernel_ms": [r["kernel_ms"] for r in per_round],
+            "round_bound_ms": [r["bound_ms"] for r in per_round],
+            "round_plain_s": [r["plain_s"] for r in per_round]}
+        print(f"[7] {tier} ({units} units, {units * lanes} lanes): mix "
+              f"{len(mix)} + chain {len(chain)} instrs + one bbop match the "
+              f"oracle and the sequential baseline; {n_rounds} rounds, "
+              f"launches {counts}; first {first_s:.3f} s (pack "
+              f"{stats['pack_wall_s']:.3f} s), warm {warm_s:.3f} s (pack "
+              f"{warm_pack:.3f} s)")
+        print(f"[7] {tier} table cache: first {row['table_cache']['first']}, "
+              f"warm {row['table_cache']['warm']}, {cache2['bytes']} bytes in "
+              f"{cache2['entries']} entries")
+        print(f"[7] {tier} profiled mix dispatch: wall {prof['wall_ms']:.2f} "
+              f"ms, card busy {prof['device_busy_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.4f}, host-to-device copies "
+              f"{h2d_ms:.3f} ms; device ms {json.dumps(prof['device_ms'])}")
+        print(f"[7] {tier} K5 per round (profiler): " + ", ".join(
+            f"{r['kernel_ms']:.4f} ms ({r['units']} x {r['rows']} x "
+            f"{r['words']}, {r['cmds']} cmds, tables "
+            f"{r['table_bytes'] / 2**20:.1f} MiB; bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']})" for r in per_round))
+        print(f"[7] {tier} modeled {json.dumps(row['modeled'])}")
+        del rounds, res_mix, res_chain, got, tdev, eng
+
+    # the fault wrappers: the chip and a 2-chip channel
+    for tier, n_chips in LADDER_FAULT:
+        cfg = dataclasses.replace(DDR4, n_chips=n_chips)
+        units = n_chips * per_unit
+        fmix = mix_queue(bank_mod, get_op, FAULT_LANES, n_instrs=2 * units)
+        clean = _flat(SimdramDevice(cfg=cfg, backend=tier,
+                                    device=dev).dispatch(fmix))
+        want = [o for ins in fmix for o in get_op(ins.op, ins.n_bits).oracle(
+            *ins.operands)]
+        widths = [w for ins in fmix for w in get_op(ins.op, ins.n_bits).out_bits]
+        check(all(masked_equal(g, (e,), (w,))
+                  for g, e, w in zip(clean, want, widths)),
+              f"{tier}: the fault-free dispatch is wrong")
+
+        def faulty(model, queue):
+            build.reset_launches()
+            calls: list = []
+            fdev = SimdramDevice(cfg=cfg, backend=tier, device=dev,
+                                 fault=model)
+            eng = getattr(fdev, tier)()
+            eng._faulty_executor = _recording(eng._faulty_executor, calls)
+            t0 = time.perf_counter()
+            res = _flat(fdev.dispatch(queue))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(build.LAUNCHES)
+            check(counts["faulty_replay"] == len(calls) > 0
+                  and counts["replay"] == 0,
+                  f"{tier}: {counts['faulty_replay']} K6 launches for "
+                  f"{len(calls)} faulty runs (launches {counts})")
+            for k, v in counts.items():
+                total[k] += v
+            return res, eng, calls, wall, counts
+
+        def k6_agrees(attempts) -> list:
+            """K6 against its plain version on each of ``attempts``: the
+            (max_abs_err, plain s) of each."""
+            return [_k6_attempt(dev, args, timed=False)[:2]
+                    for args in attempts]
+
+        model = FaultModel(sigma=0.15, spare_lanes=1, seed=0, max_retries=10)
+        res, eng, calls, wall, counts = faulty(model, fmix)
+        fs = eng.stats.faults
+        n_wrong = sum(int((g.astype(np.int64) != e.astype(np.int64)).sum())
+                      for g, e in zip(res, clean))
+        check(n_wrong <= WRONG_LANE_SHARE * len(fmix) * FAULT_LANES,
+              f"{tier}: {n_wrong} lanes differ from the fault-free dispatch")
+        check(fs.injected > 0 and fs.detected > 0 and fs.corrected > 0,
+              f"{tier}: faults were not injected, detected and corrected")
+        # K6 on every attempt, against its plain version; the first also
+        # timed beside its bound
+        err0, plain0, k6_ms, k6_bound = _k6_attempt(dev, calls[0])
+        k6_checked = [(err0, plain0)] + k6_agrees(calls[1:])
+        prof = device_breakdown(lambda: SimdramDevice(
+            cfg=cfg, backend=tier, device=dev, fault=model).dispatch(fmix))
+        sigma = {"wall_s": wall, "wrong_lanes": n_wrong,
+                 "k6_compared": len(k6_checked),
+                 "k6_plain_s": [t for _, t in k6_checked],
+                 "k6_launches": counts["faulty_replay"],
+                 "k6_attempt_kernel_ms": k6_ms, "k6_bound_ms": k6_bound[0],
+                 "k6_bound_by": k6_bound[1], "stats": fs.as_dict(),
+                 "profiled": {k: prof[k] for k in (
+                     "wall_ms", "device_busy_ms", "idle_share",
+                     "device_ms")}}
+        print(f"[7] faulty {tier} ({units} units), sigma 0.15, 1 spare lane, "
+              f"{len(fmix)} x {FAULT_LANES} lanes: {n_wrong} lanes differ "
+              f"from the fault-free dispatch, {wall:.3f} s host wall, "
+              f"{counts['faulty_replay']} K6 launches (one per attempt); K6 "
+              f"first attempt {k6_ms:.4f} ms (profiler), bound "
+              f"{k6_bound[0]:.4f} ms ({k6_bound[1]}); FaultStats "
+              f"{json.dumps(fs.as_dict())}")
+        print(f"[7] faulty {tier} profiled: wall {prof['wall_ms']:.2f} ms, "
+              f"card busy {prof['device_busy_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.4f}; device ms "
+              f"{json.dumps(prof['device_ms'])}")
+
+        # dead units: the first fault seed that draws one in some bank
+        paths = ([(b,) for b in range(cfg.n_banks)] if tier == "chip" else
+                 [(c, b) for c in range(n_chips) for b in range(cfg.n_banks)])
+        seed = next(s for s in range(1000) if any(
+            FaultRuntime(FaultModel(dead_unit_rate=0.1, seed=s), path,
+                         cfg.subarrays_per_bank).dead.any() for path in paths))
+        res_d, eng_d, calls_d, _, counts_d = faulty(FaultModel(
+            p_flip=0.0, dead_unit_rate=0.1, spare_lanes=1, seed=seed), fmix)
+        dfs = eng_d.stats.faults
+        k6_checked_d = k6_agrees(calls_d)
+        check(all(np.array_equal(g, e) for g, e in zip(res_d, clean)),
+              f"{tier}: the dead-unit dispatch differs from the fault-free one")
+        check(dfs.redispatches > 0 and dfs.remapped > 0,
+              f"{tier}: dead units were not remapped: {dfs}")
+
+        # sparse stuck columns, no flips: the vote outvotes each stuck
+        # replica, so the run is exact
+        smix = mix_queue(bank_mod, get_op, STUCK_LANES, n_instrs=2 * units)
+        res_s, eng_s, calls_s, _, counts_s = faulty(FaultModel(
+            p_flip=0.0, stuck_lane_rate=LADDER_STUCK_RATE, spare_lanes=2,
+            seed=0), smix)
+        sfs = eng_s.stats.faults
+        k6_checked_s = k6_agrees(calls_s)
+        swant = [o for ins in smix for o in get_op(ins.op, ins.n_bits).oracle(
+            *ins.operands)]
+        swidths = [w for ins in smix
+                   for w in get_op(ins.op, ins.n_bits).out_bits]
+        check(all(masked_equal(g, (e,), (w,))
+                  for g, e, w in zip(res_s, swant, swidths)),
+              f"{tier}: the stuck-only dispatch is not exact: {sfs}")
+        check(sfs.detected > 0 and sfs.corrected > 0,
+              f"{tier}: stuck columns were not detected and corrected: {sfs}")
+        rows[f"faulty_{tier}"] = {
+            "units": units, "sigma": sigma,
+            "dead": {"seed": seed, "k6_launches": counts_d["faulty_replay"],
+                     "k6_compared": len(k6_checked_d),
+                     "k6_plain_s": [t for _, t in k6_checked_d],
+                     "stats": dfs.as_dict()},
+            "stuck": {"rate": LADDER_STUCK_RATE,
+                      "k6_launches": counts_s["faulty_replay"],
+                      "k6_compared": len(k6_checked_s),
+                      "k6_plain_s": [t for _, t in k6_checked_s],
+                      "stats": sfs.as_dict()}}
+        checked = k6_checked + k6_checked_d + k6_checked_s
+        k6_ladder[tier] = {
+            "launches": (counts["faulty_replay"] + counts_d["faulty_replay"]
+                         + counts_s["faulty_replay"]),
+            "attempt_kernel_ms": k6_ms, "attempt_bound_ms": k6_bound[0],
+            "attempt_plain_s": [t for _, t in checked]}
+        _agree(agreement["faulty_replay"], f"faulty {tier}",
+               k6_ladder[tier]["launches"], [e for e, _ in checked])
+        print(f"[7] faulty {tier}: dead units (seed {seed}) exact after "
+              f"blacklisting, {counts_d['faulty_replay']} K6 launches, "
+              f"FaultStats {json.dumps(dfs.as_dict())}; stuck columns "
+              f"{LADDER_STUCK_RATE:g}, 2 spare lanes, {len(smix)} x "
+              f"{STUCK_LANES} lanes: exact, {counts_s['faulty_replay']} K6 "
+              f"launches, FaultStats {json.dumps(sfs.as_dict())}")
+        print(f"[7] faulty {tier}: K6 equals its plain version, states and "
+              f"flip counts, on every attempt of the three runs "
+              f"({len(k6_checked)}, {len(k6_checked_d)} and "
+              f"{len(k6_checked_s)}; plain "
+              f"{sum(t for _, t in checked):.1f} s)")
+
+    kern["replay"]["ladder"] = k5_ladder
+    kern["faulty_replay"]["ladder"] = k6_ladder
+    record["ladder"] = rows
+    return total
 
 
 def main() -> int:

@@ -743,13 +743,7 @@ class Bank:
         (:func:`~repro_torch.core.fault.faulty_execute`) over the K6
         replay; its healed host states need no event."""
         if self._fault_rt is None:
-            fut = run(states, tables)
-            if not fut.is_cuda:
-                return fut, None
-            fut = fut.to("cpu", non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return fut, done
+            return submit_stacked(run, states, tables)
         healed = faulty_execute(
             self.fault, faulty_batched_interpreter(self.device), states,
             tables, [((), entries, self._fault_rt)], self.stats.faults,
@@ -934,7 +928,9 @@ class Bank:
                 max(m[2].shape[0] for m in metas),
                 shape_bucket(max(lanes[i] for i in wave), 32))
 
-    def _pack_wave(self, queue, wave, lanes, planes_cache):
+    def _pack_wave(self, queue, wave, lanes, planes_cache,
+                   n_rows: Optional[int] = None, n_cmds: Optional[int] = None,
+                   cols: Optional[int] = None, with_tables: bool = True):
         """Build the stacked host states and the cached device tables for
         one wave.
 
@@ -948,6 +944,10 @@ class Bank:
         while horizontal operands charge the same price as paid
         transposition time (``transpose_s``).
 
+        ``n_rows``/``n_cmds``/``cols`` override the wave's own dims with
+        larger ones (NOP rows / zero planes are inert) — the chip
+        dispatcher passes the max over all banks in a round.
+
         Slots are assigned least-loaded-first: members sorted by
         descending lane demand take the subarrays with the lightest
         cumulative lane load (results never depend on slot choice).
@@ -955,11 +955,17 @@ class Bank:
         Returns ``(states, tables, entries)``; ``tables`` is the
         :class:`~repro_torch.core.control_unit.CommandTables` (device
         tables and their schedule) from
-        :data:`~repro_torch.core.control_unit.TABLE_CACHE`.
+        :data:`~repro_torch.core.control_unit.TABLE_CACHE`.  With
+        ``with_tables=False`` (the chip dispatcher, which stacks its
+        own round tables) ``tables`` is the wave's composition key and
+        no table is resolved.
         """
         metas = [cached_table(queue[i].op, queue[i].n_bits, self.style)
                  for i in wave]
-        n_rows, n_cmds, cols = self._wave_dims(queue, wave, lanes)
+        own_rows, own_cmds, own_cols = self._wave_dims(queue, wave, lanes)
+        n_rows = max(n_rows or 0, own_rows)
+        n_cmds = max(n_cmds or 0, own_cmds)
+        cols = max(cols or 0, own_cols)
         words = cols // 32
         states = np.zeros((self.n_subarrays, n_rows, words), np.uint32)
         entries: List[_Slot] = []
@@ -1003,6 +1009,8 @@ class Bank:
                 st[list(uprog.in_rows[k])] = planes
             entries.append(_Slot(i, sid, spec, uprog, lanes[i]))
         wave_key = (self.style, n_cmds, tuple(slot_ops))
+        if not with_tables:
+            return states, wave_key, entries
         return states, self._cached_wave_tables(wave_key), entries
 
     def _cached_wave_tables(self, wave_key) -> CommandTables:
@@ -1021,9 +1029,14 @@ class Bank:
         (``keep_vertical``, v2h skipped) or horizontal via
         :func:`read_outputs`."""
         entries, states, done = pending
-        if done is not None:
-            done.synchronize()
-        out = states.numpy().view(np.uint32)
+        self._harvest_out(queue, entries, drain_stacked(states, done),
+                          planes_cache, needed, results)
+
+    def _harvest_out(self, queue, entries, out, planes_cache, needed,
+                     results):
+        """Harvest from an executed (n_subarrays, n_rows, n_words) host
+        uint32 array — split from :meth:`_harvest_wave` so the chip
+        dispatcher can harvest each bank's slab of a stacked round."""
         for e in entries:
             ins = queue[e.qi]
             sub = out[e.sid]
@@ -1127,6 +1140,33 @@ class Bank:
         self.stats = BankStats(self.n_subarrays)
         self._lane_load = np.zeros(self.n_subarrays, np.int64)
         self._rr_next = 0
+
+
+def submit_stacked(run, states: np.ndarray, tables):
+    """Enqueue one stacked replay (a bank's wave, or a chip, channel or
+    rank round) and return ``(states, event)``: on the card, the copy of
+    the executed states back to pinned host memory right behind the
+    launch, and an event that marks its end (the host reads the replay
+    after the next one was submitted); on the CPU, the executed states
+    and no event."""
+    fut = run(states, tables)
+    if not fut.is_cuda:
+        return fut, None
+    fut = fut.to("cpu", non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return fut, done
+
+
+def drain_stacked(fut, done) -> np.ndarray:
+    """The executed host states of a replay :func:`submit_stacked`
+    enqueued (waiting for its copy), or of a healed fault-injected one
+    (already a host array), as uint32."""
+    if done is not None:
+        done.synchronize()
+    if isinstance(fut, torch.Tensor):
+        return fut.numpy().view(np.uint32)
+    return fut
 
 
 def _build_stacked_tables(wave_key, n_subarrays: int) -> np.ndarray:

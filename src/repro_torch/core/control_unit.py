@@ -30,11 +30,15 @@ take numpy states as :func:`load_state` emits them and numpy tables as
 :func:`encode_uprogram` emits them, and move them to their ``device``.
 :func:`faulty_bank_replay` (K6, the second kernel of ``csrc/replay.cu``)
 is the same replay with fault injection, and
-:func:`faulty_batched_interpreter` its entry point.
+:func:`faulty_batched_interpreter` its entry point.  The ladder's
+replays (:func:`chip_replay`, :func:`channel_replay`, :func:`rank_replay`
+and the faulty chip and channel ones) flatten a stacked round's unit
+axes into one and make one K5 or K6 launch.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -48,6 +52,7 @@ from .uprogram import C1, TRIPLES, UProgram
 
 CMD_WIDTH = 13
 KERNEL_MAX_ROWS = 256     # K5 and K6 keep row numbers in 8 bits
+KERNEL_MAX_UNITS = 65535  # K5 and K6 put the units on the grid's y axis
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +217,10 @@ def _kernel_schedule(states: torch.Tensor, tables: torch.Tensor,
     if n_rows > KERNEL_MAX_ROWS:
         raise ValueError(f"the replay kernels take at most "
                          f"{KERNEL_MAX_ROWS} state rows, got {n_rows}")
+    if n_units > KERNEL_MAX_UNITS:
+        raise ValueError(f"the replay kernels take at most "
+                         f"{KERNEL_MAX_UNITS} units in one launch, got "
+                         f"{n_units}")
     if schedule is None:
         return command_schedule(tables, n_units)
     if (tuple(schedule.shape) != (2, n_units)
@@ -355,11 +364,17 @@ def hetero_batched_interpreter(device="cuda"):
     :class:`CommandTables` — one replay executes a different μProgram on
     every subarray (shorter programs NOP-padded to the wave's command
     bucket).  One K5 launch."""
+    return _interpreter(replay, device)
+
+
+def _interpreter(body, device):
+    """``run(states, tables)``: ``body`` on ``device`` over host arrays
+    (uint32 states, int32 tables) or tensors."""
     dev = build.resolve_device(device)
 
     def run(states, tables):
         st = _state_tensor(states, dev)
-        return replay(st, _table_tensor(tables, dev, st.shape[1]))
+        return body(st, _table_tensor(tables, dev, st.shape[-2]))
 
     return run
 
@@ -610,14 +625,20 @@ def faulty_batched_interpreter(device="cuda"):
     ``faulty_execute`` builds them (uint32 states, keys and masks, bool
     dead) or tensors (tables also as :class:`CommandTables`), and
     returns device tensors."""
+    return _faulty_interpreter(faulty_bank_replay, device)
+
+
+def _faulty_interpreter(body, device):
+    """``run(states, tables, keys, stuck0, stuck1, dead, p)``: the
+    fault-injected ``body`` on ``device`` over host arrays or tensors."""
     dev = build.resolve_device(device)
 
     def run(states, tables, keys, stuck0, stuck1, dead, p_flip):
         st = _state_tensor(states, dev)
-        return faulty_bank_replay(
-            st, _table_tensor(tables, dev, st.shape[1]),
-            _state_tensor(keys, dev), _state_tensor(stuck0, dev),
-            _state_tensor(stuck1, dev), _bool_tensor(dead, dev), p_flip)
+        return body(st, _table_tensor(tables, dev, st.shape[-2]),
+                    _state_tensor(keys, dev), _state_tensor(stuck0, dev),
+                    _state_tensor(stuck1, dev), _bool_tensor(dead, dev),
+                    p_flip)
 
     return run
 
@@ -626,6 +647,98 @@ def _bool_tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device, torch.bool)
     return torch.from_numpy(np.ascontiguousarray(x, dtype=bool)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the ladder's replays: chip, channel and rank rounds
+# ---------------------------------------------------------------------------
+#
+# The reference vmaps the bank replay over banks (chip), chips (channel)
+# and channels (rank).  Units share nothing and K6 keys its Philox
+# counter per unit, so here the leading unit axes of states, tables,
+# keys, stuck masks and ``dead`` flatten into one unit axis: a round is
+# one K5 launch (or one K6 launch), reshaped back, bit for bit what the
+# reference's vmap computes.  ``n_lead`` counts the unit axes: 2 for a
+# chip round (banks, subarrays), 3 for a channel super-round, 4 for a
+# rank round.  Tables come as (*units, n_cmds, 13) tensors, or as a
+# :class:`CommandTables` already flattened to (n_units, n_cmds, 13) with
+# the schedule of every unit of the round.
+
+def _flat_tables(tables, lead: tuple, n_units: int):
+    """Tables of a stacked round, flattened to one unit axis."""
+    if isinstance(tables, CommandTables):
+        t = tables.tables
+        if t.dim() != 3 or t.shape[0] != n_units:
+            raise ValueError(f"round tables {tuple(t.shape)} do not cover "
+                             f"the {n_units} units of a {lead} round")
+        return tables
+    if tuple(tables.shape[:-2]) != lead:
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit the unit "
+                         f"axes {lead} of the states")
+    return tables.reshape(n_units, *tables.shape[-2:])
+
+
+def _unit_axes(states: torch.Tensor, n_lead: int):
+    """``(unit axes, states with them flattened into one)``."""
+    if states.dim() != n_lead + 2:
+        raise ValueError(f"states must have {n_lead} unit axes and (n_rows, "
+                         f"n_words), got {tuple(states.shape)}")
+    return (tuple(states.shape[:n_lead]),
+            states.reshape(-1, *states.shape[n_lead:]))
+
+
+def _tier_replay(states: torch.Tensor, tables, n_lead: int) -> torch.Tensor:
+    lead, flat = _unit_axes(states, n_lead)
+    out = replay(flat, _flat_tables(tables, lead, flat.shape[0]))
+    return out.reshape(states.shape)
+
+
+def _faulty_tier_replay(states, tables, keys, stuck0, stuck1, dead, p_flip,
+                        n_lead: int):
+    lead, flat = _unit_axes(states, n_lead)
+    n_units = flat.shape[0]
+    for name, t, tail in (("keys", keys, 1), ("stuck0", stuck0, 1),
+                          ("stuck1", stuck1, 1), ("dead", dead, 0)):
+        if tuple(t.shape[:t.dim() - tail]) != lead:
+            raise ValueError(f"{name} {tuple(t.shape)} do not fit the unit "
+                             f"axes {lead} of the states")
+    out, counts = faulty_bank_replay(
+        flat, _flat_tables(tables, lead, n_units),
+        keys.reshape(n_units, 2), stuck0.reshape(n_units, -1),
+        stuck1.reshape(n_units, -1), dead.reshape(n_units), p_flip)
+    return out.reshape(states.shape), counts.reshape(lead)
+
+
+def tier_interpreter(n_lead: int, device="cuda", fault: bool = False):
+    """The executor body of a tier whose stacked rounds have ``n_lead``
+    unit axes, on ``device``, over host arrays (as the tiers pack them
+    and ``faulty_execute`` builds them) or tensors; returns device
+    tensors.  ``run(states, tables)`` is one K5 launch; with ``fault``,
+    ``run(states, tables, keys, stuck0, stuck1, dead, p)`` →
+    ``(out_states, flip_counts)`` is one K6 launch."""
+    if fault:
+        return _faulty_interpreter(
+            functools.partial(_faulty_tier_replay, n_lead=n_lead), device)
+    return _interpreter(functools.partial(_tier_replay, n_lead=n_lead),
+                        device)
+
+
+# the reference's names: the replays take a round's states with their
+# unit axes, (n_banks, n_subarrays) on a chip, (n_chips, ...) on a
+# channel, (n_channels, n_chips, ...) on a rank, and the interpreters
+# take a device
+chip_replay = functools.partial(_tier_replay, n_lead=2)
+channel_replay = functools.partial(_tier_replay, n_lead=3)
+rank_replay = functools.partial(_tier_replay, n_lead=4)
+faulty_chip_replay = functools.partial(_faulty_tier_replay, n_lead=2)
+faulty_channel_replay = functools.partial(_faulty_tier_replay, n_lead=3)
+chip_batched_interpreter = functools.partial(tier_interpreter, 2)
+channel_batched_interpreter = functools.partial(tier_interpreter, 3)
+rank_batched_interpreter = functools.partial(tier_interpreter, 4)
+faulty_chip_batched_interpreter = functools.partial(tier_interpreter, 2,
+                                                    fault=True)
+faulty_channel_batched_interpreter = functools.partial(tier_interpreter, 3,
+                                                       fault=True)
 
 
 def kernel_counts() -> Dict[str, Dict[str, int]]:

@@ -14,11 +14,18 @@ a backend switch:
   backend="bank"       bank-level engine: lanes split across all compute
                        subarrays, fused waves on K5 (see
                        :mod:`repro_torch.core.bank`)
+  backend="chip"       ``cfg.n_banks`` banks, one K5 launch per stacked
+                       round (:mod:`repro_torch.core.chip`)
+  backend="channel"    ``cfg.n_chips`` chips sharing one host link, one
+                       K5 launch per super-round
+                       (:mod:`repro_torch.core.channel`)
+  backend="rank"       ``cfg.n_channels`` channels, one K5 launch per rank
+                       round (:mod:`repro_torch.core.rank`)
 
 ``fault`` (a :class:`~repro_torch.core.fault.FaultModel`) goes to the
-bank engine, which injects faults on the K6 replay; the other backends
-ignore it, as in the reference.  The chip, channel and rank tiers are
-not ported yet and raise :class:`ValueError`.  ``device`` (default
+bank, chip and channel engines, which inject faults on the K6 replay;
+the rank engine rejects an enabled model and the single-unit backends
+ignore it, as in the reference.  ``device`` (default
 ``"cuda"``) selects where tensors live: the kernels run on the card;
 ``device="cpu"`` runs their plain versions.  Results come back as host
 numpy arrays.
@@ -47,9 +54,8 @@ from .synthesis import synthesize, to_mig
 from .timing import DDR4, DramConfig, uprogram_latency_s
 from .uprogram import UProgram
 
-BACKENDS = ("subarray", "interp", "bitplane", "cuda", "bank")
-_TIERS = ("chip", "channel", "rank")
-_TIER_SLICE = "the chip/channel/rank slice (ROADMAP.md Queue 1, item 7)"
+BACKENDS = ("subarray", "interp", "bitplane", "cuda", "bank", "chip",
+            "channel", "rank")
 
 
 def compile_op(name: str, n_bits: int, style: str = "mig",
@@ -180,14 +186,13 @@ class SimdramDevice:
     device: str = "cuda"
     calls: List[CallStats] = field(default_factory=list)
     _bank: Optional[object] = field(default=None, repr=False)
+    _chip: Optional[object] = field(default=None, repr=False)
+    _channel: Optional[object] = field(default=None, repr=False)
+    _rank: Optional[object] = field(default=None, repr=False)
     _guard: DispatchGuard = field(
         default_factory=lambda: DispatchGuard("SimdramDevice"), repr=False)
 
     def __post_init__(self):
-        if self.backend in _TIERS:
-            raise ValueError(
-                f"backend={self.backend!r} is not ported yet; it comes with "
-                f"{_TIER_SLICE}")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of "
                              f"{BACKENDS}")
@@ -203,6 +208,52 @@ class SimdramDevice:
                 cfg=self.cfg, style=self.style, fault=self.fault,
                 device=self._device)
         return self._bank
+
+    def chip(self):
+        """The device's chip-level engine: ``cfg.n_banks`` banks of
+        ``cfg.subarrays_per_bank`` subarrays; created lazily."""
+        if self._chip is None:
+            from .chip import SimdramChip
+            self._chip = SimdramChip(
+                n_banks=self.cfg.n_banks,
+                n_subarrays=self.cfg.subarrays_per_bank,
+                cfg=self.cfg, style=self.style, fault=self.fault,
+                device=self._device)
+        return self._chip
+
+    def channel(self):
+        """The device's channel-level engine: ``cfg.n_chips`` chips of
+        ``cfg.n_banks`` banks sharing one host↔DRAM link; created
+        lazily."""
+        if self._channel is None:
+            from .channel import SimdramChannel
+            self._channel = SimdramChannel(
+                n_chips=self.cfg.n_chips, n_banks=self.cfg.n_banks,
+                n_subarrays=self.cfg.subarrays_per_bank,
+                cfg=self.cfg, style=self.style, fault=self.fault,
+                device=self._device)
+        return self._channel
+
+    def rank(self):
+        """The device's rank-level engine: ``cfg.n_channels`` channels of
+        ``cfg.n_chips`` chips each; created lazily.  Fault injection is
+        not supported at this tier, as in the reference."""
+        if self._rank is None:
+            if self.fault is not None and self.fault.enabled:
+                raise ValueError(
+                    "backend='rank' does not support fault injection yet "
+                    "— use backend='channel' or a faulty SimdramChannel")
+            from .rank import SimdramRank
+            self._rank = SimdramRank(
+                n_channels=self.cfg.n_channels, n_chips=self.cfg.n_chips,
+                n_banks=self.cfg.n_banks,
+                n_subarrays=self.cfg.subarrays_per_bank,
+                cfg=self.cfg, style=self.style, device=self._device)
+        return self._rank
+
+    def _engines(self):
+        return {"bank": self.bank, "chip": self.chip,
+                "channel": self.channel, "rank": self.rank}
 
     def _account(self, name: str, n_bits: int, uprog: UProgram, elements: int):
         # a zero-element call executes no replay (the engines skip it),
@@ -253,8 +304,9 @@ class SimdramDevice:
         if self.backend == "interp":
             return self._run_interp(spec, uprog, operands, signed_out)
 
-        if self.backend == "bank":
-            return self.bank().bbop(
+        engines = self._engines()
+        if self.backend in engines:
+            return engines[self.backend]().bbop(
                 name, *operands, n_bits=n_bits, signed_out=signed_out)
 
         if self.backend == "cuda":
@@ -295,7 +347,8 @@ class SimdramDevice:
             :class:`repro_torch.core.bank.VerticalOperand` for
             ``keep_vertical`` instructions.
 
-        Routing: the fused bank engine for ``backend="bank"``, and a
+        Routing: the rank, channel, chip or fused bank engine for
+        ``backend="rank"``/``"channel"``/``"chip"``/``"bank"``, and a
         per-instruction sequential drain for the single-subarray backends
         (``bitplane``/``cuda``/``subarray``/``interp``): each instruction
         executes through :meth:`bbop` in queue order with ``Ref``/vertical
@@ -313,9 +366,10 @@ class SimdramDevice:
 
     def _dispatch_validated(self, queue, cancel=None) -> List:
         from .bank import plan_queue
-        if self.backend != "bank":
+        engines = self._engines()
+        if self.backend not in engines:
             return self._dispatch_sequential(queue, cancel)
-        results = self.bank().dispatch(queue, cancel=cancel)
+        results = engines[self.backend]().dispatch(queue, cancel=cancel)
         for ins, n in zip(queue, plan_queue(queue, self.style)[0]):
             _, uprog = compile_op(ins.op, ins.n_bits, self.style)
             self._account(ins.op, ins.n_bits, uprog, n)

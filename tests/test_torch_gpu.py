@@ -519,3 +519,97 @@ def test_disabled_fault_model_launches_no_faulty_replay(cuda):
     bank.dispatch(_fault_queue())
     assert build.LAUNCHES["faulty_replay"] == before["faulty_replay"]
     assert build.LAUNCHES["replay"] > before["replay"]
+
+
+# -- the ladder: one K5 launch per stacked round ------------------------------
+
+def _ladder_queue(device, lanes=300):
+    rng = np.random.default_rng(7)
+    instr, ref = pt_bank.BbopInstr, pt_bank.Ref
+    q = []
+    for op, w in [("addition", 8), ("multiplication", 16), ("greater", 8),
+                  ("min", 16), ("and_red", 8), ("subtraction", 8)] * 2:
+        q.append(instr(op, tuple(
+            rng.integers(0, 1 << b, lanes).astype(np.uint64)
+            for b in get_op(op, w).operand_bits), w))
+    z = rng.integers(0, 1 << 16, lanes).astype(np.uint64)
+    q.append(instr("addition", (ref(1), pt_bank.VerticalOperand.from_values(
+        z, 16, device=device)), 16))
+    q.append(instr("relu", (ref(len(q) - 1),), 16, signed_out=True,
+                   keep_vertical=True))
+    return q
+
+
+@pytest.mark.parametrize("backend,geo", [
+    ("chip", {"n_banks": 4, "subarrays_per_bank": 2}),
+    ("channel", {"n_chips": 2, "n_banks": 2, "subarrays_per_bank": 2}),
+    ("rank", {"n_channels": 2, "n_chips": 2, "n_banks": 2,
+              "subarrays_per_bank": 1}),
+])
+def test_ladder_dispatch_on_card_equals_cpu(cuda, backend, geo):
+    """Each stacked round is one K5 launch over every unit of the tier,
+    and results and modeled stats equal the CPU run's."""
+    cfg = DramConfig(columns_per_subarray=512, **geo)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        d = SimdramDevice(backend=backend, device=dev, cfg=cfg)
+        queue = _ladder_queue(dev)
+        build.reset_launches()
+        res = d.dispatch(queue)
+        flat = [x for r in res for x in pt_bank.flatten_result(r)]
+        x = np.arange(4000, dtype=np.uint64) % np.uint64(256)
+        flat.append(d.bbop("addition", x, x, n_bits=8))
+        torch.cuda.synchronize()
+        eng = getattr(d, backend)()
+        rounds = (eng.stats.rounds if backend == "chip"
+                  else eng.stats.super_rounds)
+        if dev == "cuda":
+            assert build.LAUNCHES["replay"] == rounds > 1
+            assert build.LAUNCHES["faulty_replay"] == 0
+            assert build.LAUNCHES["v2h"] > 0
+        stats = eng.stats.as_dict()
+        stats.pop("wall_s"), stats.pop("pack_wall_s")
+        runs.append((flat, stats))
+    for g, e in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(g, e)
+    assert runs[0][1] == runs[1][1]
+
+
+@pytest.mark.parametrize("backend,geo", [
+    ("chip", {"n_banks": 2, "subarrays_per_bank": 2}),
+    ("channel", {"n_chips": 2, "n_banks": 2, "subarrays_per_bank": 1}),
+])
+@pytest.mark.parametrize("kw", [
+    {"p_flip": 1e-4, "spare_lanes": 1, "seed": 1},
+    {"p_flip": 0.0, "dead_unit_rate": 0.3, "spare_lanes": 1, "seed": 11},
+    {"p_flip": 0.0, "stuck_lane_rate": 0.02, "spare_lanes": 2, "seed": 13},
+])
+def test_faulty_ladder_on_card_equals_cpu(cuda, backend, geo, kw):
+    """One K6 launch over every unit per attempt of a round; Philox gives
+    the card and the CPU the same bits, so results, FaultStats and the
+    blacklists are the same on both."""
+    from repro_torch.core.fault import FaultModel
+    cfg = DramConfig(columns_per_subarray=1024, **geo)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        d = SimdramDevice(backend=backend, device=dev, cfg=cfg,
+                          fault=FaultModel(**kw))
+        eng = getattr(d, backend)()
+        calls = []
+        run = eng._faulty_executor.run
+        eng._faulty_executor = type(eng._faulty_executor)(
+            lambda *a: (calls.append(1), run(*a))[1], None, False)
+        build.reset_launches()
+        res = d.dispatch(_fault_queue())
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert build.LAUNCHES["faulty_replay"] == len(calls) > 0
+            assert build.LAUNCHES["replay"] == 0
+        banks = (eng.banks if backend == "chip"
+                 else [b for c in eng.chips for b in c.banks])
+        runs.append(([x for r in res for x in pt_bank.flatten_result(r)],
+                     eng.stats.faults.as_dict(),
+                     [sorted(b._blacklist) for b in banks]))
+    for g, e in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(g, e)
+    assert runs[0][1:] == runs[1][1:]

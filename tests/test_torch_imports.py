@@ -57,7 +57,11 @@ def _entry_points():
     from repro_torch.core import bitplane, control_unit
     from repro_torch.core.bank import Bank, VerticalOperand
     from repro_torch.core.fault import FaultModel
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.chip import SimdramChip
     from repro_torch.core.isa import SimdramDevice
+    from repro_torch.core.rank import SimdramRank
+    from repro_torch.distributed import pum
     from repro_torch.kernels import ops as kops
 
     x = np.arange(64, dtype=np.int64)
@@ -80,6 +84,24 @@ def _entry_points():
         "SimdramDevice(fault=...)": lambda: SimdramDevice(
             backend="bank", fault=FaultModel(p_flip=0.0)),
         "Bank(fault=...)": lambda: Bank(fault=FaultModel(p_flip=0.0)),
+        "SimdramDevice(backend='chip')": lambda: SimdramDevice(
+            backend="chip"),
+        "SimdramChip": lambda: SimdramChip(),
+        "SimdramChannel": lambda: SimdramChannel(),
+        "SimdramRank": lambda: SimdramRank(),
+        "SimdramChip(fault=...)": lambda: SimdramChip(
+            fault=FaultModel(p_flip=0.0)),
+        "chip_batched_interpreter":
+            lambda: control_unit.chip_batched_interpreter(),
+        "channel_batched_interpreter":
+            lambda: control_unit.channel_batched_interpreter(),
+        "rank_batched_interpreter":
+            lambda: control_unit.rank_batched_interpreter(),
+        "faulty_chip_batched_interpreter":
+            lambda: control_unit.faulty_chip_batched_interpreter(),
+        "faulty_channel_batched_interpreter":
+            lambda: control_unit.faulty_channel_batched_interpreter(),
+        "make_rank_executor": lambda: pum.make_rank_executor(2, 2, 2),
         "bitserial_matmul": lambda: kops.bitserial_matmul(
             np.ones((4, 32), np.int32), np.ones((32, 4), np.int32), 1, 1),
         "quantized_matmul": lambda: kops.quantized_matmul(
@@ -98,16 +120,32 @@ def test_cuda_without_a_card_raises(name, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"backend": "chip"}, "chip/channel/rank slice"),
-    ({"backend": "channel"}, "chip/channel/rank slice"),
-    ({"backend": "rank"}, "chip/channel/rank slice"),
-    ({"backend": "channel", "fault": "model"}, "chip/channel/rank slice"),
     ({"backend": "pallas"}, "unknown backend"),
+    ({"backend": "rank", "fault": "model"}, "fault injection"),
+    ({"backend": "chip", "use_shard_map": True}, "shard_map requested"),
+    ({"backend": "channel", "use_shard_map": True}, "shard_map requested"),
+    ({"backend": "rank", "use_shard_map": True}, "shard_map requested"),
 ])
 def test_unported_options_raise(kwargs, match):
+    """What the port does not do raises: the reference's TPU-only
+    backend, a faulty rank (as in the reference), and splitting a tier's
+    units across devices (the reference raises it on one device)."""
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.chip import SimdramChip
     from repro_torch.core.fault import FaultModel
     from repro_torch.core.isa import SimdramDevice
+    from repro_torch.core.rank import SimdramRank
+    if kwargs.pop("use_shard_map", False):
+        engine = {"chip": SimdramChip, "channel": SimdramChannel,
+                  "rank": SimdramRank}[kwargs["backend"]]
+        with pytest.raises(ValueError, match=match):
+            engine(use_shard_map=True, device="cpu")
+        return
     if kwargs.get("fault") == "model":
         kwargs = {**kwargs, "fault": FaultModel(p_flip=0.0)}
+        dev = SimdramDevice(device="cpu", **kwargs)
+        with pytest.raises(ValueError, match=match):
+            dev.bbop("addition", np.arange(4), np.arange(4), n_bits=8)
+        return
     with pytest.raises(ValueError, match=match):
         SimdramDevice(device="cpu", **kwargs)
