@@ -613,3 +613,59 @@ def test_faulty_ladder_on_card_equals_cpu(cuda, backend, geo, kw):
     for g, e in zip(runs[0][0], runs[1][0]):
         np.testing.assert_array_equal(g, e)
     assert runs[0][1:] == runs[1][1:]
+
+
+def _apps():
+    """The seven apps at ``tests/test_apps.py``'s ladder sizes."""
+    from repro_torch.apps import (bitweaving, brightness, knn, lenet,
+                                  nn_layers, tpch, vgg)
+    return {
+        "knn": lambda d: knn.run(n_points=96, n_features=3, n_bits=5,
+                                 device=d),
+        "tpch": lambda d: tpch.run(n_rows=128, device=d),
+        "bitweaving": lambda d: bitweaving.run(n_rows=160, n_bits=6,
+                                               device=d),
+        "brightness": lambda d: brightness.run(h=6, w=6, delta=60, device=d),
+        "nn_layers": lambda d: nn_layers.run(device=d),
+        "lenet": lambda d: lenet.run(device=d, conv_channels=(2, 3),
+                                     fc_dims=(12, 10)),
+        "vgg13": lambda d: vgg.run("vgg13", img_hw=8, n_layers=3, device=d),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_apps()))
+@pytest.mark.parametrize("backend", ["bitplane", "cuda", "bank", "chip",
+                                     "channel"])
+def test_apps_on_card_equal_cpu(cuda, name, backend):
+    """Each app on each rung of the card equals the same app with
+    ``torch_device="cpu"``: the output, every other key of the result
+    dict and every modeled engine field.  The sequential rungs launch K3
+    (``cuda`` with K1 and K2 around it), the fused rungs K5 only."""
+    from repro_torch.apps.runtime import engine_stats
+    fn = _apps()[name]
+    cfg = DramConfig(n_banks=2, subarrays_per_bank=2, n_chips=2)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        d = SimdramDevice(backend=backend, cfg=cfg, device=dev)
+        build.reset_launches()
+        r = fn(d)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            n = dict(build.LAUNCHES)
+            if backend in ("bitplane", "cuda"):
+                assert n["circuit"] > 0 and n["replay"] == 0
+                assert (n["h2v"] > 0 and n["v2h"] > 0) == (backend == "cuda")
+            else:
+                assert n["replay"] > 0 and n["circuit"] == 0
+            assert n["faulty_replay"] == 0 and n["popmatmul"] == 0
+        stats = engine_stats(d)
+        if stats is not None:
+            stats.pop("wall_s"), stats.pop("pack_wall_s")
+        assert r["verified"] is True
+        runs.append((r, d.totals(), stats))
+    (got, t_got, s_got), (want, t_want, s_want) = runs
+    np.testing.assert_array_equal(np.asarray(got["output"]).astype(np.int64),
+                                  np.asarray(want["output"]).astype(np.int64))
+    assert {k: v for k, v in got.items() if k != "output"} == {
+        k: v for k, v in want.items() if k != "output"}
+    assert t_got == t_want and s_got == s_want
