@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's bbop main path once on one CUDA card.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--trace PATH]
 
 Run from a checkout; it puts the checkout's ``src/`` and ``experiments/``
-on ``sys.path`` itself, reads ``BENCH_apps.json`` and imports only
-``repro_torch`` and ``popmma_probe`` (no JAX).  Phases, one line each:
+on ``sys.path`` itself, reads ``BENCH_apps.json`` and
+``BENCH_serving.json``, loads ``scripts/check_trace.py`` by path and
+imports only ``repro_torch`` and ``popmma_probe`` (no JAX).  Phase 9c's
+Chrome trace goes to ``--trace`` (default
+``build/serving_channel_trace.json``).  Phases, one line each:
 
   1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a)
      and print the ptxas register / shared-memory / spill lines;
@@ -94,7 +97,38 @@ on ``sys.path`` itself, reads ``BENCH_apps.json`` and imports only
      each K1, K2, K3 and K5 launch of the repeat is held against the
      plain version on the same inputs, bit for bit, one twin per launch
      of the counted run (the ``apps`` path of each kernel's agreement);
-  9. one JSON line with every kernel's launches on its path, its
+  9. the serving front-end (``src/repro_torch/serving``): (9a) a
+     ``ServingFrontend`` over phase 7's 8-chip channel (128 units) serves
+     ``benchmarks/serving_soak.py``'s traffic at full width: three
+     tenants, its eight ops at 8 and 16 bits, requests of 65,536 lanes,
+     4 windows of 16 (a queue of 12, so each overflows; every fourth
+     request with the tight deadline, every fifth at priority 1); every
+     admitted ticket resolves exactly once, every completed one equals
+     the host oracle, each window is one K5 launch a super-round, and a
+     warm repeat, the same traffic on the CPU and the same traffic on the
+     worker thread (traced, on the main thread's stream) give the same
+     stats, ticket values, ``resolved_s`` and ``serving.*`` registry;
+     per window the first and warm walls, packing, K5 launches and K5
+     time beside its bound, the card's busy time and idle share, and the
+     modeled p50, p99 and goodput; (9b) a sigma 0.15 window on the 2-chip
+     faulty channel (stuck lanes 0.002, seed 21; wrong lanes bounded as
+     in phase 6; requests of 2,048 lanes, so that a window coalesced and
+     replicated fits the 65,536 columns the stuck pattern spans) and the
+     soak's breaker scenario (trip, shed, half-open,
+     recover), whose counts and registry equal ``BENCH_serving.json``'s,
+     one K6 launch per attempt; (9c) one full-width dispatch of phase 7's
+     mix queue untraced and under the tracer: equal results and
+     launches, ``channel.replay`` and ``channel.transfer.*`` ``==`` their
+     ``ChannelStats`` fields (the banks' transpose charges, which the
+     channel mirrors in another order, within a relative 1e-12),
+     each ``channel.replay`` span's ``device_s`` within 5 % (plus
+     ``DEVICE_S_SLACK_MS``, the event pair's own latency) of the
+     profiler's K5 time for its round, the tracer's overhead as the
+     difference of the warm walls, and its Chrome trace (written to
+     ``--trace``) passes ``scripts/check_trace.py``.  Every K5 and K6 launch of
+     9a and 9b has its twin through the plain version (the ``serving``
+     and ``serving faults`` paths);
+ 10. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
      ``max_abs_err`` is the largest over the paths, and every path with
@@ -103,12 +137,12 @@ on ``sys.path`` itself, reads ``BENCH_apps.json`` and imports only
      the card and, where one PyTorch call computes the same function,
      that call's time; K5 and K6 add each wave's device and kernel time,
      the longest unit's real command count and ns per real command, and
-     the ladder's rounds; and the kernels ranked by launches x (kernel
-     time - bound) per call.
+     the ladder's and the server's rounds; and the kernels ranked by
+     launches x (kernel time - bound) per call.
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
-and 6, each tier of phase 7 and each app run of phase 8) and read just
-after; comparison launches come after the read.
+and 6, each tier of phase 7, each app run of phase 8 and each served run
+of phase 9) and read just after; comparison launches come after the read.
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line.  The last line is the device
 JSON.
@@ -118,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
@@ -196,6 +231,32 @@ BENCH_REL_TOL = 1e-12
 MEASURED_STATS = ("wall_s", "pack_wall_s")
 # TPC-H lineitem rows at scale factor 1 (TPC-H specification, clause 4.2.5)
 TPCH_SF1_ROWS = 6_001_215
+# the server (phase 9): benchmarks/serving_soak.py's traffic (OPS_POOL,
+# TENANTS, GENEROUS_S, TIGHT_S, a queue of three quarters of a window,
+# so every window overflows) at full width: requests of one subarray's
+# 65,536 columns, windows of 16 over phase 7's 8-chip channel
+SERVE_OPS = ("addition", "subtraction", "multiplication", "min", "max",
+             "relu", "bitcount", "division")
+SERVE_TENANTS = ("alice", "bob", "carol")
+SERVE_GENEROUS_S = 10.0
+SERVE_TIGHT_S = 1e-7
+SERVE_WINDOW = 16
+SERVE_DEPTH = 3 * SERVE_WINDOW // 4
+SERVE_WINDOWS = 4
+SERVE_CHIPS = 8
+# the faulty window's requests: the fault layer's stuck-column pattern
+# spans one physical row of 65,536 columns, and a wider state raises
+# (in the reference too, ROADMAP.md Queue 3), so even all 12 admitted
+# requests coalesced into one instruction and replicated twice must fit
+SERVE_FAULT_LANES = 2048
+# a traced launch's event pair holds its kernel plus the card's own
+# latency from the start event to the kernel and from the kernel to the
+# end event (4-6 µs measured beside 0.06 ms rounds), which the
+# profiler's kernel time leaves out
+DEVICE_S_SLACK_MS = 0.010
+# profiled sessions of the traced dispatch tried until the profiler has
+# recorded the K5 launch of every round
+TRACED_PROFILER_ATTEMPTS = 5
 
 TRANSPOSE_WIDTHS = (8, 16, 32)
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
@@ -439,7 +500,7 @@ def masked_equal(got, want, out_bits) -> bool:
         for g, e, w in zip(got, want, out_bits))
 
 
-def run() -> dict:
+def run(trace_path: str) -> dict:
     import torch
 
     from repro_torch.core import bitplane
@@ -460,7 +521,8 @@ def run() -> dict:
     import popmma_probe
 
     dev = torch.device("cuda")
-    record: dict = {"card": nvidia_smi("name,power.limit")}
+    record: dict = {"card": nvidia_smi("name,power.limit"),
+                    "trace_path": trace_path}
 
     # -- 1. build --------------------------------------------------------
     # the unit-rate probes of K4's bound (phase 5) build beside the kernels
@@ -787,8 +849,9 @@ def run() -> dict:
     kern["faulty_replay"], counts_fault = fault_phase(dev, record, mix_queue)
     counts_ladder = ladder_phase(dev, record, kern)
     counts_apps = apps_phase(dev, record, kern)
+    counts_serve = serving_phase(dev, record, kern)
 
-    # -- 9. the kernels line ------------------------------------------------
+    # -- 10. the kernels line -----------------------------------------------
     for name in ("h2v", "v2h", "circuit", "replay"):
         n = counts_fast[name] + counts_bank[name]
         check(n > 0, f"kernel {name} was not launched on the main path")
@@ -803,12 +866,16 @@ def run() -> dict:
     check(all(counts_apps[name] > 0
               for name in ("h2v", "v2h", "circuit", "replay")),
           f"a kernel of the apps path was not launched: {counts_apps}")
+    check(counts_serve["replay"] > 0 and counts_serve["faulty_replay"] > 0,
+          f"K5 or K6 was not launched on the serving path: {counts_serve}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
+                + counts_serve[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
-                                 + counts_ladder["faulty_replay"])
+                                 + counts_ladder["faulty_replay"]
+                                 + counts_serve["faulty_replay"])
     meta = {
         "h2v": ("src/repro_torch/csrc/transpose.cu",
                 "src/repro/kernels/transpose_kernel.py:75"),
@@ -851,12 +918,12 @@ def run() -> dict:
             "tolerance": "bit-exact (max_abs_err 0 over int32 words)",
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
-                    "ns_per_real_cmd", "per_width", "ladder"):
+                    "ns_per_real_cmd", "per_width", "ladder", "serving"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
     order = sorted(line, key=lambda k: -k["rank_ms"])
-    print("[9] launches x (kernel ms - bound ms) per call: " + ", ".join(
+    print("[10] launches x (kernel ms - bound ms) per call: " + ", ".join(
         f"{k['name']} {k['rank_ms']:.4f}" for k in order))
     record["launches_fast_path"] = counts_fast
     record["launches_bank"] = counts_bank
@@ -864,8 +931,9 @@ def run() -> dict:
     record["launches_fault"] = counts_fault
     record["launches_ladder"] = counts_ladder
     record["launches_apps"] = counts_apps
+    record["launches_serving"] = counts_serve
     record["profiler_misses"] = PROFILER_MISSES
-    print(f"[9] kernel times the profiler missed (timed by CUDA events): "
+    print(f"[10] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
     return record
 
@@ -1397,7 +1465,9 @@ def _round_k5(dev, states_np, ct, reps: int = 5):
     ms, bnd = _k5_round_ms(states, tables, schedule, reps)
     out_k = replay(states, ct)
     t_plain = time.perf_counter()
-    out_p = replay_plain(states, tables)
+    # up to the longest real command count: the NOPs after it change
+    # nothing (tests/test_torch_replay_lengths.py)
+    out_p = replay_plain(states, tables[..., :int(schedule[0].max()), :])
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t_plain
     err = max_abs_err(out_k, out_p)
@@ -1436,7 +1506,8 @@ def _k6_attempt(dev, args, reps: int = 5, timed: bool = True):
         cnt.data_ptr(), thr, n_units, n_rows, n_words, n_cmds))
     bare()
     t_plain = time.perf_counter()
-    out_p, cnt_p = faulty_replay_plain(st, tables, k, m0, m1, dd, p_flip)
+    out_p, cnt_p = faulty_replay_plain(
+        st, tables[:, :int(schedule[0].max())], k, m0, m1, dd, p_flip)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t_plain
     err = max(max_abs_err(out, out_p), max_abs_err(cnt, cnt_p))
@@ -1451,6 +1522,75 @@ def _k6_attempt(dev, args, reps: int = 5, timed: bool = True):
     n_ops = replay_ops_per_word(tables.cpu().numpy(), counts, thr) * n_words
     return (err, plain_s, kernel_ms(bare, reps, "faulty_replay_kernel"),
             bound(n_bytes, n_ops))
+
+
+def _k6_bare(st, tables, schedule, keys, stuck0, stuck1, dead, p_flip):
+    """One bare K6 launch over flattened inputs: (states, flip counts)."""
+    import torch
+
+    from repro_torch.core.control_unit import CMD_WIDTH, flip_threshold
+    from repro_torch.kernels import build
+    n_units, n_rows, n_words = st.shape
+    n_cmds = tables.shape[1]
+    out = torch.empty_like(st)
+    cnt = torch.zeros(n_units, dtype=torch.int64, device=st.device)
+    build.launch(
+        "replay", "faulty_replay_launch", st.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), n_cmds * CMD_WIDTH, schedule.data_ptr(),
+        keys.data_ptr(), stuck0.data_ptr(), stuck1.data_ptr(),
+        dead.data_ptr(), cnt.data_ptr(), flip_threshold(p_flip), n_units,
+        n_rows, n_words, n_cmds)
+    return out, cnt
+
+
+def _k6_batched(dev, attempts) -> list:
+    """Each of ``attempts`` (a faulty executor's recorded calls) through a
+    bare K6 launch, held against the plain version on the same inputs,
+    states and flip counts, as :func:`_k6_attempt` does; the plain
+    version takes the attempts of one state shape and flip rate at once,
+    stacked along its unit axis (units share nothing, and the all-zero
+    rows that pad a table to the longest change nothing).  Returns
+    (max_abs_err per attempt, plain s per group)."""
+    import torch
+
+    from repro_torch.core.control_unit import faulty_replay_plain
+    groups: dict = {}
+    for i, (states, ct, keys, s0, s1, dead, p_flip) in enumerate(attempts):
+        tables, schedule = ct
+        n_rows, n_words = states.shape[-2:]
+        st = states.reshape(-1, n_rows, n_words).contiguous()
+        n_units = st.shape[0]
+        k = keys.reshape(n_units, 2).contiguous()
+        m0 = s0.reshape(n_units, n_words).contiguous()
+        m1 = s1.reshape(n_units, n_words).contiguous()
+        dd = dead.reshape(n_units).to(torch.bool).contiguous()
+        out, cnt = _k6_bare(st, tables, schedule, k, m0, m1, dd, p_flip)
+        groups.setdefault((n_rows, n_words, float(p_flip)), []).append(
+            (i, st, tables[:, :int(schedule[0].max())], k, m0, m1, dd, out,
+             cnt))
+    errs = [None] * len(attempts)
+    plain_s = []
+    for (_, _, p_flip), members in groups.items():
+        n_cmds = max(m[2].shape[1] for m in members)
+        tables = torch.cat([torch.nn.functional.pad(
+            m[2], (0, 0, 0, n_cmds - m[2].shape[1])) for m in members])
+        t0 = time.perf_counter()
+        out_p, cnt_p = faulty_replay_plain(
+            torch.cat([m[1] for m in members]), tables,
+            *(torch.cat([m[j] for m in members]) for j in (3, 4, 5, 6)),
+            p_flip)
+        if out_p.is_cuda:
+            torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+        lo = 0
+        for i, st, _, _, _, _, _, out, cnt in members:
+            hi = lo + st.shape[0]
+            errs[i] = max(max_abs_err(out, out_p[lo:hi]),
+                          max_abs_err(cnt, cnt_p[lo:hi]))
+            lo = hi
+        del out_p, cnt_p
+    check(max(errs) == 0, f"K6 disagrees with its plain version: {errs}")
+    return errs, plain_s
 
 
 def ladder_phase(dev, record: dict, kern: dict) -> dict:
@@ -2189,9 +2329,607 @@ def apps_phase(dev, record: dict, kern: dict) -> dict:
     return total
 
 
+# -- phase 9: the serving front-end -------------------------------------------
+
+def serve_traffic(get_op, n_windows: int, lanes: int, seed: int = 0):
+    """benchmarks/serving_soak.py:_traffic, window by window: each window
+    ``SERVE_WINDOW`` (op, n_bits, operands) requests of ``lanes`` lanes,
+    ops from ``SERVE_OPS`` at 8 or 16 bits, one numpy stream."""
+    rng = np.random.default_rng(seed)
+    windows = []
+    for _ in range(n_windows):
+        reqs = []
+        for _ in range(SERVE_WINDOW):
+            op = SERVE_OPS[int(rng.integers(len(SERVE_OPS)))]
+            n_bits = (8, 16)[int(rng.integers(2))]
+            operands = tuple(
+                np.asarray(rng.integers(0, 1 << min(n_bits, 16),
+                                        size=lanes), np.int64)
+                for _ in range(get_op(op, n_bits).n_operands))
+            reqs.append((op, n_bits, operands))
+        windows.append(reqs)
+    return windows
+
+
+def serve_frontend(engine, **kw):
+    """The soak's frontend over ``engine`` (serving_soak.py:96): a queue
+    of three quarters of a window, so every window overflows, two
+    retries, seed 0."""
+    from repro_torch.core.telemetry import REGISTRY
+    from repro_torch.serving import ServingFrontend
+    REGISTRY.reset()
+    args = dict(max_queue_depth=SERVE_DEPTH, window=SERVE_WINDOW,
+                max_retries=2, seed=0)
+    args.update(kw)
+    return ServingFrontend(engine, **args)
+
+
+def serve_windows(fe, windows, sync=lambda: None, worker: bool = False,
+                  submitter=None):
+    """Submit and resolve each window as serving_soak._soak_scenario
+    does: tenants in turn, every fourth request with the tight deadline,
+    every fifth at priority 1, the overflow rejected at admission; then
+    ``drain()``, or with ``worker`` the pump on its background thread
+    started and stopped around the window.  Returns the tickets and, per
+    window, the host wall, packing wall, K5 launches and the engine's
+    super-rounds."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import AdmissionRejected, DeadlineExceeded
+    tickets, per = [], []
+    for reqs in windows:
+        mine = []
+        for i, (op, n_bits, operands) in enumerate(reqs):
+            deadline = fe.now_s + (SERVE_TIGHT_S if i % 4 == 3
+                                   else SERVE_GENEROUS_S)
+            try:
+                t = fe.submit(SERVE_TENANTS[i % len(SERVE_TENANTS)], op,
+                              operands, n_bits, deadline_s=deadline,
+                              priority=1 if i % 5 == 0 else 0)
+            except AdmissionRejected:
+                continue
+            mine.append((t, op, n_bits, operands))
+        st = fe.engine.stats
+        k5, rounds = build.LAUNCHES["replay"], st.super_rounds
+        pack = st.pack_wall_s
+        t0 = time.perf_counter()
+        if worker:
+            fe.start()
+            try:
+                for t, *_ in mine:
+                    try:
+                        t.result(timeout=600)
+                    except DeadlineExceeded:
+                        pass
+            finally:
+                fe.stop()
+        else:
+            fe.drain()
+        sync()
+        per.append({"wall_s": time.perf_counter() - t0,
+                    "pack_wall_s": st.pack_wall_s - pack,
+                    "k5_launches": build.LAUNCHES["replay"] - k5,
+                    "super_rounds": st.super_rounds - rounds,
+                    "admitted": len(mine)})
+        tickets += mine
+    return tickets, per
+
+
+def serve_check(fe, tickets, wrong_lane_share: float = 0.0) -> int:
+    """The soak's invariants: zero lost and zero duplicated tickets (a
+    second resolution raises inside the frontend), the ticket accounting
+    closes, and every completed ticket equals ``bbop_host_oracle`` —
+    up to ``wrong_lane_share`` of the lanes where the fault layer's vote
+    may accept replicas corrupted alike.  Returns the wrong lanes."""
+    from repro_torch.serving import DeadlineExceeded
+    from repro_torch.train.serve import bbop_host_oracle
+    ok = missed = wrong = lanes = 0
+    for t, op, n_bits, operands in tickets:
+        check(t.done, f"ticket {t.seq} was lost")
+        try:
+            got = t.result(timeout=0)
+        except DeadlineExceeded:
+            missed += 1
+            continue
+        want = bbop_host_oracle(op, n_bits, operands)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        wrong += sum(int((np.asarray(g) != np.asarray(w)).sum())
+                     for g, w in zip(got, want))
+        lanes += operands[0].shape[-1]
+        ok += 1
+    s = fe.stats
+    check(s.admitted == len(tickets) and ok == s.completed
+          and missed == s.deadline_missed
+          and s.completed + s.deadline_missed == s.admitted,
+          f"ticket accounting does not close: {s.as_dict()}, {ok} ok, "
+          f"{missed} missed, {len(tickets)} tickets")
+    check(wrong <= wrong_lane_share * lanes,
+          f"{wrong} of {lanes} completed lanes differ from the host oracle")
+    return wrong
+
+
+def serve_digest(fe, tickets) -> dict:
+    """What two runs of the same traffic must share: the frontend's
+    stats, each ticket's value (a hash of its int64 outputs, or where its
+    deadline was missed), tenant, fallback and ``resolved_s``, and the
+    ``serving.*`` registry; as JSON, so floats compare exactly."""
+    import hashlib
+
+    from repro_torch.core.telemetry import REGISTRY
+    from repro_torch.serving import DeadlineExceeded
+    rows = []
+    for t, *_ in tickets:
+        try:
+            v = t.result(timeout=0)
+            h = hashlib.sha256()
+            for x in (v if isinstance(v, tuple) else (v,)):
+                h.update(np.ascontiguousarray(x, np.int64).tobytes())
+            value = h.hexdigest()
+        except DeadlineExceeded as e:
+            value = f"deadline missed {e.where}"
+        rows.append([t.seq, t.tenant, t.via_host, value, t.resolved_s])
+    return json.loads(json.dumps({
+        "stats": fe.stats.as_dict(), "tickets": rows,
+        "registry": REGISTRY.snapshot("serving.")}))
+
+
+def serve_latency(fe) -> dict:
+    """Modeled p50 and p99 latency and goodput, as the soak reports them."""
+    from repro_torch.core.telemetry import REGISTRY
+    hist = REGISTRY.histogram("serving.latency_modeled_s")
+    return {"p50_latency_s": hist.percentile(50),
+            "p99_latency_s": hist.percentile(99),
+            "goodput_rps": fe.stats.completed / max(fe.now_s, 1e-12),
+            "modeled_duration_s": fe.now_s}
+
+
+def serve_channel(device, fault=None, n_chips: int = SERVE_CHIPS):
+    """Phase 7's channel at full width: ``n_chips`` chips of 16 banks of
+    one compute subarray (65,536 columns each)."""
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.timing import DDR4
+    return SimdramChannel(n_chips=n_chips, n_banks=DDR4.n_banks,
+                          n_subarrays=DDR4.subarrays_per_bank, cfg=DDR4,
+                          fault=fault, device=device)
+
+
+def _traced_profiled(fn, reset, span: str):
+    """``fn()`` under a tracer and ``torch.profiler`` at once, up to
+    TRACED_PROFILER_ATTEMPTS sessions (``reset()`` before each): for each
+    ``span`` span, its ``device_s`` and the profiler's time of its K5
+    launch, in ms, from the first session that recorded that launch.  A
+    traced launch comes right behind its start event's spin kernel
+    (``telemetry.LAUNCH_GATE_CYCLES``), which tells the launches apart
+    where the profiler dropped one (it does now and then).  Returns
+    ``{round: (device ms, profiler ms)}``, the rounds, and what each
+    session recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    pairs, seen, n = {}, [], 0
+    for _ in range(TRACED_PROFILER_ATTEMPTS):
+        reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with obs.enabled() as tr:
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = [s.attrs["device_s"] * 1e3 for r in tr.roots
+                  for s in r.walk() if s.name == span]
+        n = len(dev_ms)
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "Memcpy" not in e.name),
+                     key=lambda e: e.time_range.start)
+        names = [kernel_name(e.name) for e in evs]
+        spins = [j for j, name in enumerate(names)
+                 if name.endswith("spin_kernel")]
+        k5 = sum(1 for name in names if name == "replay_kernel")
+        seen.append(f"{len(spins)} gates and {k5} K5 of {n}")
+        if len(spins) != n:
+            continue
+        for i, j in enumerate(spins):
+            if (i not in pairs and j + 1 < len(evs)
+                    and names[j + 1] == "replay_kernel"):
+                pairs[i] = (dev_ms[i], evs[j + 1].time_range.elapsed_us()
+                            / 1e3)
+        if len(pairs) == n:
+            break
+    return pairs, n, seen
+
+
+def serving_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 9: the multi-tenant server on the card.  9a the soak's
+    traffic over phase 7's full-width channel, against the oracle, a CPU
+    run and its worker-thread mode; 9b a sigma 0.15 window on the 2-chip
+    faulty channel and the soak's breaker scenario; 9c one traced
+    full-width dispatch against an untraced one.  Every K5 and K6 launch
+    of 9a and 9b has its twin through the plain version; returns their
+    launch counts, summed."""
+    import threading
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import bank as bank_mod
+    from repro_torch.core.fault import FaultModel
+    from repro_torch.core.ops_library import get_op
+    from repro_torch.core.telemetry import REGISTRY
+    from repro_torch.core.timing import DDR4
+    from repro_torch.kernels import build
+
+    card = record["card"]
+    out = record["serving"] = {}
+    total = {k: 0 for k in build.LAUNCHES}
+    t_phase = time.perf_counter()
+    lanes = DDR4.columns_per_subarray
+    windows = serve_traffic(get_op, SERVE_WINDOWS, lanes)
+    sync = torch.cuda.synchronize
+
+    # -- 9a: the server at full width -------------------------------------
+    engine = serve_channel(dev)
+    fe = serve_frontend(engine)
+    build.reset_launches()
+    tickets, first = serve_windows(fe, windows, sync)
+    counts = dict(build.LAUNCHES)
+    for w in first:
+        check(w["k5_launches"] == w["super_rounds"] > 0,
+              f"9a: {w['k5_launches']} K5 launches for {w['super_rounds']} "
+              f"super-rounds in a window")
+    check(counts["replay"] > 0 and counts["faulty_replay"] == 0
+          and counts["h2v"] == counts["v2h"] == counts["circuit"] == 0,
+          f"9a: unexpected launches {counts}")
+    serve_check(fe, tickets)
+    digest = serve_digest(fe, tickets)
+    latency = serve_latency(fe)
+    for k, v in counts.items():
+        total[k] += v
+
+    # the warm repeat (the same placement: lane loads reset), each
+    # round's inputs kept for its twin; then the same traffic under the
+    # profiler, and through the worker thread with a tracer on
+    engine.reset_stats()
+    rounds: list = []
+    executor = engine.executor
+    engine.executor = _recording(executor, rounds)
+    fe = serve_frontend(engine)
+    tickets_w, warm = serve_windows(fe, windows, sync)
+    engine.executor = executor
+    check(serve_digest(fe, tickets_w) == digest,
+          "9a: the warm repeat resolved other tickets or values")
+    check(len(rounds) == counts["replay"],
+          f"9a: the repeat ran {len(rounds)} rounds, the counted run "
+          f"{counts['replay']}")
+    del tickets_w
+    engine.reset_stats()
+    fe = serve_frontend(engine)
+    prof = device_breakdown(lambda: serve_windows(fe, windows, sync))
+    check(any("replay_kernel" in k for k in prof["device_ms"]),
+          "9a: the profiler saw no replay kernel")
+    h2d_ms = sum(v for k, v in prof["device_ms"].items() if "HtoD" in k)
+
+    engine.reset_stats()
+    main_stream = torch.cuda.current_stream().cuda_stream
+    seen = []
+    dispatch = engine.dispatch
+
+    def watched(queue, cancel=None):
+        seen.append((threading.get_ident(),
+                     torch.cuda.current_stream().cuda_stream))
+        return dispatch(queue, cancel=cancel)
+
+    engine.dispatch = watched
+    fe = serve_frontend(engine)
+    with obs.enabled(max_dispatches=256) as tr:
+        tickets_t, _ = serve_windows(fe, windows, sync, worker=True)
+    del engine.dispatch
+    check(serve_digest(fe, tickets_t) == digest,
+          "9a: the worker thread resolved other tickets or values")
+    check(seen and all(t != threading.get_ident() and s == main_stream
+                       for t, s in seen),
+          f"9a: the worker dispatched on another stream or thread: {seen}")
+    replay_spans = [s for r in tr.roots for s in r.walk()
+                    if s.name == "channel.replay"]
+    check(len(replay_spans) == counts["replay"] and all(
+        s.attrs.get("device_s", 0.0) > 0.0 for s in replay_spans),
+        "9a: a channel.replay span of the worker's run has no device_s")
+    check(tr.depth == 0, "9a: the worker left spans open")
+    del tickets_t
+
+    # K5 on every round of the repeat against the plain replay
+    per_round = []
+    for states_np, ct in rounds:
+        ms, bnd, err, plain_s, states = _round_k5(dev, states_np, ct)
+        per_round.append({"kernel_ms": ms, "bound_ms": bnd[0],
+                          "bound_by": bnd[1], "max_abs_err": err,
+                          "plain_s": plain_s,
+                          "units": int(states.shape[0]),
+                          "rows": int(states.shape[1]),
+                          "words": int(states.shape[2]),
+                          "cmds": int(ct.tables.shape[1])})
+        del states
+    del rounds
+    torch.cuda.empty_cache()
+
+    # the same traffic on the CPU
+    t_cpu = time.perf_counter()
+    cpu_engine = serve_channel("cpu")
+    fe_cpu = serve_frontend(cpu_engine)
+    tickets_c, _ = serve_windows(fe_cpu, windows)
+    cpu_s = time.perf_counter() - t_cpu
+    check(serve_digest(fe_cpu, tickets_c) == digest,
+          "9a: the card's run differs from the CPU run")
+    del tickets_c, cpu_engine, fe_cpu
+    i = 0
+    for w, wr in zip(first, warm):
+        rs = per_round[i:i + w["super_rounds"]]
+        i += w["super_rounds"]
+        w.update({"warm_wall_s": wr["wall_s"],
+                  "warm_pack_wall_s": wr["pack_wall_s"],
+                  "k5_kernel_ms": [r["kernel_ms"] for r in rs],
+                  "k5_bound_ms": [r["bound_ms"] for r in rs],
+                  "k5_words": [r["words"] for r in rs]})
+    out["9a"] = {"windows": first, "launches": counts, "latency": latency,
+                 "stats": digest["stats"], "registry": digest["registry"],
+                 "profiled": {k: prof[k] for k in (
+                     "wall_ms", "device_busy_ms", "idle_share",
+                     "device_ms")},
+                 "h2d_ms": h2d_ms, "rounds": per_round, "cpu_run_s": cpu_s,
+                 "worker_stream": main_stream}
+    for n, w in enumerate(first):
+        print(f"[9a] window {n}: {w['admitted']} admitted, first "
+              f"{w['wall_s']:.3f} s (pack {w['pack_wall_s']:.3f}), warm "
+              f"{w['warm_wall_s']:.3f} s (pack {w['warm_pack_wall_s']:.3f}), "
+              f"{w['k5_launches']} K5 launches, K5 "
+              + ", ".join(f"{m:.4f} ms (bound {b:.4f}, {x} words)"
+                          for m, b, x in zip(w["k5_kernel_ms"],
+                                             w["k5_bound_ms"],
+                                             w["k5_words"]))
+              + f"; {card}", flush=True)
+    print(f"[9a] server over {SERVE_CHIPS} x {DDR4.n_banks} units, "
+          f"{SERVE_WINDOWS} windows of {SERVE_WINDOW} requests x {lanes} "
+          f"lanes: stats {json.dumps(digest['stats'])}; modeled p50 "
+          f"{latency['p50_latency_s']:.6e} s, p99 "
+          f"{latency['p99_latency_s']:.6e} s, goodput "
+          f"{latency['goodput_rps']:.1f} requests/s; every completed "
+          f"ticket == the host oracle; card == CPU run ({cpu_s:.1f} s) on "
+          f"stats, tickets, resolved_s and registry; worker thread equal, "
+          f"on the main thread's stream; {card}")
+    print(f"[9a] profiled traffic: wall {prof['wall_ms']:.1f} ms, card busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.4f}, host-to-device copies {h2d_ms:.3f} ms; "
+          f"device ms {json.dumps(prof['device_ms'])}; {card}")
+    print(f"[9a] K5 equals the plain replay bit for bit on all "
+          f"{len(per_round)} rounds (plain " + ", ".join(
+              f"{r['plain_s']:.2f}" for r in per_round) + " s)", flush=True)
+
+    # -- 9b: faults ---------------------------------------------------------
+    def faulty_window(engine, fe, wins):
+        calls: list = []
+        engine._faulty_executor = _recording(engine._faulty_executor, calls)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        tks, per = serve_windows(fe, wins, sync)
+        wall = time.perf_counter() - t0
+        c = dict(build.LAUNCHES)
+        check(c["faulty_replay"] == len(calls) > 0 and c["replay"] == 0,
+              f"9b: {c['faulty_replay']} K6 launches for {len(calls)} "
+              f"faulty runs (launches {c})")
+        for k, v in c.items():
+            total[k] += v
+        return tks, calls, wall, c
+
+    # the soak's faulty model (serving_soak.py:93)
+    sigma_model = FaultModel(sigma=0.15, spare_lanes=1,
+                             stuck_lane_rate=0.002, seed=21)
+    f_engine = serve_channel(dev, fault=sigma_model, n_chips=2)
+    fe = serve_frontend(f_engine)
+    f_windows = serve_traffic(get_op, 1, SERVE_FAULT_LANES)
+    tks, calls, wall, c_sigma = faulty_window(f_engine, fe, f_windows)
+    wrong = serve_check(fe, tks, WRONG_LANE_SHARE)
+    _, _, k6_ms, k6_bound = _k6_attempt(dev, calls[0])
+    sigma_calls = calls
+    sigma = {"wall_s": wall, "wrong_lanes": wrong,
+             "k6_launches": c_sigma["faulty_replay"],
+             "k6_attempt_kernel_ms": k6_ms, "k6_bound_ms": k6_bound[0],
+             "frontend": fe.stats.as_dict(),
+             "faults": f_engine.stats.faults.as_dict()}
+    print(f"[9b] sigma 0.15 window on {2 * DDR4.n_banks} units, "
+          f"{len(tks)} admitted of {SERVE_WINDOW} x {SERVE_FAULT_LANES} "
+          f"lanes: "
+          f"{wrong} completed lanes differ from the oracle, {wall:.3f} s "
+          f"host wall, {c_sigma['faulty_replay']} K6 launches (one per "
+          f"attempt); K6 first attempt {k6_ms:.4f} ms (bound "
+          f"{k6_bound[0]:.4f}); frontend {json.dumps(sigma['frontend'])}; "
+          f"FaultStats {json.dumps(sigma['faults'])}; {card}", flush=True)
+    del tks
+
+    # the soak's breaker scenario (serving_soak.py:169)
+    bench = json.loads((ROOT / "BENCH_serving.json").read_text())
+    b_model = FaultModel(p_flip=0.0, dead_unit_rate=0.3, spare_lanes=1,
+                         max_redispatches=0, seed=0)
+    from repro_torch.core.channel import SimdramChannel
+    b_engine = SimdramChannel(n_chips=1, n_banks=2, n_subarrays=2,
+                              fault=b_model, device=dev)
+    fe = serve_frontend(b_engine, max_retries=0, breaker_threshold=1,
+                        breaker_cooldown_s=1e-5, window=8,
+                        max_queue_depth=256)
+    rng = np.random.default_rng(7)
+    b_windows = []
+    for _ in range(3):
+        b_windows.append([
+            (op, 8, (np.asarray(rng.integers(0, 256, 64), np.int64),
+                     np.asarray(rng.integers(0, 256, 64), np.int64)))
+            for op in ("addition", "subtraction", "min", "max")])
+    calls: list = []
+    b_engine._faulty_executor = _recording(b_engine._faulty_executor, calls)
+    build.reset_launches()
+    b_tickets = []
+    for n, win in enumerate(b_windows):
+        if n == 2:
+            fe.now_s += 10 * fe.breaker_cooldown_s     # cooldown elapses
+        for op, n_bits, operands in win:
+            b_tickets.append((fe.submit("alice", op, operands, n_bits), op,
+                              n_bits, operands))
+        fe.drain()
+    c_b = dict(build.LAUNCHES)
+    check(c_b["faulty_replay"] == len(calls) > 0 and c_b["replay"] == 0,
+          f"9b breaker: {c_b['faulty_replay']} K6 launches for "
+          f"{len(calls)} faulty runs")
+    for k, v in c_b.items():
+        total[k] += v
+    serve_check(fe, b_tickets)
+    via = [t.via_host for t, *_ in b_tickets]
+    check(all(via[:8]) and not any(via[8:]),
+          f"9b breaker: trip and shed to the host, then recover on the "
+          f"card, expected; got via_host {via}")
+    s = fe.stats
+    block = {k: int(getattr(s, k)) for k in (
+        "breaker_trips", "breaker_recoveries", "host_fallbacks",
+        "completed")}
+    check(block == {k: bench["breaker"][k] for k in block},
+          f"9b breaker: {block} != BENCH_serving.json {bench['breaker']}")
+    reg = REGISTRY.snapshot("serving.")
+    check(set(reg) == set(bench["registry"]) and all(
+        reg[k] == v if isinstance(v, int) else
+        abs(reg[k] - v) <= BENCH_REL_TOL * abs(v)
+        for k, v in bench["registry"].items()),
+        f"9b breaker: registry {reg} != BENCH_serving.json "
+        f"{bench['registry']}")
+    errs6, plain6 = _k6_batched(dev, sigma_calls + calls)
+    _agree(kern["faulty_replay"]["agreement"], "serving faults",
+           c_sigma["faulty_replay"] + c_b["faulty_replay"], errs6)
+    out["9b"] = {"sigma": sigma, "breaker": {
+        **block, "k6_launches": c_b["faulty_replay"], "registry": reg},
+        "k6_plain_s": plain6}
+    print(f"[9b] breaker (1 chip x 2 banks x 2 subarrays, dead-unit rate "
+          f"0.3, seed 0): trip -> shed -> half-open -> recover, "
+          f"{json.dumps(block)} == BENCH_serving.json, registry == it; "
+          f"{c_b['faulty_replay']} K6 launches; K6 equals its plain version "
+          f"on all {len(errs6)} attempts of 9b, states and flip counts "
+          f"(plain, stacked by shape: " + fmt_list(plain6) + " s)",
+          flush=True)
+    del calls, sigma_calls, b_tickets
+
+    # -- 9c: the tracer on the card -----------------------------------------
+    ch = serve_channel(dev, n_chips=SERVE_CHIPS)
+    mix = mix_queue(bank_mod, get_op, lanes,
+                    n_instrs=2 * SERVE_CHIPS * DDR4.n_banks)
+    want = _flat(ch.dispatch(mix))                    # tables cached
+    ch.reset_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    plain = _flat(ch.dispatch(mix))
+    sync()
+    wall_plain = time.perf_counter() - t0
+    k5_plain = build.LAUNCHES["replay"]
+    ch.reset_stats()
+    build.reset_launches()
+    with obs.enabled() as tr:
+        t0 = time.perf_counter()
+        traced = _flat(ch.dispatch(mix))
+        sync()
+        wall_traced = time.perf_counter() - t0
+    k5_traced = build.LAUNCHES["replay"]
+    check(all(np.array_equal(a, b) for a, b in zip(plain, want))
+          and all(np.array_equal(a, b) for a, b in zip(traced, want)),
+          "9c: the traced dispatch changed a result")
+    check(k5_plain == k5_traced == ch.stats.super_rounds,
+          f"9c: K5 launches {k5_plain} untraced, {k5_traced} traced, "
+          f"{ch.stats.super_rounds} super-rounds")
+    # the channel's own categories fold as its stats accumulate; the
+    # banks' transpose charges the channel mirrors by chip differences,
+    # another order of the same additions (as in the reference)
+    st = ch.stats
+    fields = {"channel.replay": st.latency_s,
+              "channel.transfer.h2d": st.transfer_h2d_s,
+              "channel.transfer.d2h": st.transfer_d2h_s,
+              "channel.transfer.overlapped": st.transfer_overlapped_s}
+    for cat, v in fields.items():
+        check(tr.modeled_total(cat) == v,
+              f"9c: {cat} {tr.modeled_total(cat)!r} != the stats' {v!r}")
+    mirrored = {"transpose": st.transpose_s,
+                "transpose_saved": st.transpose_s_saved}
+    mirror_err = {c: abs(tr.modeled_total(c) - v) / max(abs(v), 1e-300)
+                  for c, v in mirrored.items()}
+    check(all(e <= BENCH_REL_TOL for e in mirror_err.values()),
+          f"9c: the mirrored transpose fields are off: {mirror_err}")
+    replay_spans = [s for r in tr.roots for s in r.walk()
+                    if s.name == "channel.replay"]
+    check(len(replay_spans) == k5_traced
+          and all(s.attrs.get("device_s", 0.0) > 0.0 for s in replay_spans),
+          "9c: a channel.replay span has no device_s")
+    trace_path = Path(record["trace_path"])
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    trace = obs.write_chrome_trace(str(trace_path), tracer=tr)
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "scripts" / "check_trace.py")
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+    errors = check_trace.check_trace(trace)
+    check(errors == [], f"9c: the Chrome trace fails check_trace: {errors}")
+    # the device clock against the profiler's K5 time, round by round
+    pairs, n_rounds, sessions = _traced_profiled(
+        lambda: ch.dispatch(mix), ch.reset_stats, "channel.replay")
+    device_ms = [pairs[i][0] for i in sorted(pairs)]
+    prof_ms = [pairs[i][1] for i in sorted(pairs)]
+    check(all(abs(d - p) <= 0.05 * p + DEVICE_S_SLACK_MS
+              for d, p in pairs.values()),
+          f"9c: device_s is not within 5 % (+ {DEVICE_S_SLACK_MS} ms) of "
+          f"the profiler's K5 time: {pairs}")
+    if len(pairs) < n_rounds:
+        print(f"[9c] the profiler recorded the K5 launch of {len(pairs)} "
+              f"of {n_rounds} rounds in {len(sessions)} sessions "
+              f"({sessions}); the others are not compared", flush=True)
+    overhead = wall_traced - wall_plain
+    out["9c"] = {"wall_untraced_s": wall_plain, "wall_traced_s": wall_traced,
+                 "overhead_s": overhead, "k5_launches": k5_traced,
+                 "spans": tr.n_spans, "device_ms": device_ms,
+                 "mirrored_rel_err": mirror_err,
+                 "profiler_k5_ms": prof_ms, "profiler_sessions": sessions,
+                 "rounds_compared": sorted(pairs),
+                 "modeled_totals_s": {c: tr.modeled_total(c)
+                                      for c in tr.modeled_categories()},
+                 "trace": str(trace_path)}
+    print(f"[9c] full-width channel dispatch of the mix queue "
+          f"({len(mix)} x {lanes} lanes, {k5_traced} K5 launches): "
+          f"untraced warm {wall_plain:.3f} s, traced warm {wall_traced:.3f} "
+          f"s, tracer overhead {overhead:+.3f} s ({tr.n_spans} spans); "
+          f"results and launches equal; channel.replay and "
+          f"channel.transfer.* == their ChannelStats fields, transpose and "
+          f"transpose_saved within {json.dumps(mirror_err)} relative of "
+          f"the mirrored fields; device_s per round " + fmt_list(device_ms)
+          + " ms vs profiler K5 " + fmt_list(prof_ms) + f" ms; Chrome trace "
+          f"{trace_path} passes check_trace; {card}",
+          flush=True)
+    del ch, mix, want, plain, traced
+
+    _agree(kern["replay"]["agreement"], "serving", counts["replay"],
+           [r["max_abs_err"] for r in per_round])
+    kern["replay"]["serving"] = {
+        "launches": counts["replay"],
+        "round_kernel_ms": [r["kernel_ms"] for r in per_round],
+        "round_bound_ms": [r["bound_ms"] for r in per_round],
+        "round_plain_s": [r["plain_s"] for r in per_round]}
+    kern["faulty_replay"]["serving"] = {
+        "launches": c_sigma["faulty_replay"] + c_b["faulty_replay"],
+        "attempt_kernel_ms": k6_ms, "attempt_bound_ms": k6_bound[0],
+        "group_plain_s": plain6}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[9] serving path: launches {total}; phase 9 took "
+          f"{out['seconds']:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", help="also write the full record here")
+    p.add_argument("--trace", default=str(ROOT / "build" /
+                                          "serving_channel_trace.json"),
+                   help="where phase 9c writes its Chrome trace")
     args = p.parse_args()
     try:
         import torch
@@ -2201,12 +2939,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir() or not (
-            EXPERIMENTS / "popmma_probe.py").is_file() or not (
-            ROOT / "BENCH_apps.json").is_file():
-        print(f"chip_smoke: no port package under {SRC}, no "
-              f"{EXPERIMENTS / 'popmma_probe.py'} or no "
-              f"{ROOT / 'BENCH_apps.json'}", file=sys.stderr)
+    needed = [EXPERIMENTS / "popmma_probe.py", ROOT / "BENCH_apps.json",
+              ROOT / "BENCH_serving.json", ROOT / "scripts" / "check_trace.py"]
+    if not (SRC / "repro_torch").is_dir() or not all(
+            f.is_file() for f in needed):
+        print(f"chip_smoke: no port package under {SRC}, or one of "
+              f"{', '.join(str(f) for f in needed)} is missing",
+              file=sys.stderr)
         return 2
     sys.path[:0] = [str(SRC), str(EXPERIMENTS)]
     card = nvidia_smi("name,power.limit")
@@ -2215,7 +2954,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, SM clock now/max "
           f"{nvidia_smi('clocks.sm,clocks.max.sm')}")
     try:
-        record = run()
+        record = run(args.trace)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -133,8 +133,8 @@ def gather(results: Sequence, shards, n: int) -> np.ndarray:
 
 def engine_stats_object(dev: SimdramDevice):
     """The backend engine's live Stats object — ``None`` for the
-    engine-less sequential backends.  (The reference hands it to its
-    telemetry registry; the port has no registry yet.)"""
+    engine-less sequential backends.  For the registry form pass this to
+    :func:`repro_torch.core.telemetry.publish_stats`."""
     if dev.backend == "bank":
         return dev.bank().stats
     if dev.backend == "chip":

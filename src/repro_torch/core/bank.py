@@ -67,7 +67,7 @@ from .energy import uprogram_energy_nj
 from .fault import (FaultRuntime, FaultStats, fault_guarded_dispatch,
                     faulty_execute)
 from .isa import DispatchGuard, _round_up, check_cancel, compile_op
-from .telemetry import spec_as_dict
+from .telemetry import active_tracer, span_or_null, spec_as_dict
 from .timing import DDR4, DramConfig, fused_replay_latency_s
 
 ROW_BUCKET = 16     # state-row granularity shared across ops of one width
@@ -477,6 +477,7 @@ class Bank:
         self._guard = DispatchGuard(type(self).__name__)
         self._rr_next = 0     # round-robin allocation cursor (grouped path)
         self._lane_load = np.zeros(n_subarrays, np.int64)  # fused-slot loads
+        self._lane = "bank"   # telemetry track label; chip/channel relabel
 
     @property
     def _wave_capacity(self) -> int:
@@ -485,12 +486,24 @@ class Bank:
         return self.n_subarrays - len(self._blacklist)
 
     # -- modeled-clock charges ---------------------------------------------
+    # Each helper updates the Stats accumulator AND mirrors the identical
+    # value into the active tracer's charge log in the same call, so the
+    # tracer's left-fold per-category sum replays the Stats field's exact
+    # FP addition order (bit-for-bit reconciliation).  With the tracer
+    # disabled these collapse to the bare `+=`.
+
     def _pay_transpose(self, seconds: float) -> None:
         self.stats.transpose_s += seconds
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("transpose", seconds)
 
     def _save_transpose(self, seconds: float, skipped: int = 1) -> None:
         self.stats.transpositions_skipped += skipped
         self.stats.transpose_s_saved += seconds
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("transpose_saved", seconds)
 
     # -- core: one op, up to n_subarrays operand sets, one replay ----------
     def execute_batch(
@@ -506,6 +519,15 @@ class Bank:
         All sets replay the *same* cached command table concurrently in
         one launch.  Returns one result per set (array, or tuple of
         arrays for multi-output ops)."""
+        tr = active_tracer()
+        with span_or_null(tr, "bank.execute_batch", cat="replay",
+                          lane=self._lane, op=name, n_bits=n_bits,
+                          sets=len(operand_sets)):
+            return self._execute_batch(name, n_bits, operand_sets,
+                                       signed_out, subarray_ids)
+
+    def _execute_batch(self, name, n_bits, operand_sets, signed_out,
+                       subarray_ids) -> List:
         if len(operand_sets) > self.n_subarrays:
             raise ValueError(
                 f"{len(operand_sets)} operand sets > {self.n_subarrays} "
@@ -582,9 +604,12 @@ class Bank:
         k = len(operand_sets)
         if subarray_ids is None:
             subarray_ids = range(k)
-        self._account_wave(
+        c = self._account_wave(
             [(uprog, n, sid) for n, sid in zip(lanes, subarray_ids)],
             fused=False)
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("bank.replay", c.latency_s)
 
     def _account_wave(self, entries, fused: bool) -> WaveCost:
         """Charge one replay of ``entries`` = [(uprog, lanes, sid), ...]
@@ -661,14 +686,20 @@ class Bank:
         results: List = [None] * len(queue)
         if not queue:
             return results           # clean no-op: stats stay zeroed
+        tr = active_tracer()
+        root = (tr.begin("bank.dispatch", cat="dispatch", lane=self._lane,
+                         instrs=len(queue)) if tr is not None else None)
         t0 = time.perf_counter()
-        plan = plan_queue(queue, self.style)
+        with span_or_null(tr, "bank.plan", cat="plan"):
+            plan = plan_queue(queue, self.style)
         self.stats.bbops += len(queue)
         if self.fuse and self.engine == "interp":
             self._dispatch_fused(queue, plan, results, cancel=cancel)
         else:
             self._dispatch_grouped(queue, plan, results, cancel=cancel)
         self.stats.wall_s += time.perf_counter() - t0
+        if root is not None:
+            tr.end(root)
         return results
 
     def _empty_result(self, ins: BbopInstr):
@@ -702,6 +733,7 @@ class Bank:
 
         waves = self._build_waves(queue, active, stage, lanes)
         run = hetero_batched_interpreter(self.device)
+        tr = active_tracer()
         pending: Optional[Tuple[List[_Slot], torch.Tensor,
                                 Optional[torch.cuda.Event]]] = None
         for wave in waves:
@@ -716,14 +748,23 @@ class Bank:
                                        needed, results)
                     pending = None
             t_pack = time.perf_counter()
+            sp_pack = (tr.begin("bank.pack_wave", cat="pack")
+                       if tr is not None else None)
             states, tables, entries = self._pack_wave(
                 queue, wave, lanes, planes_cache)
+            if sp_pack is not None:
+                tr.end(sp_pack, slots=len(entries))
             self.stats.pack_wall_s += time.perf_counter() - t_pack
+            sp_replay = (tr.begin("bank.replay", cat="replay")
+                         if tr is not None else None)
             fut, done = self._submit_wave(run, states, tables, entries)
-            self._account_wave(
+            c = self._account_wave(
                 [(e.uprog, e.lanes, e.sid) for e in entries],
                 fused=len({(queue[i].op, queue[i].n_bits,
                             queue[i].signed_out) for i in wave}) > 1)
+            if sp_replay is not None:
+                tr.charge("bank.replay", c.latency_s, span=sp_replay)
+                tr.end(sp_replay, slots=len(entries))
             if pending is not None:
                 # double buffering: wave k is harvested only after wave
                 # k+1 was packed and submitted, so host pack overlapped
@@ -732,6 +773,8 @@ class Bank:
                                    results)
             pending = (entries, fut, done)
         if pending is not None:
+            with span_or_null(tr, "bank.drain", cat="drain"):
+                wait_stacked(pending[-1])      # drain the pipeline
             self._harvest_wave(queue, pending, planes_cache, needed, results)
 
     def _submit_wave(self, run, states, tables, entries):
@@ -1029,8 +1072,10 @@ class Bank:
         (``keep_vertical``, v2h skipped) or horizontal via
         :func:`read_outputs`."""
         entries, states, done = pending
-        self._harvest_out(queue, entries, drain_stacked(states, done),
-                          planes_cache, needed, results)
+        with span_or_null(active_tracer(), "bank.unpack", cat="unpack",
+                          slots=len(entries)):
+            self._harvest_out(queue, entries, drain_stacked(states, done),
+                              planes_cache, needed, results)
 
     def _harvest_out(self, queue, entries, out, planes_cache, needed,
                      results):
@@ -1158,12 +1203,24 @@ def submit_stacked(run, states: np.ndarray, tables):
     return fut, done
 
 
+def wait_stacked(done) -> None:
+    """Wait for the copy back of a replay :func:`submit_stacked`
+    enqueued (nothing to wait for on the CPU or a healed fault-injected
+    replay)."""
+    if done is not None:
+        done.synchronize()
+
+
 def drain_stacked(fut, done) -> np.ndarray:
     """The executed host states of a replay :func:`submit_stacked`
     enqueued (waiting for its copy), or of a healed fault-injected one
-    (already a host array), as uint32."""
-    if done is not None:
-        done.synchronize()
+    (already a host array), as uint32.  With a tracer, the device times
+    of the launches that have completed by now go to their ``*.replay``
+    spans."""
+    wait_stacked(done)
+    tr = active_tracer()
+    if tr is not None:
+        tr.resolve_device()
     if isinstance(fut, torch.Tensor):
         return fut.numpy().view(np.uint32)
     return fut

@@ -1,7 +1,9 @@
 """Channel-level partitioned execution: N chips × M banks × K subarrays.
 
-Counterpart of :mod:`repro.core.channel`, without the tracer calls (they
-come with the telemetry slice).  The end-to-end SIMDRAM framework
+Counterpart of :mod:`repro.core.channel`, with the reference's tracer
+calls (``channel.*`` spans, ``chip.round`` events, the DMA charges
+``channel.transfer.h2d``/``.d2h``/``.overlapped`` with their bytes, on
+per-chip and per-bank lanes).  The end-to-end SIMDRAM framework
 projects near-linear throughput gains as more DRAM structures compute in
 parallel, *bounded by the host-side memory channel*: chips on a channel
 share nothing compute-side, but every horizontal operand and result
@@ -44,12 +46,14 @@ import numpy as np
 
 from ..kernels.build import resolve_device
 from .bank import (BankStats, BbopInstr, Ref, VerticalOperand, _Slot,
-                   cached_table, drain_stacked, plan_queue, submit_stacked)
+                   cached_table, drain_stacked, plan_queue, submit_stacked,
+                   wait_stacked)
 from .chip import SimdramChip, partition_queue, remap_sub_queue, spread_bbop
 from .control_unit import CMD_WIDTH, TABLE_CACHE
 from .costmodel import (transfer_bytes_d2h, transfer_bytes_h2d,
                         transfer_crossover_chips)
 from .isa import DispatchGuard, check_cancel
+from .telemetry import active_tracer, span_or_null
 from .timing import (DDR4, DramConfig, burst_rounded_bytes,
                      channel_round_latency_s, d2h_transfer_s, h2d_transfer_s)
 
@@ -196,12 +200,17 @@ class _DmaSchedule:
     d2h − exposed``) into ``transfer_overlapped_s`` — so ``overlapped ≥
     0``, ``exposed ≤ serial``, and the overlap-off path equals the serial
     engine exactly in IEEE floats.  The same schedule serves the channel
-    and rank tiers.
+    and rank tiers (``prefix`` names the telemetry categories:
+    ``{prefix}.transfer.h2d`` / ``.d2h`` / ``.overlapped``); charges land
+    at the same sites and in the same order as the Stats accumulators.
     """
 
-    def __init__(self, stats: ChannelStats, cfg: DramConfig):
+    def __init__(self, stats: ChannelStats, cfg: DramConfig, lane: str,
+                 prefix: str = "channel"):
         self.stats = stats
         self.cfg = cfg
+        self.lane = lane
+        self.prefix = prefix
         self.h2d_bytes: List[int] = []
         self.d2h_bytes: List[int] = []
         self.h2d_s: List[float] = []
@@ -230,8 +239,10 @@ class _DmaSchedule:
         self.h2d_s = [h2d_transfer_s(b, self.cfg) for b in h2d_raw]
         self.d2h_s = [d2h_transfer_s(b, self.cfg) for b in d2h_raw]
 
-    def _charge(self, direction: str, seconds: float, nbytes: int):
-        """Charge one non-empty slice (zero-byte slices are skipped)."""
+    def _charge(self, direction: str, r: int, seconds: float, nbytes: int):
+        """Charge one non-empty slice into the Stats accumulator and the
+        matching telemetry category (zero-byte slices are skipped in
+        both, keeping the left-fold reconciliation exact)."""
         if nbytes <= 0:
             return
         self.stats.transfer_bytes += nbytes
@@ -239,6 +250,12 @@ class _DmaSchedule:
             self.stats.transfer_h2d_s += seconds
         else:
             self.stats.transfer_d2h_s += seconds
+        tr = active_tracer()
+        if tr is not None:
+            cat = f"{self.prefix}.transfer.{direction}"
+            ev = tr.event(cat, cat="transfer", lane=self.lane,
+                          round=r, bytes=nbytes)
+            tr.charge(cat, seconds, span=ev)
 
     def after_round(self, r: int, round_s: float):
         """Account the DMA slot that ran alongside replay of super-round
@@ -247,13 +264,13 @@ class _DmaSchedule:
         (``r == n−1``) which are fully exposed."""
         n = len(self.h2d_s)
         if r == 0:
-            self._charge("h2d", self.h2d_s[0], self.h2d_bytes[0])
+            self._charge("h2d", 0, self.h2d_s[0], self.h2d_bytes[0])
         t_in = self.h2d_s[r + 1] if r + 1 < n else 0.0
         t_out = self.d2h_s[r - 1] if r >= 1 else 0.0
         if r + 1 < n:
-            self._charge("h2d", t_in, self.h2d_bytes[r + 1])
+            self._charge("h2d", r + 1, t_in, self.h2d_bytes[r + 1])
         if r >= 1:
-            self._charge("d2h", t_out, self.d2h_bytes[r - 1])
+            self._charge("d2h", r - 1, t_out, self.d2h_bytes[r - 1])
         if self.cfg.transfer_overlap:
             # exposed slack of this slot; by case analysis on the max,
             # hidden >= 0 and exposed <= t_in + t_out hold EXACTLY in
@@ -262,8 +279,15 @@ class _DmaSchedule:
             hidden = (t_in + t_out) - exposed
             if hidden > 0.0:
                 self.stats.transfer_overlapped_s += hidden
+                tr = active_tracer()
+                if tr is not None:
+                    cat = f"{self.prefix}.transfer.overlapped"
+                    ev = tr.event(cat, cat="transfer", lane=self.lane,
+                                  round=r)
+                    tr.charge(cat, hidden, span=ev)
         if r == n - 1:
-            self._charge("d2h", self.d2h_s[n - 1], self.d2h_bytes[n - 1])
+            self._charge("d2h", n - 1, self.d2h_s[n - 1],
+                         self.d2h_bytes[n - 1])
 
 
 def _round_of(waves) -> Dict[int, int]:
@@ -363,6 +387,11 @@ class SimdramChannel:
             n_subarrays=n_chips * n_banks * n_subarrays,
             n_chips=n_chips, n_banks=n_banks)
         self._guard = DispatchGuard("SimdramChannel")
+        self._lane = "channel"       # telemetry track label
+        for c, chip in enumerate(self.chips):
+            chip._lane = f"chip{c}"
+            for b, bank in enumerate(chip.banks):
+                bank._lane = f"chip{c}/bank{b}"
 
     # -- scheduling --------------------------------------------------------
     def _partition(self, queue, active, lanes) -> Dict[int, int]:
@@ -451,9 +480,14 @@ class SimdramChannel:
         results: List = [None] * len(queue)
         if not queue:
             return results           # clean no-op: stats stay zeroed
+        tr = active_tracer()
+        root = (tr.begin("channel.dispatch", cat="dispatch",
+                         lane=self._lane, instrs=len(queue))
+                if tr is not None else None)
         t0 = time.perf_counter()
         self.stats.bbops += len(queue)
-        lanes, stage, needed = plan_queue(queue, self.style)
+        with span_or_null(tr, "channel.plan", cat="plan"):
+            lanes, stage, needed = plan_queue(queue, self.style)
         planes_cache: Dict[Tuple[int, int], np.ndarray] = {}
         active = []
         for i in range(len(queue)):
@@ -464,13 +498,19 @@ class SimdramChannel:
                 active.append(i)
         if not active:               # all-zero-lane queue: no replay
             self.stats.wall_s += time.perf_counter() - t0
+            if root is not None:
+                tr.end(root)
             return results
 
-        _, waves = self._schedule(queue, active, lanes, stage)
+        sp = (tr.begin("channel.schedule", cat="plan")
+              if tr is not None else None)
+        chip_of, waves = self._schedule(queue, active, lanes, stage)
+        if sp is not None:
+            tr.end(sp, chips=len(set(chip_of.values())))
         n_super = max(len(w) for per_chip in waves for w in per_chip)
         # DMA transfer schedule: inputs of super-round k+1 and outputs
         # of k-1 move while k replays; charged per completed slot below
-        dma = _DmaSchedule(self.stats, self.cfg)
+        dma = _DmaSchedule(self.stats, self.cfg, self._lane, "channel")
         dma.plan(queue, active, lanes, _round_of(waves), n_super,
                  self.style)
         pending = None               # (chips_entries, states, event)
@@ -505,9 +545,13 @@ class SimdramChannel:
                                           needed, results)
             pending = (chips_entries, *fut)
         if pending is not None:
+            with span_or_null(tr, "channel.drain", cat="drain"):
+                wait_stacked(pending[-1])      # drain the pipeline
             self._harvest_super_round(queue, pending, planes_cache, needed,
                                       results)
         self.stats.wall_s += time.perf_counter() - t0
+        if root is not None:
+            tr.end(root)
         return results
 
     def _pack_super_round(self, queue, round_by_chip, lanes, planes_cache):
@@ -521,7 +565,11 @@ class SimdramChannel:
         :data:`~repro_torch.core.control_unit.TABLE_CACHE`, keyed by the
         whole super-round's composition.  Returns ``(chips_entries,
         (states, event))``."""
+        tr = active_tracer()
         t_pack = time.perf_counter()
+        sp = (tr.begin("channel.pack_super_round", cat="pack",
+                       chips=len(round_by_chip))
+              if tr is not None else None)
         n_rows, n_cmds, cols = self._super_round_dims(queue, round_by_chip,
                                                       lanes)
         states, chip_keys, chips_entries = self._pack_super_round_states(
@@ -532,12 +580,16 @@ class SimdramChannel:
             lambda: self._build_super_round_tables(chip_keys, n_cmds)
             .reshape(-1, n_cmds, CMD_WIDTH),
             self.device)
+        if sp is not None:
+            tr.end(sp)
         pack_s = time.perf_counter() - t_pack
         self.stats.pack_wall_s += pack_s
         for c, _ in round_by_chip:
             self.chips[c].stats.pack_wall_s += pack_s / len(round_by_chip)
-        return chips_entries, self._submit_super_round(states, tables,
-                                                       chips_entries)
+        with span_or_null(tr, "channel.replay", cat="replay",
+                          chips=len(round_by_chip)):
+            fut = self._submit_super_round(states, tables, chips_entries)
+        return chips_entries, fut
 
     def _super_round_dims(self, queue, round_by_chip, lanes):
         """Max (rows, cmds, cols) over the participating chips' rounds —
@@ -559,11 +611,17 @@ class SimdramChannel:
              cols // 32), np.uint32)
         chips_entries: List[Tuple[int, List[Tuple[int, List[_Slot]]]]] = []
         chip_keys: List = [None] * self.n_chips
+        tr = active_tracer()
         for c, rw in round_by_chip:
             chip = self.chips[c]
+            sp_c = (tr.begin("chip.pack_round", cat="pack",
+                             lane=chip._lane, banks=len(rw))
+                    if tr is not None else None)
             snap = [getattr(chip.stats, f) for f in _TRANSPOSE]
             st, bank_keys, entries_by_bank = chip._pack_round_states(
                 queue, rw, lanes, planes_cache, n_rows, n_cmds, cols)
+            if sp_c is not None:
+                tr.end(sp_c)
             _mirror(self.stats, chip.stats, _TRANSPOSE, snap)
             states[c] = st
             chip_keys[c] = tuple(bank_keys)
@@ -633,11 +691,20 @@ class SimdramChannel:
             bank_waves = chip._account_round(queue, entries_by_bank)
             _mirror(st, chip.stats, _MIRROR, snap)
             st.chip_busy_s[c] += chip.stats.latency_s - lat0
+            tr = active_tracer()
+            if tr is not None:
+                # per-chip modeled busy time on the chip's own lane (the
+                # super-round charges the max across chips)
+                ev = tr.event("chip.round", cat="replay", lane=chip._lane)
+                tr.charge("chip.busy", chip.stats.latency_s - lat0, span=ev)
             st.subarray_programs[c * per_chip:(c + 1) * per_chip] += (
                 chip.stats.subarray_programs - progs0)
             chip_rounds.append(bank_waves)
         round_s = channel_round_latency_s(chip_rounds, self.cfg)
         st.latency_s += round_s
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("channel.replay", round_s)
         return round_s
 
     def _harvest_super_round(self, queue, pending, planes_cache, needed,
@@ -645,9 +712,10 @@ class SimdramChannel:
         """Materialize one completed super-round (waiting for its states
         to arrive on the host)."""
         chips_entries, fut, done = pending
-        self._harvest_super_round_out(queue, chips_entries,
-                                      drain_stacked(fut, done), planes_cache,
-                                      needed, results)
+        with span_or_null(active_tracer(), "channel.unpack", cat="unpack"):
+            self._harvest_super_round_out(queue, chips_entries,
+                                          drain_stacked(fut, done),
+                                          planes_cache, needed, results)
 
     def _harvest_super_round_out(self, queue, chips_entries, out,
                                  planes_cache, needed, results):

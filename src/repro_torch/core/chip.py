@@ -1,10 +1,11 @@
 """Chip-level partitioned execution: N banks of M subarrays each.
 
-Counterpart of :mod:`repro.core.chip`, without the tracer calls (they
-come with the telemetry slice).  The end-to-end SIMDRAM paper's control
-unit allocates work across *banks*: the 1/4/16-bank sweep that produces
-the headline 88× CPU throughput runs one compute-enabled subarray per
-bank in lockstep.  Here:
+Counterpart of :mod:`repro.core.chip`, with the reference's tracer
+calls (``chip.*`` spans, ``bank.wave`` events and ``bank.busy`` /
+``chip.replay`` charges on per-bank lanes).  The end-to-end SIMDRAM
+paper's control unit allocates work across *banks*: the 1/4/16-bank
+sweep that produces the headline 88× CPU throughput runs one
+compute-enabled subarray per bank in lockstep.  Here:
 
   - a :class:`SimdramChip` owns ``n_banks`` :class:`~repro_torch.core
     .bank.Bank` instances and stacks their wave slabs into one
@@ -48,10 +49,11 @@ import numpy as np
 from ..kernels.build import resolve_device
 from .bank import (Bank, BankStats, BbopInstr, Ref, _Slot,
                    _build_stacked_tables, drain_stacked, plan_queue,
-                   submit_stacked)
+                   submit_stacked, wait_stacked)
 from .control_unit import CMD_WIDTH, TABLE_CACHE
 from .costmodel import instr_cost_s
 from .isa import DispatchGuard, check_cancel
+from .telemetry import active_tracer, span_or_null
 from .timing import DDR4, DramConfig, chip_round_latency_s
 
 
@@ -251,6 +253,9 @@ class SimdramChip:
         self.stats = ChipStats(n_subarrays=n_banks * n_subarrays,
                                n_banks=n_banks)
         self._guard = DispatchGuard("SimdramChip")
+        self._lane = "chip"          # telemetry track label
+        for b, bank in enumerate(self.banks):
+            bank._lane = f"bank{b}"
 
     # -- scheduling --------------------------------------------------------
     def _partition(self, queue, active, lanes) -> Dict[int, int]:
@@ -313,9 +318,13 @@ class SimdramChip:
         results: List = [None] * len(queue)
         if not queue:
             return results           # clean no-op: stats stay zeroed
+        tr = active_tracer()
+        root = (tr.begin("chip.dispatch", cat="dispatch", lane=self._lane,
+                         instrs=len(queue)) if tr is not None else None)
         t0 = time.perf_counter()
         self.stats.bbops += len(queue)
-        lanes, stage, needed = plan_queue(queue, self.style)
+        with span_or_null(tr, "chip.plan", cat="plan"):
+            lanes, stage, needed = plan_queue(queue, self.style)
         planes_cache: Dict[Tuple[int, int], np.ndarray] = {}
         active = []
         for i in range(len(queue)):
@@ -326,8 +335,11 @@ class SimdramChip:
                 active.append(i)
         if not active:               # all-zero-lane queue: no replay
             self.stats.wall_s += time.perf_counter() - t0
+            if root is not None:
+                tr.end(root)
             return results
 
+        sp = tr.begin("chip.schedule", cat="plan") if tr is not None else None
         bank_of = self._partition(queue, active, lanes)
         for i in active:
             self.banks[bank_of[i]].stats.bbops += 1
@@ -336,6 +348,8 @@ class SimdramChip:
                 queue, [i for i in active if bank_of[i] == b], stage, lanes)
             for b in range(self.n_banks)
         ]
+        if sp is not None:
+            tr.end(sp, banks=len(set(bank_of.values())))
         n_rounds = max(len(w) for w in waves_by_bank)
         pending = None               # (entries_by_bank, states, event)
         for r in range(n_rounds):
@@ -363,8 +377,12 @@ class SimdramChip:
                                     results)
             pending = (entries_by_bank, *fut)
         if pending is not None:
+            with span_or_null(tr, "chip.drain", cat="drain"):
+                wait_stacked(pending[-1])      # drain the pipeline
             self._harvest_round(queue, pending, planes_cache, needed, results)
         self.stats.wall_s += time.perf_counter() - t0
+        if root is not None:
+            tr.end(root)
         return results
 
     def _round_dims(self, queue, round_waves, lanes) -> Tuple[int, int, int]:
@@ -393,14 +411,19 @@ class SimdramChip:
             (self.n_banks, self.n_subarrays, n_rows, cols // 32), np.uint32)
         entries_by_bank: List[Tuple[int, List[_Slot]]] = []
         bank_keys: List = [None] * self.n_banks
+        tr = active_tracer()
         for b, wave in round_waves:
             bank = self.banks[b]
+            sp = (tr.begin("bank.pack_wave", cat="pack", lane=bank._lane)
+                  if tr is not None else None)
             skips0 = bank.stats.transpositions_skipped
             saved0 = bank.stats.transpose_s_saved
             paid0 = bank.stats.transpose_s
             st, wave_key, entries = bank._pack_wave(
                 queue, wave, lanes, planes_cache,
                 n_rows=n_rows, n_cmds=n_cmds, cols=cols, with_tables=False)
+            if sp is not None:
+                tr.end(sp, slots=len(entries))
             self.stats.transpositions_skipped += (
                 bank.stats.transpositions_skipped - skips0)
             self.stats.transpose_s_saved += (
@@ -423,7 +446,10 @@ class SimdramChip:
         the whole round's composition: a repeated round pays zero
         host-side table work.  Returns ``(entries_by_bank, (states,
         event))``."""
+        tr = active_tracer()
         t_pack = time.perf_counter()
+        sp = (tr.begin("chip.pack_round", cat="pack", banks=len(round_waves))
+              if tr is not None else None)
         n_rows, n_cmds, cols = self._round_dims(queue, round_waves, lanes)
         states, bank_keys, entries_by_bank = self._pack_round_states(
             queue, round_waves, lanes, planes_cache, n_rows, n_cmds, cols)
@@ -433,12 +459,16 @@ class SimdramChip:
             lambda: self._build_round_tables(bank_keys, n_cmds).reshape(
                 -1, n_cmds, CMD_WIDTH),
             self.device)
+        if sp is not None:
+            tr.end(sp)
         pack_s = time.perf_counter() - t_pack
         self.stats.pack_wall_s += pack_s
         for b, _ in round_waves:
             self.banks[b].stats.pack_wall_s += pack_s / len(round_waves)
-        return entries_by_bank, self._submit_round(states, tables,
-                                                   entries_by_bank)
+        with span_or_null(tr, "chip.replay", cat="replay",
+                          banks=len(round_waves)):
+            fut = self._submit_round(states, tables, entries_by_bank)
+        return entries_by_bank, fut
 
     def _submit_round(self, states, tables, entries_by_bank):
         """Submit one stacked chip round; returns ``(states, event)``.
@@ -500,17 +530,30 @@ class SimdramChip:
                 [(e.uprog, e.lanes, e.sid) for e in entries], fused=fused)
             st.add_wave(c, fused, concurrent=True)
             st.bank_busy_s[b] += c.latency_s
+            tr = active_tracer()
+            if tr is not None:
+                # per-bank modeled busy time on the bank's own lane (the
+                # round charges the max across banks; this shows each
+                # bank's term of it)
+                ev = tr.event("bank.wave", cat="replay",
+                              lane=self.banks[b]._lane, slots=len(entries))
+                tr.charge("bank.busy", c.latency_s, span=ev)
             for e in entries:
                 st.subarray_programs[b * self.n_subarrays + e.sid] += 1
             bank_waves.append((c.uprogs, c.invocations))
-        st.latency_s += chip_round_latency_s(bank_waves, self.cfg)
+        round_s = chip_round_latency_s(bank_waves, self.cfg)
+        st.latency_s += round_s
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("chip.replay", round_s)
         return bank_waves
 
     def _harvest_round(self, queue, pending, planes_cache, needed, results):
         """Materialize one completed chip round (waiting for its states to
         arrive on the host)."""
         entries_by_bank, fut, done = pending
-        self._harvest_round_out(queue, entries_by_bank,
+        with span_or_null(active_tracer(), "chip.unpack", cat="unpack"):
+            self._harvest_banks(queue, entries_by_bank,
                                 drain_stacked(fut, done), planes_cache,
                                 needed, results)
 
@@ -518,7 +561,14 @@ class SimdramChip:
                            needed, results):
         """Harvest an executed (n_banks, n_subarrays, n_rows, n_words)
         host array, bank slab by bank slab (forwarded planes published
-        per bank — chains are bank-local)."""
+        per bank — chains are bank-local), in a ``chip.unpack`` span as
+        the reference's channel and rank harvests open one per chip."""
+        with span_or_null(active_tracer(), "chip.unpack", cat="unpack"):
+            self._harvest_banks(queue, entries_by_bank, out, planes_cache,
+                                needed, results)
+
+    def _harvest_banks(self, queue, entries_by_bank, out, planes_cache,
+                       needed, results):
         for b, entries in entries_by_bank:
             bank = self.banks[b]
             skips0 = bank.stats.transpositions_skipped

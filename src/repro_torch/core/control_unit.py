@@ -39,6 +39,7 @@ axes into one and make one K5 or K6 launch.
 from __future__ import annotations
 
 import functools
+import time
 from collections import OrderedDict
 from typing import Dict, NamedTuple, Optional, Sequence
 
@@ -48,6 +49,7 @@ import torch
 from ..kernels import build
 from ..kernels.ref import popcount_u32
 from .bitplane import to_i32_bits
+from .telemetry import active_tracer
 from .uprogram import C1, TRIPLES, UProgram
 
 CMD_WIDTH = 13
@@ -239,9 +241,13 @@ def _replay_kernel(states: torch.Tensor, tables: torch.Tensor,
     out = torch.empty_like(states)
     n_cmds = tables.shape[-2]
     stride = 0 if tables.dim() == 2 else n_cmds * CMD_WIDTH
+    tr = active_tracer()
+    timed = tr.launch_begin(states.device) if tr is not None else None
     build.launch("replay", "replay_launch", states.data_ptr(), out.data_ptr(),
                  tables.data_ptr(), stride, schedule.data_ptr(), n_units,
                  n_rows, n_words, n_cmds)
+    if tr is not None:
+        tr.launch_end(timed)
     build.LAUNCHES["replay"] += 1
     return out
 
@@ -252,7 +258,9 @@ def replay(states: torch.Tensor, tables) -> torch.Tensor:
     ``tables`` is (n_units, n_cmds, 13) — one table per unit — or
     (n_cmds, 13) shared by every unit, or a :class:`CommandTables`, whose
     schedule the kernel then reads; for a bare tensor it works the
-    schedule out on the device.  Returns the executed states."""
+    schedule out on the device.  On the CPU a schedule lets the plain
+    replay skip idle units and trailing NOPs, as K5 does.  Returns the
+    executed states."""
     tables, schedule = _split_tables(tables)
     if states.dim() != 3 or tables.dim() not in (2, 3):
         raise ValueError(f"states must be 3-D and tables 2-D or 3-D, got "
@@ -268,6 +276,8 @@ def replay(states: torch.Tensor, tables) -> torch.Tensor:
                          f"{tables.device}")
     states, tables = states.contiguous(), tables.contiguous()
     if states.device.type == "cpu":
+        if schedule is not None:
+            return _replay_plain_scheduled(states, tables, schedule)
         return replay_plain(states, tables)
     if states.device.type != "cuda":
         raise ValueError(f"unsupported device {states.device}")
@@ -275,6 +285,23 @@ def replay(states: torch.Tensor, tables) -> torch.Tensor:
         return states.clone()
     return _replay_kernel(states, tables,
                           _kernel_schedule(states, tables, schedule))
+
+
+def _replay_plain_scheduled(states: torch.Tensor, tables: torch.Tensor,
+                            schedule: torch.Tensor) -> torch.Tensor:
+    """:func:`replay_plain` over the units with a real command only, up
+    to the longest real count — as K5 stops: every command after a
+    unit's count is an all-zero NOP, and a unit with none keeps its
+    state.  Bit for bit :func:`replay_plain` of the whole tables."""
+    counts = schedule[0].to(torch.int64)
+    live = torch.nonzero(counts > 0).flatten()
+    out = states.clone()
+    if live.numel() == 0:
+        return out
+    n = int(counts.max())
+    t = tables[live, :n] if tables.dim() == 3 else tables[:n]
+    out[live] = replay_plain(states[live], t)
+    return out
 
 
 def _check_table(table: np.ndarray, n_rows: int) -> None:
@@ -552,11 +579,15 @@ def _faulty_replay_kernel(states, tables, schedule, keys, stuck0, stuck1,
     counts = torch.zeros(n_units, dtype=torch.int64, device=states.device)
     n_cmds = tables.shape[-2]
     stride = 0 if tables.dim() == 2 else n_cmds * CMD_WIDTH
+    tr = active_tracer()
+    timed = tr.launch_begin(states.device) if tr is not None else None
     build.launch("replay", "faulty_replay_launch", states.data_ptr(),
                  out.data_ptr(), tables.data_ptr(), stride,
                  schedule.data_ptr(), keys.data_ptr(), stuck0.data_ptr(),
                  stuck1.data_ptr(), dead.data_ptr(), counts.data_ptr(), thr,
                  n_units, n_rows, n_words, n_cmds)
+    if tr is not None:
+        tr.launch_end(timed)
     build.LAUNCHES["faulty_replay"] += 1
     return out, counts
 
@@ -810,14 +841,22 @@ class TableCache:
     def get(self, key, build_table, device) -> CommandTables:
         """Return the cached device tables for ``key``, building them with
         ``build_table()`` (a host int32 array), working out their schedule
-        and copying both to ``device`` on first use."""
+        and copying both to ``device`` on first use.  With a tracer, a
+        ``table_cache.hit`` or ``table_cache.miss`` event (the host
+        table's bytes) as in the reference."""
+        tr = active_tracer()
         t = self._store.get(key)
         if t is None:
             self.misses += 1
+            t0 = time.perf_counter() if tr is not None else 0.0
             host = torch.from_numpy(
                 np.ascontiguousarray(build_table(), dtype=np.int32))
             t = self._store[key] = CommandTables(
                 host.to(device), command_schedule(host).to(device))
+            if tr is not None:
+                tr.event("table_cache.miss", cat="cache", tier=key[0],
+                         wall_s=time.perf_counter() - t0,
+                         bytes=int(host.numel()) * 4)
             self.bytes += _nbytes(t)
             while self.bytes > self.max_bytes and len(self._store) > 1:
                 _, old = self._store.popitem(last=False)
@@ -826,6 +865,8 @@ class TableCache:
         else:
             self.hits += 1
             self._store.move_to_end(key)
+            if tr is not None:
+                tr.event("table_cache.hit", cat="cache", tier=key[0])
         return t
 
     def stats(self) -> Dict[str, int]:

@@ -1,12 +1,13 @@
 """Fault model, detection, bounded retry, and graceful degradation.
 
-Counterpart of :mod:`repro.core.fault`, copied but for three points:
+Counterpart of :mod:`repro.core.fault`, copied but for two points:
 injection runs on the K6 kernel (:func:`repro_torch.core.control_unit
 .faulty_bank_replay`), whose random bits come from Philox, not
-``jax.random``; states move to the device of the wave's tables and back
-as int32 bit-views; and the tracer calls (``active_tracer``, spans,
-events, charges, incidents) are left out until the tracer is ported.
-Every :class:`FaultStats` field is counted as in the reference, and
+``jax.random``; and states move to the device of the wave's tables and
+back as int32 bit-views.  The tracer calls (the ``fault.execute`` span,
+the ``fault.inject``/``retry``/``vote``/``redispatch`` events, the
+``fault`` charges and the ``fault_exhausted`` incident) are the
+reference's.  Every :class:`FaultStats` field is counted as in the reference, and
 everything drawn with numpy (dead units, stuck masks, Philox keys)
 equals the reference's draws.
 
@@ -68,7 +69,7 @@ import torch
 from .control_unit import output_plane_rows
 from .costmodel import vote_cost_s
 from .subarray import pack_bits, unpack_bits
-from .telemetry import spec_as_dict
+from .telemetry import active_tracer, spec_as_dict
 from .timing import DDR4, DramConfig, fault_replay_overhead_s
 
 # stuck-at column patterns are drawn once per subarray over the physical
@@ -413,6 +414,11 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
     runs_per_attempt = 2 if r == 1 else 1
     unit_shape = states.shape[:-2]
     n_words = states.shape[-1]
+    tr = active_tracer()
+    sp = None
+    if tr is not None:
+        sp = tr.begin("fault.execute", cat="fault", slabs=len(slabs),
+                      replicas=r)
 
     s0 = np.zeros(unit_shape + (n_words,), np.uint32)
     s1 = np.zeros(unit_shape + (n_words,), np.uint32)
@@ -467,11 +473,16 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
                                   s0_dev, s1_dev, dead_dev, p)
             flips = int(nflips.sum())
             stats.injected += flips
+            if sp is not None:
+                tr.event("fault.inject", cat="fault", attempt=attempt,
+                         flips=flips)
             outs.append(out_dev.cpu().numpy().view(np.uint32))
             total_runs += 1
         last_out = outs[-1]
         if attempt:
             stats.retries += 1
+            if sp is not None:
+                tr.event("fault.retry", cat="fault", attempt=attempt)
 
         for j, (idx, e) in enumerate(ents):
             if acc_ok[j].all():
@@ -506,6 +517,10 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
             vote_cost_s(e.lanes // r, sum(e.spec.out_bits), r, cfg)
             for j, (_, e) in enumerate(ents) if acc_ok[j].all())
         stats.overhead_s += vote_s
+        if sp is not None:
+            tr.event("fault.vote", cat="fault", attempt=attempt,
+                     undecided=sum(1 for ok in acc_ok if not ok.all()))
+            tr.charge("fault", vote_s, span=sp)
         if all(ok.all() for ok in acc_ok):
             break
     else:
@@ -513,10 +528,15 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
                if not acc_ok[j].all()]
         replay_s = fault_replay_overhead_s(base_s, total_runs - 1)
         stats.overhead_s += replay_s
+        if sp is not None:
+            tr.charge("fault", replay_s, span=sp)
+            tr.end(sp, runs=total_runs, persistent_units=len(bad))
         raise _PersistentFault(bad)
 
     replay_s = fault_replay_overhead_s(base_s, total_runs - 1)
     stats.overhead_s += replay_s
+    if sp is not None:
+        tr.charge("fault", replay_s, span=sp)
 
     # heal: write the voted values back into the output planes (repeated
     # across replicas) so harvest and plane forwarding read clean data
@@ -527,6 +547,8 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
         for o, rows in enumerate(rows_of[j]):
             vals = np.tile(acc_vals[j][o], r)
             sub[list(rows)] = pack_bits(vals, e.spec.out_bits[o], n_cols)
+    if sp is not None:
+        tr.end(sp, runs=total_runs)
     return final
 
 
@@ -549,21 +571,26 @@ def fault_guarded_dispatch(model: FaultModel, stats: FaultStats, queue,
 
     ``tier`` names the caller (``"bank"``/``"chip"``/``"channel"``) and
     ``blacklist_snapshot`` returns its blacklisted unit coordinates —
-    both feed the structured :class:`FaultExhaustedError` context so
-    post-mortems see *where* the redundancy budget died, not just that
-    it did."""
+    both feed the structured :class:`FaultExhaustedError` context and
+    the flight-recorder incident so post-mortems see *where* the
+    redundancy budget died, not just that it did."""
     queue = list(queue)
     if not queue:
         return []
     r = model.replicas
     rep = replicate_queue(queue, r)
+    tr = active_tracer()
+    depth0 = tr.depth if tr is not None else 0
 
     def _exhaust(cause: str, message: str) -> FaultExhaustedError:
-        return FaultExhaustedError(
+        err = FaultExhaustedError(
             message, cause=cause, tier=tier,
             blacklist=blacklist_snapshot() if blacklist_snapshot else (),
             retries=stats.retries, redispatches=stats.redispatches,
             capacity=int(capacity()))
+        if tr is not None:
+            tr.incident("fault_exhausted", **err.context())
+        return err
 
     for _ in range(model.max_redispatches + 1):
         if capacity() <= 0:
@@ -572,8 +599,15 @@ def fault_guarded_dispatch(model: FaultModel, stats: FaultStats, queue,
         try:
             res = dispatch_core(rep)
         except _PersistentFault as pf:
+            if tr is not None:
+                # close the spans the aborted dispatch left open so the
+                # re-dispatch does not nest under a stale tree
+                tr.unwind(depth0)
             stats.redispatches += 1
             stats.remapped += int(blacklist_units(pf.units))
+            if tr is not None:
+                tr.event("fault.redispatch", cat="fault",
+                         blacklisted=len(pf.units))
             continue
         return dereplicate_results(res, r)
     raise _exhaust(

@@ -355,14 +355,27 @@ class SimdramDevice:
         operands materialized horizontally.  Every path accumulates one
         :class:`CallStats` per instruction in :attr:`calls`."""
         from .bank import validate_queue
+        from .telemetry import active_tracer
         with self._guard:
             queue = list(queue)     # tolerate iterator queues
             if not queue:
                 raise ValueError(
                     "SimdramDevice.dispatch: empty queue — build at least "
                     "one BbopInstr before dispatching")
-            validate_queue(queue, self.style)
-            return self._dispatch_validated(queue, cancel)
+            tr = active_tracer()
+            if tr is None:
+                validate_queue(queue, self.style)
+                return self._dispatch_validated(queue, cancel)
+            root = tr.begin("device.dispatch", cat="dispatch",
+                            backend=self.backend, instrs=len(queue))
+            try:
+                with tr.span("device.validate", cat="plan"):
+                    validate_queue(queue, self.style)
+                return self._dispatch_validated(queue, cancel)
+            finally:
+                # the defensive LIFO pop in end() also closes anything an
+                # exception (e.g. FaultExhaustedError) left open beneath
+                tr.end(root)
 
     def _dispatch_validated(self, queue, cancel=None) -> List:
         from .bank import plan_queue

@@ -1,8 +1,10 @@
 """Rank-level partitioned execution: L channels × N chips × M banks × K
 subarrays — the ladder's rung above :mod:`repro_torch.core.channel`.
 
-Counterpart of :mod:`repro.core.rank`, without the tracer calls (they
-come with the telemetry slice).  A DRAM rank groups several memory
+Counterpart of :mod:`repro.core.rank`, with the reference's tracer
+calls (``rank.*`` spans, the ``rank.transfer.*`` charges of the shared
+host link, and ``channel.round`` events charging each member channel's
+``channel.busy``; a member channel never charges the link).  A DRAM rank groups several memory
 channels behind one host link.  Channels share nothing compute-side, so
 the rank tier follows the discipline of every rung below it:
 
@@ -38,12 +40,13 @@ import numpy as np
 
 from ..kernels.build import resolve_device
 from .bank import (BbopInstr, Ref, _Slot, drain_stacked, plan_queue,
-                   submit_stacked)
+                   submit_stacked, wait_stacked)
 from .channel import (_MIRROR, _TRANSPOSE, ChannelStats, SimdramChannel,
                       _DmaSchedule, _mirror, _round_of)
 from .chip import partition_queue, remap_sub_queue, spread_bbop
 from .control_unit import CMD_WIDTH, TABLE_CACHE
 from .isa import DispatchGuard, check_cancel
+from .telemetry import active_tracer, span_or_null
 from .timing import DDR4, DramConfig
 
 
@@ -176,6 +179,13 @@ class SimdramRank:
             n_chips=n_channels * n_chips, n_banks=n_banks,
             n_channels=n_channels)
         self._guard = DispatchGuard("SimdramRank")
+        self._lane = "rank"          # telemetry track label
+        for k, ch in enumerate(self.channels):
+            ch._lane = f"channel{k}"
+            for c, chip in enumerate(ch.chips):
+                chip._lane = f"channel{k}/chip{c}"
+                for b, bank in enumerate(chip.banks):
+                    bank._lane = f"channel{k}/chip{c}/bank{b}"
 
     # -- dispatch ----------------------------------------------------------
     def dispatch(self, queue: Sequence[BbopInstr], cancel=None) -> List:
@@ -199,9 +209,14 @@ class SimdramRank:
         results: List = [None] * len(queue)
         if not queue:
             return results           # clean no-op: stats stay zeroed
+        tr = active_tracer()
+        root = (tr.begin("rank.dispatch", cat="dispatch",
+                         lane=self._lane, instrs=len(queue))
+                if tr is not None else None)
         t0 = time.perf_counter()
         self.stats.bbops += len(queue)
-        lanes, stage, needed = plan_queue(queue, self.style)
+        with span_or_null(tr, "rank.plan", cat="plan"):
+            lanes, stage, needed = plan_queue(queue, self.style)
         planes_cache: Dict[Tuple[int, int], np.ndarray] = {}
         active = []
         for i in range(len(queue)):
@@ -212,8 +227,12 @@ class SimdramRank:
                 active.append(i)
         if not active:               # all-zero-lane queue: no replay
             self.stats.wall_s += time.perf_counter() - t0
+            if root is not None:
+                tr.end(root)
             return results
 
+        sp = (tr.begin("rank.schedule", cat="plan")
+              if tr is not None else None)
         channel_of = partition_queue(queue, active, lanes, self.n_channels,
                                      self.cfg, self.style)
         waves_by_channel = []        # [channel][chip][bank][round]
@@ -225,11 +244,13 @@ class SimdramRank:
             _, waves = ch._schedule(queue, idxs, lanes, stage)
             waves_by_channel.append(waves)
             round_of.update(_round_of(waves))
+        if sp is not None:
+            tr.end(sp, channels=len(set(channel_of.values())))
         n_rank = max(len(w) for per_ch in waves_by_channel
                      for per_chip in per_ch for w in per_chip)
         # DMA transfer schedule over the rank-shared host link: inputs
         # of rank round k+1 and outputs of k-1 move while k replays
-        dma = _DmaSchedule(self.stats, self.cfg)
+        dma = _DmaSchedule(self.stats, self.cfg, self._lane, "rank")
         dma.plan(queue, active, lanes, round_of, n_rank, self.style)
         pending = None               # (channels_entries, states, event)
         for r in range(n_rank):
@@ -270,9 +291,13 @@ class SimdramRank:
                                          needed, results)
             pending = (channels_entries, *fut)
         if pending is not None:
+            with span_or_null(tr, "rank.drain", cat="drain"):
+                wait_stacked(pending[-1])      # drain the pipeline
             self._harvest_rank_round(queue, pending, planes_cache, needed,
                                      results)
         self.stats.wall_s += time.perf_counter() - t0
+        if root is not None:
+            tr.end(root)
         return results
 
     def _pack_rank_round(self, queue, round_by_channel, lanes,
@@ -287,7 +312,11 @@ class SimdramRank:
         come from :data:`~repro_torch.core.control_unit.TABLE_CACHE`,
         keyed by the whole rank round's composition.  Returns
         ``(channels_entries, (states, event))``."""
+        tr = active_tracer()
         t_pack = time.perf_counter()
+        sp = (tr.begin("rank.pack_round", cat="pack",
+                       channels=len(round_by_channel))
+              if tr is not None else None)
         dims = [self.channels[k]._super_round_dims(queue, rbc, lanes)
                 for k, rbc in round_by_channel]
         n_rows = max(d[0] for d in dims)
@@ -315,13 +344,17 @@ class SimdramRank:
             lambda: self._build_rank_round_tables(channel_keys, n_cmds)
             .reshape(-1, n_cmds, CMD_WIDTH),
             self.device)
+        if sp is not None:
+            tr.end(sp)
         pack_s = time.perf_counter() - t_pack
         self.stats.pack_wall_s += pack_s
         for k, _ in round_by_channel:
             self.channels[k].stats.pack_wall_s += (
                 pack_s / len(round_by_channel))
-        return channels_entries, submit_stacked(self.executor.run, states,
-                                                tables)
+        with span_or_null(tr, "rank.replay", cat="replay",
+                          channels=len(round_by_channel)):
+            fut = submit_stacked(self.executor.run, states, tables)
+        return channels_entries, fut
 
     def _build_rank_round_tables(self, channel_keys, n_cmds: int
                                  ) -> np.ndarray:
@@ -361,8 +394,18 @@ class SimdramRank:
                 ch.stats.chip_busy_s - busy0)
             st.subarray_programs[k * per_channel:(k + 1) * per_channel] += (
                 ch.stats.subarray_programs - progs0)
+            tr = active_tracer()
+            if tr is not None:
+                # per-channel modeled busy time on the channel's own
+                # lane (the rank round charges the max across channels)
+                ev = tr.event("channel.round", cat="replay", lane=ch._lane)
+                tr.charge("channel.busy", ch.stats.latency_s - lat0,
+                          span=ev)
             round_s = max(round_s, ch_round_s)
         st.latency_s += round_s
+        tr = active_tracer()
+        if tr is not None:
+            tr.charge("rank.replay", round_s)
         return round_s
 
     def _harvest_rank_round(self, queue, pending, planes_cache, needed,
@@ -371,13 +414,14 @@ class SimdramRank:
         slab (forwarded planes publish per channel — chains are
         channel-local)."""
         channels_entries, fut, done = pending
-        out = drain_stacked(fut, done)
-        for k, chips_entries in channels_entries:
-            ch = self.channels[k]
-            snap = [getattr(ch.stats, f) for f in _TRANSPOSE]
-            ch._harvest_super_round_out(queue, chips_entries, out[k],
-                                        planes_cache, needed, results)
-            _mirror(self.stats, ch.stats, _TRANSPOSE, snap)
+        with span_or_null(active_tracer(), "rank.unpack", cat="unpack"):
+            out = drain_stacked(fut, done)
+            for k, chips_entries in channels_entries:
+                ch = self.channels[k]
+                snap = [getattr(ch.stats, f) for f in _TRANSPOSE]
+                ch._harvest_super_round_out(queue, chips_entries, out[k],
+                                            planes_cache, needed, results)
+                _mirror(self.stats, ch.stats, _TRANSPOSE, snap)
 
     # -- ISA front-end -----------------------------------------------------
     def bbop(self, name: str, *operands, n_bits: int,

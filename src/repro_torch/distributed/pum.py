@@ -19,6 +19,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 from ..core.control_unit import tier_interpreter
+from ..core.telemetry import active_tracer
 
 
 @dataclass(frozen=True)
@@ -58,6 +59,13 @@ def _executor(tier: str, units: Tuple[Tuple[str, int], ...], mesh,
         raise ValueError(
             f"a mesh was given for the {tier} tier, but this port splits "
             f"no units across devices; pass mesh=None")
+    tr = active_tracer()
+    if tr is not None:
+        # which executor the tier got, as the reference records it: the
+        # single-device path
+        tr.event("pum.executor", cat="plan",
+                 kind=f"{tier}.faulty" if fault else tier, sharded=False,
+                 devices=1)
     return ChipExecutor(tier_interpreter(len(units) + 1, device, fault),
                         None, False)
 

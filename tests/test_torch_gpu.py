@@ -6,6 +6,8 @@ fixture, never at import).  Run them on a card with
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -669,3 +671,149 @@ def test_apps_on_card_equal_cpu(cuda, name, backend):
     assert {k: v for k, v in got.items() if k != "output"} == {
         k: v for k, v in want.items() if k != "output"}
     assert t_got == t_want and s_got == s_want
+
+
+@pytest.mark.parametrize("tier", ["bank", "chip", "channel", "rank"])
+def test_traced_dispatch_on_card_has_device_time(cuda, tier):
+    """Under a tracer every ``*.replay`` span of a dispatch on the card
+    carries ``device_s`` (CUDA events around its K5 launch, read at
+    harvest), the modeled charges equal the CPU run's span by span, and
+    results and launch counts equal the untraced dispatch's."""
+    from repro_torch import obs
+    from repro_torch.core.bank import Bank
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.core.rank import SimdramRank
+
+    def engine(dev):
+        if tier == "bank":
+            return Bank(n_subarrays=2, device=dev)
+        if tier == "chip":
+            return SimdramChip(n_banks=2, n_subarrays=2, device=dev)
+        if tier == "channel":
+            return SimdramChannel(n_chips=2, n_banks=2, n_subarrays=2,
+                                  device=dev)
+        return SimdramRank(device=dev)
+
+    from repro_torch.core.control_unit import TABLE_CACHE
+
+    runs = {}
+    for dev, traced in (("cuda", False), ("cuda", True), ("cpu", True)):
+        TABLE_CACHE.clear()          # the same cache hits and misses
+        build.reset_launches()
+        eng = engine(dev)
+        if traced:
+            with obs.enabled() as tr:
+                res = eng.dispatch(_ladder_queue(dev))
+        else:
+            tr, res = None, eng.dispatch(_ladder_queue(dev))
+        torch.cuda.synchronize()
+        flat = [x for r in res for x in pt_bank.flatten_result(r)]
+        runs[(dev, traced)] = (flat, dict(build.LAUNCHES), tr)
+    for key in (("cuda", True), ("cpu", True)):
+        for g, e in zip(runs[key][0], runs[("cuda", False)][0]):
+            np.testing.assert_array_equal(g, e)
+    assert runs[("cuda", True)][1] == runs[("cuda", False)][1]
+    tr_card, tr_cpu = runs[("cuda", True)][2], runs[("cpu", True)][2]
+    replays = [s for r in tr_card.roots for s in r.walk()
+               if s.name == f"{tier}.replay"]
+    assert len(replays) == runs[("cuda", True)][1]["replay"] > 0
+    assert all(s.attrs["device_s"] > 0.0 for s in replays)
+    assert not any("device_s" in s.attrs
+                   for r in tr_cpu.roots for s in r.walk())
+    card = [(s.name, s.charges) for r in tr_card.roots for s in r.walk()]
+    cpu = [(s.name, s.charges) for r in tr_cpu.roots for s in r.walk()]
+    assert card == cpu
+
+
+def _served_window(dev, worker=False, traced=False):
+    """The soak's traffic (two windows of 16 requests at 256 lanes) on a
+    2 x 2 x 2 channel on ``dev``: the tickets' values, ``resolved_s``,
+    the frontend stats and the ``serving.*`` registry, and the threads
+    and streams the engine dispatched from."""
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.telemetry import REGISTRY
+    from repro_torch.serving import (AdmissionRejected, DeadlineExceeded,
+                                     ServingFrontend)
+
+    REGISTRY.reset()
+    ops = ("addition", "subtraction", "multiplication", "min", "max",
+           "relu", "bitcount", "division")
+    eng = SimdramChannel(n_chips=2, n_banks=2, n_subarrays=2, device=dev)
+    seen = []
+    dispatch = eng.dispatch
+
+    def watched(queue, cancel=None):
+        seen.append((threading.get_ident(),
+                     torch.cuda.current_stream().cuda_stream))
+        return dispatch(queue, cancel=cancel)
+
+    eng.dispatch = watched
+    fe = ServingFrontend(eng, max_queue_depth=12, window=16, max_retries=2)
+    rng = np.random.default_rng(0)
+    tickets = []
+    with (obs.enabled() if traced else contextlib.nullcontext()):
+        for _ in range(2):
+            mine = []
+            for i in range(16):
+                op = ops[int(rng.integers(len(ops)))]
+                w = (8, 16)[int(rng.integers(2))]
+                operands = tuple(rng.integers(0, 1 << w, 256)
+                                 for _ in range(get_op(op, w).n_operands))
+                try:
+                    mine.append(fe.submit(
+                        ("alice", "bob", "carol")[i % 3], op, operands, w,
+                        deadline_s=fe.now_s + (1e-7 if i % 4 == 3 else 10.0),
+                        priority=1 if i % 5 == 0 else 0))
+                except AdmissionRejected:
+                    pass
+            if worker:
+                fe.start()
+                try:
+                    for t in mine:
+                        try:
+                            t.result(timeout=120)
+                        except DeadlineExceeded:
+                            pass
+                finally:
+                    fe.stop()
+            else:
+                fe.drain()
+            tickets += mine
+    rows = []
+    for t in tickets:
+        try:
+            v = t.result(timeout=0)
+            v = [np.asarray(x).tolist()
+                 for x in (v if isinstance(v, tuple) else (v,))]
+        except DeadlineExceeded as e:
+            v = e.where
+        rows.append((t.seq, t.tenant, v, t.resolved_s))
+    return (rows, fe.stats.as_dict(), REGISTRY.snapshot("serving.")), seen
+
+
+def test_served_window_on_card_equals_cpu(cuda):
+    """The soak's traffic served on the card resolves every ticket to the
+    CPU run's value at the CPU run's modeled time, with equal frontend
+    stats and registry; each window is one K5 launch a super-round."""
+    build.reset_launches()
+    card, _ = _served_window("cuda")
+    assert build.LAUNCHES["replay"] > 0
+    cpu, _ = _served_window("cpu")
+    assert card == cpu
+
+
+def test_worker_thread_on_card_equals_the_pump(cuda):
+    """``start()``/``stop()`` on the card, with a tracer on: the worker
+    dispatches from its own thread on the main thread's stream, and
+    resolves the same tickets to the same values and times as the
+    synchronous pump."""
+    import threading
+    main = (threading.get_ident(), torch.cuda.current_stream().cuda_stream)
+    sync, _ = _served_window("cuda")
+    worker, seen = _served_window("cuda", worker=True, traced=True)
+    assert worker == sync
+    assert seen and all(t != main[0] and s == main[1] for t, s in seen)

@@ -124,6 +124,23 @@ def test_plain_replay_of_cut_tables_equals_padded():
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("idle", [0, 2])
+def test_cpu_replay_with_a_schedule_skips_idle_units_exactly(idle):
+    """On the CPU, ``replay`` of a :class:`CommandTables` replays only
+    the units with a real command, up to the longest count; bit for bit
+    the plain replay of the padded tables, idle (all-NOP) units
+    included."""
+    for states_np, (tables, schedule), _ in _mix_waves():
+        states = torch.from_numpy(states_np.view(np.int32))
+        if idle:
+            states = torch.cat([states, states[:idle] ^ 0x5A5A5A5A])
+            tables = torch.cat([tables, torch.zeros_like(tables[:idle])])
+        ct = cu.CommandTables(tables, cu.command_schedule(tables))
+        torch.testing.assert_close(cu.replay(states, ct),
+                                   cu.replay_plain(states, tables),
+                                   rtol=0, atol=0)
+
+
 def test_reference_padded_equals_port_plain_cut():
     for states_np, (tables, schedule), ref_tables in _mix_waves():
         want = np.asarray(ref_cu.hetero_batched_interpreter()(
