@@ -121,14 +121,43 @@ Chrome trace goes to ``--trace`` (default
      launches, ``channel.replay`` and ``channel.transfer.*`` ``==`` their
      ``ChannelStats`` fields (the banks' transpose charges, which the
      channel mirrors in another order, within a relative 1e-12),
-     each ``channel.replay`` span's ``device_s`` within 5 % (plus
-     ``DEVICE_S_SLACK_MS``, the event pair's own latency) of the
-     profiler's K5 time for its round, the tracer's overhead as the
+     each ``channel.replay`` span's ``device_s`` beside the profiler's
+     K5 time for its round (printed, with how many rounds differ by more
+     than 5 % plus ``DEVICE_S_SLACK_MS``), the tracer's overhead as the
      difference of the warm walls, and its Chrome trace (written to
      ``--trace``) passes ``scripts/check_trace.py``.  Every K5 and K6 launch of
      9a and 9b has its twin through the plain version (the ``serving``
      and ``serving faults`` paths);
- 10. one JSON line with every kernel's launches on its path, its
+ 10. the LM stack (``src/repro_torch/models``, ``train/serve.py``), after
+     the earlier phases' device memory is released and what is free is
+     printed: (10a) every arch of ``configs/`` at ``smoke_config`` in
+     float32, ``lm_forward`` (logits, aux) and two decode steps (logits,
+     caches) on the card within ``LM_TOL`` (rtol and atol) of the CPU run
+     of the same weights, greedy tokens under the margin rule, with the
+     int8 KV cache (entries within 1), ``quantize_tree``'d weights and
+     the PuM MLP (``tests/test_system.py::test_pum_offload_inside_lm``'s
+     configuration: the relu a bbop, one K3 launch a layer, each held
+     against the plain circuit); (10b) yi-6b at its published width in
+     bf16, initialized on the card (``param_count()`` equal), a
+     ``Server`` of 4 slots x 4,096 positions serving a burst of six
+     requests with and without ``PumServeOffload`` on a 4-bank x
+     2-subarray chip: every request completes, every step's offload
+     returns the very logits it was given (the default stages are a grid
+     no-op) and ``offload.reference``'s, its K5 launches equal the chip's
+     stacked rounds, every K5 launch is held against the plain replay
+     (stacked by state shape), and, under deterministic algorithms,
+     every step's logits and every token equal the plain server's bit
+     for bit; the model step and offload medians, tokens/s, a profiled burst (idle
+     share) and the step's weight-bytes bound; (10c) ``lm_forward`` over
+     one prompt of ``LM_PREFILL_LEN`` tokens (what ``make_prefill``
+     runs) against the decode logits of every position, and
+     ``make_prefill``'s own output against the last, within
+     ``LM_BF16_REL`` of each position's max|logit|, greedy tokens under
+     the margin rule, and two faults planted into the decode (a dropped
+     cache write, every step a position late) must read more than
+     ``LM_BF16_REL``; ``make_prefill``'s time beside its FLOP bound and
+     ``torch.cuda.max_memory_allocated`` (the ``lm`` path of K3 and K5);
+ 11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
      ``max_abs_err`` is the largest over the paths, and every path with
@@ -141,11 +170,16 @@ Chrome trace goes to ``--trace`` (default
      launches x (kernel time - bound) per call.
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
-and 6, each tier of phase 7, each app run of phase 8 and each served run
-of phase 9) and read just after; comparison launches come after the read.
+and 6, each tier of phase 7, each app run of phase 8, each served run
+of phase 9, and the PuM forward and the counted burst of phase 10) and
+read just after; comparison launches come after the read.
 Any mismatch, a missing card, a failed build or a kernel with no launch
-exits non-zero without the result line.  The last line is the device
-JSON.
+exits non-zero without the result line; each failed check names its
+phase and the values it compared.  No check reads a time, a rate, an
+idle share or a profiler record count: those are printed only.  Where
+two float paths are compared, greedy tokens are held equal only where
+the reference side's top-1/top-2 logit margin exceeds twice the stated
+tolerance.  The last line is the device JSON.
 """
 
 from __future__ import annotations
@@ -154,6 +188,7 @@ import argparse
 import dataclasses
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -258,6 +293,36 @@ DEVICE_S_SLACK_MS = 0.010
 # recorded the K5 launch of every round
 TRACED_PROFILER_ATTEMPTS = 5
 
+# the LM (phase 10).  10a: every arch at smoke_config in float32, card
+# against the port's own CPU run of the same weights (cuBLAS against CPU
+# BLAS, no TF32), logits and caches within LM_TOL (rtol and atol), int8
+# cache entries within 1.  10b: yi-6b at its published width in bf16 on
+# LM_SLOTS slots of LM_MAX_LEN positions, serving LM_PROMPTS (lengths;
+# tokens from default_rng(0)) with LM_MAX_NEW new tokens each, through
+# PumServeOffload on the reference's default offload chip (4 banks x 2
+# subarrays).  10c: make_prefill on one prompt of LM_PREFILL_LEN tokens
+# against the decode logits of the same positions, each position within
+# LM_BF16_REL of its max|logit|: bf16 through 32 layers in two orders of
+# summation reads 1.3-2.7e-2 at every position on an H100 (position 0
+# included; 2.717e-2 at most, the same in five calls); the decode of the
+# first LM_FAULT_LEN positions with one cache write dropped (at
+# LM_FAULT_AT) or every step a position late must read more (0.160 and
+# 1.01 on an H100).  Greedy tokens of two float paths are
+# compared only where the reference side's top-1/top-2 margin exceeds
+# twice the stated tolerance (random inits give near-ties)
+LM_TOL = 1e-3
+LM_ARCH = "yi-6b"
+LM_SLOTS = 4
+LM_MAX_LEN = 4096
+LM_PROMPTS = (3, 7, 5, 2, 9, 4)
+LM_MAX_NEW = 8
+LM_BF16_REL = 4e-2
+LM_PREFILL_LEN = 2048
+LM_FAULT_LEN = 256
+LM_FAULT_AT = 64
+# dense bf16 tensor-core peak of one H100 SXM (data sheet, no sparsity)
+BF16_FLOPS_PER_S = 989e12
+
 TRANSPOSE_WIDTHS = (8, 16, 32)
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
 FAST_PATH = [(op, 8) for op in (
@@ -278,9 +343,30 @@ PROFILER_ATTEMPTS = 3
 PROFILER_MISSES: list = []
 
 
+# the phase that is running, named in every failed check's message
+PHASE = ["0"]
+
+
+def phase(label: str) -> None:
+    PHASE[0] = label
+
+
 def check(cond: bool, what: str) -> None:
+    """Fail the smoke with ``what``, prefixed by the running phase.  No
+    check reads a time, a rate or a profiler record count: those are
+    printed only."""
     if not cond:
-        raise SmokeFailure(what)
+        raise SmokeFailure(f"[phase {PHASE[0]}] {what}")
+
+
+def note_profiled(where: str, kernel: str, b: dict) -> None:
+    """Say where a profiled session recorded no ``kernel`` (the profiler
+    drops one now and then): its busy time and idle share then miss the
+    kernel.  Printed, never checked."""
+    if not any(kernel in k for k in b["device_ms"]):
+        print(f"[{where}] the profiler recorded no {kernel} launch in this "
+              f"session: its card busy time and idle share leave it out",
+              flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -525,6 +611,7 @@ def run(trace_path: str) -> dict:
                     "trace_path": trace_path}
 
     # -- 1. build --------------------------------------------------------
+    phase("1")
     # the unit-rate probes of K4's bound (phase 5) build beside the kernels
     t0 = time.perf_counter()
     probes = popmma_probe.start_builds(build, PROBE_LIBRARIES)
@@ -547,6 +634,7 @@ def run(trace_path: str) -> dict:
                 print(f"[1]   probe {name}{refused}: {line.strip()}")
 
     # -- 2. K1/K2 at 1,048,576 lanes --------------------------------------
+    phase("2")
     n_lanes = DDR4.simd_lanes
     rng = np.random.default_rng(2)
     vals = torch.from_numpy(rng.integers(0, 2**32, n_lanes, dtype=np.uint32)
@@ -613,6 +701,7 @@ def run(trace_path: str) -> dict:
           f"{kern['h2v']['ms']:.4f} ms, v2h {kern['v2h']['ms']:.4f} ms")
 
     # -- 3. the fast path: bbop on backend="cuda" (main path) -------------
+    phase("3")
     inputs = {}
     for op, w in FAST_PATH:
         spec = get_op(op, w)
@@ -720,6 +809,7 @@ def run(trace_path: str) -> dict:
           f"{k3_bound_ms:.4f} ms")
 
     # -- 4. the slice: fused bank dispatch (main path) ---------------------
+    phase("4")
     lanes = DDR4.columns_per_subarray
     mix = mix_queue(bank_mod, get_op, lanes)
     build.reset_launches()
@@ -838,20 +928,28 @@ def run(trace_path: str) -> dict:
             flatten_result(r) for r in again.dispatch(chain)]),
     }
     record["bank_breakdown"] = breakdown
-    check(any("replay_kernel" in k for k in breakdown["mix"]["device_ms"]),
-          "the profiler saw no replay kernel in the mix dispatch")
+    note_profiled("4", "replay_kernel", breakdown["mix"])
     for name, b in breakdown.items():
         print(f"[4] profiled {name} dispatch: wall {b['wall_ms']:.2f} ms, "
               f"device busy {b['device_busy_ms']:.3f} ms, idle share "
               f"{b['idle_share']:.4f}; device ms {json.dumps(b['device_ms'])}")
 
+    phase("5")
     kern["popmatmul"], counts_mm = matmul_phase(dev, record, probe_libs)
+    phase("6")
     kern["faulty_replay"], counts_fault = fault_phase(dev, record, mix_queue)
+    phase("7")
     counts_ladder = ladder_phase(dev, record, kern)
+    phase("8")
     counts_apps = apps_phase(dev, record, kern)
+    phase("9")
     counts_serve = serving_phase(dev, record, kern)
+    release_device_memory()
+    phase("10")
+    counts_lm = lm_phase(dev, record, kern)
 
-    # -- 10. the kernels line -----------------------------------------------
+    # -- 11. the kernels line -----------------------------------------------
+    phase("11")
     for name in ("h2v", "v2h", "circuit", "replay"):
         n = counts_fast[name] + counts_bank[name]
         check(n > 0, f"kernel {name} was not launched on the main path")
@@ -868,9 +966,11 @@ def run(trace_path: str) -> dict:
           f"a kernel of the apps path was not launched: {counts_apps}")
     check(counts_serve["replay"] > 0 and counts_serve["faulty_replay"] > 0,
           f"K5 or K6 was not launched on the serving path: {counts_serve}")
+    check(counts_lm["circuit"] > 0 and counts_lm["replay"] > 0,
+          f"K3 or K5 was not launched on the LM path: {counts_lm}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
-                + counts_serve[name]
+                + counts_serve[name] + counts_lm[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
@@ -918,12 +1018,13 @@ def run(trace_path: str) -> dict:
             "tolerance": "bit-exact (max_abs_err 0 over int32 words)",
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
-                    "ns_per_real_cmd", "per_width", "ladder", "serving"):
+                    "ns_per_real_cmd", "per_width", "ladder", "serving",
+                    "lm"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
     order = sorted(line, key=lambda k: -k["rank_ms"])
-    print("[10] launches x (kernel ms - bound ms) per call: " + ", ".join(
+    print("[11] launches x (kernel ms - bound ms) per call: " + ", ".join(
         f"{k['name']} {k['rank_ms']:.4f}" for k in order))
     record["launches_fast_path"] = counts_fast
     record["launches_bank"] = counts_bank
@@ -932,8 +1033,9 @@ def run(trace_path: str) -> dict:
     record["launches_ladder"] = counts_ladder
     record["launches_apps"] = counts_apps
     record["launches_serving"] = counts_serve
+    record["launches_lm"] = counts_lm
     record["profiler_misses"] = PROFILER_MISSES
-    print(f"[10] kernel times the profiler missed (timed by CUDA events): "
+    print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
     return record
 
@@ -1334,8 +1436,7 @@ def fault_phase(dev, record: dict, mix_queue):
     b = device_breakdown(lambda: SimdramDevice(
         backend="bank", device=dev, fault=model).dispatch(fmix))
     record["fault_breakdown"] = b
-    check(any("faulty_replay_kernel" in k for k in b["device_ms"]),
-          "the profiler saw no faulty_replay kernel in the fault dispatch")
+    note_profiled("6", "faulty_replay_kernel", b)
     print(f"[6] profiled fault dispatch: wall {b['wall_ms']:.2f} ms, device "
           f"busy {b['device_busy_ms']:.3f} ms, idle share "
           f"{b['idle_share']:.4f}; device ms {json.dumps(b['device_ms'])}")
@@ -1543,19 +1644,55 @@ def _k6_bare(st, tables, schedule, keys, stuck0, stuck1, dead, p_flip):
     return out, cnt
 
 
+def _stacked_plain(members, plain) -> tuple:
+    """Launches held against their plain version, those of one group in
+    one plain call: ``members`` are ``(group, inputs, outs)``, ``inputs``
+    a launch's ``(states, tables, *per-unit tensors)`` on one unit axis
+    (tables cut at their longest real command count) and ``outs`` its
+    outputs; ``plain(group, states, tables, *rest)`` returns the plain
+    outputs of a group's inputs stacked along the unit axis (units share
+    nothing, and the all-zero rows that pad a table to the longest change
+    nothing).  Returns (max_abs_err per member, plain s per group)."""
+    import torch
+    groups: dict = {}
+    for i, (key, inputs, outs) in enumerate(members):
+        groups.setdefault(key, []).append((i, inputs, outs))
+    errs = [None] * len(members)
+    plain_s = []
+    for key, grp in groups.items():
+        n_cmds = max(inp[1].shape[1] for _, inp, _ in grp)
+        tables = torch.cat([torch.nn.functional.pad(
+            inp[1], (0, 0, 0, n_cmds - inp[1].shape[1])) for _, inp, _ in grp])
+        rest = [torch.cat([inp[j] for _, inp, _ in grp])
+                for j in range(2, len(grp[0][1]))]
+        t0 = time.perf_counter()
+        outs_p = plain(key, torch.cat([inp[0] for _, inp, _ in grp]), tables,
+                       *rest)
+        if outs_p[0].is_cuda:
+            torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+        lo = 0
+        for i, inp, outs in grp:
+            hi = lo + inp[0].shape[0]
+            errs[i] = max(max_abs_err(o, o_p[lo:hi])
+                          for o, o_p in zip(outs, outs_p))
+            lo = hi
+        del outs_p
+    return errs, plain_s
+
+
 def _k6_batched(dev, attempts) -> list:
     """Each of ``attempts`` (a faulty executor's recorded calls) through a
     bare K6 launch, held against the plain version on the same inputs,
     states and flip counts, as :func:`_k6_attempt` does; the plain
-    version takes the attempts of one state shape and flip rate at once,
-    stacked along its unit axis (units share nothing, and the all-zero
-    rows that pad a table to the longest change nothing).  Returns
-    (max_abs_err per attempt, plain s per group)."""
+    version takes the attempts of one state shape and flip rate at once
+    (:func:`_stacked_plain`).  Returns (max_abs_err per attempt, plain s
+    per group)."""
     import torch
 
     from repro_torch.core.control_unit import faulty_replay_plain
-    groups: dict = {}
-    for i, (states, ct, keys, s0, s1, dead, p_flip) in enumerate(attempts):
+    members = []
+    for states, ct, keys, s0, s1, dead, p_flip in attempts:
         tables, schedule = ct
         n_rows, n_words = states.shape[-2:]
         st = states.reshape(-1, n_rows, n_words).contiguous()
@@ -1564,31 +1701,13 @@ def _k6_batched(dev, attempts) -> list:
         m0 = s0.reshape(n_units, n_words).contiguous()
         m1 = s1.reshape(n_units, n_words).contiguous()
         dd = dead.reshape(n_units).to(torch.bool).contiguous()
-        out, cnt = _k6_bare(st, tables, schedule, k, m0, m1, dd, p_flip)
-        groups.setdefault((n_rows, n_words, float(p_flip)), []).append(
-            (i, st, tables[:, :int(schedule[0].max())], k, m0, m1, dd, out,
-             cnt))
-    errs = [None] * len(attempts)
-    plain_s = []
-    for (_, _, p_flip), members in groups.items():
-        n_cmds = max(m[2].shape[1] for m in members)
-        tables = torch.cat([torch.nn.functional.pad(
-            m[2], (0, 0, 0, n_cmds - m[2].shape[1])) for m in members])
-        t0 = time.perf_counter()
-        out_p, cnt_p = faulty_replay_plain(
-            torch.cat([m[1] for m in members]), tables,
-            *(torch.cat([m[j] for m in members]) for j in (3, 4, 5, 6)),
-            p_flip)
-        if out_p.is_cuda:
-            torch.cuda.synchronize()
-        plain_s.append(time.perf_counter() - t0)
-        lo = 0
-        for i, st, _, _, _, _, _, out, cnt in members:
-            hi = lo + st.shape[0]
-            errs[i] = max(max_abs_err(out, out_p[lo:hi]),
-                          max_abs_err(cnt, cnt_p[lo:hi]))
-            lo = hi
-        del out_p, cnt_p
+        outs = _k6_bare(st, tables, schedule, k, m0, m1, dd, p_flip)
+        members.append(((n_rows, n_words, float(p_flip)),
+                        (st, tables[:, :int(schedule[0].max())], k, m0, m1,
+                         dd), outs))
+    errs, plain_s = _stacked_plain(
+        members, lambda key, st, tables, *rest: faulty_replay_plain(
+            st, tables, *rest, key[2]))
     check(max(errs) == 0, f"K6 disagrees with its plain version: {errs}")
     return errs, plain_s
 
@@ -1714,8 +1833,7 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
               f"{len(rounds)} rounds, the counted run {n_rounds}")
         eng.reset_stats()
         prof = device_breakdown(lambda: tdev.dispatch(mix))
-        check(any("replay_kernel" in k for k in prof["device_ms"]),
-              f"{tier}: the profiler saw no replay kernel")
+        note_profiled(f"7 {tier}", "replay_kernel", prof)
         h2d_ms = sum(v for k, v in prof["device_ms"].items() if "HtoD" in k)
 
         # K5 on every round of the repeat, against the plain replay on the
@@ -1822,12 +1940,6 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
                 total[k] += v
             return res, eng, calls, wall, counts
 
-        def k6_agrees(attempts) -> list:
-            """K6 against its plain version on each of ``attempts``: the
-            (max_abs_err, plain s) of each."""
-            return [_k6_attempt(dev, args, timed=False)[:2]
-                    for args in attempts]
-
         model = FaultModel(sigma=0.15, spare_lanes=1, seed=0, max_retries=10)
         res, eng, calls, wall, counts = faulty(model, fmix)
         fs = eng.stats.faults
@@ -1837,15 +1949,14 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
               f"{tier}: {n_wrong} lanes differ from the fault-free dispatch")
         check(fs.injected > 0 and fs.detected > 0 and fs.corrected > 0,
               f"{tier}: faults were not injected, detected and corrected")
-        # K6 on every attempt, against its plain version; the first also
-        # timed beside its bound
+        # K6 on the first attempt against its plain version, timed beside
+        # its bound; every other attempt of the three runs is held against
+        # the plain version below, stacked by shape
         err0, plain0, k6_ms, k6_bound = _k6_attempt(dev, calls[0])
-        k6_checked = [(err0, plain0)] + k6_agrees(calls[1:])
         prof = device_breakdown(lambda: SimdramDevice(
             cfg=cfg, backend=tier, device=dev, fault=model).dispatch(fmix))
         sigma = {"wall_s": wall, "wrong_lanes": n_wrong,
-                 "k6_compared": len(k6_checked),
-                 "k6_plain_s": [t for _, t in k6_checked],
+                 "k6_compared": len(calls),
                  "k6_launches": counts["faulty_replay"],
                  "k6_attempt_kernel_ms": k6_ms, "k6_bound_ms": k6_bound[0],
                  "k6_bound_by": k6_bound[1], "stats": fs.as_dict(),
@@ -1873,7 +1984,6 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
         res_d, eng_d, calls_d, _, counts_d = faulty(FaultModel(
             p_flip=0.0, dead_unit_rate=0.1, spare_lanes=1, seed=seed), fmix)
         dfs = eng_d.stats.faults
-        k6_checked_d = k6_agrees(calls_d)
         check(all(np.array_equal(g, e) for g, e in zip(res_d, clean)),
               f"{tier}: the dead-unit dispatch differs from the fault-free one")
         check(dfs.redispatches > 0 and dfs.remapped > 0,
@@ -1886,7 +1996,6 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
             p_flip=0.0, stuck_lane_rate=LADDER_STUCK_RATE, spare_lanes=2,
             seed=0), smix)
         sfs = eng_s.stats.faults
-        k6_checked_s = k6_agrees(calls_s)
         swant = [o for ins in smix for o in get_op(ins.op, ins.n_bits).oracle(
             *ins.operands)]
         swidths = [w for ins in smix
@@ -1896,25 +2005,24 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
               f"{tier}: the stuck-only dispatch is not exact: {sfs}")
         check(sfs.detected > 0 and sfs.corrected > 0,
               f"{tier}: stuck columns were not detected and corrected: {sfs}")
+        # every other attempt of the three runs through a bare K6 launch,
+        # against the plain version stacked by state shape and flip rate
+        errs_rest, plain_s = _k6_batched(dev, calls[1:] + calls_d + calls_s)
+        errs = [err0] + errs_rest
         rows[f"faulty_{tier}"] = {
             "units": units, "sigma": sigma,
             "dead": {"seed": seed, "k6_launches": counts_d["faulty_replay"],
-                     "k6_compared": len(k6_checked_d),
-                     "k6_plain_s": [t for _, t in k6_checked_d],
-                     "stats": dfs.as_dict()},
+                     "k6_compared": len(calls_d), "stats": dfs.as_dict()},
             "stuck": {"rate": LADDER_STUCK_RATE,
                       "k6_launches": counts_s["faulty_replay"],
-                      "k6_compared": len(k6_checked_s),
-                      "k6_plain_s": [t for _, t in k6_checked_s],
-                      "stats": sfs.as_dict()}}
-        checked = k6_checked + k6_checked_d + k6_checked_s
+                      "k6_compared": len(calls_s), "stats": sfs.as_dict()}}
         k6_ladder[tier] = {
             "launches": (counts["faulty_replay"] + counts_d["faulty_replay"]
                          + counts_s["faulty_replay"]),
             "attempt_kernel_ms": k6_ms, "attempt_bound_ms": k6_bound[0],
-            "attempt_plain_s": [t for _, t in checked]}
+            "first_attempt_plain_s": plain0, "group_plain_s": plain_s}
         _agree(agreement["faulty_replay"], f"faulty {tier}",
-               k6_ladder[tier]["launches"], [e for e, _ in checked])
+               k6_ladder[tier]["launches"], errs)
         print(f"[7] faulty {tier}: dead units (seed {seed}) exact after "
               f"blacklisting, {counts_d['faulty_replay']} K6 launches, "
               f"FaultStats {json.dumps(dfs.as_dict())}; stuck columns "
@@ -1923,9 +2031,9 @@ def ladder_phase(dev, record: dict, kern: dict) -> dict:
               f"launches, FaultStats {json.dumps(sfs.as_dict())}")
         print(f"[7] faulty {tier}: K6 equals its plain version, states and "
               f"flip counts, on every attempt of the three runs "
-              f"({len(k6_checked)}, {len(k6_checked_d)} and "
-              f"{len(k6_checked_s)}; plain "
-              f"{sum(t for _, t in checked):.1f} s)")
+              f"({len(calls)}, {len(calls_d)} and {len(calls_s)}; plain "
+              f"{plain0:.1f} s for the first, then stacked by shape: "
+              + fmt_list(plain_s) + " s)")
 
     kern["replay"]["ladder"] = k5_ladder
     kern["faulty_replay"]["ladder"] = k6_ladder
@@ -2284,8 +2392,7 @@ def apps_phase(dev, record: dict, kern: dict) -> dict:
                                 if "HtoD" in k)
             row["k5_device_ms"] = sum(v for k, v in prof["device_ms"].items()
                                       if "replay_kernel" in k)
-            check(row["k5_device_ms"] > 0, f"8c {be}: the profiler saw no "
-                  f"replay kernel: {prof['device_ms']}")
+            note_profiled(f"8c {be}", "replay_kernel", prof)
             per_round = []
             for states, tables, schedule in tw.rounds:
                 ms, (b_ms, b_by) = _k5_round_ms(states, tables, schedule, 10,
@@ -2607,8 +2714,7 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
     engine.reset_stats()
     fe = serve_frontend(engine)
     prof = device_breakdown(lambda: serve_windows(fe, windows, sync))
-    check(any("replay_kernel" in k for k in prof["device_ms"]),
-          "9a: the profiler saw no replay kernel")
+    note_profiled("9a", "replay_kernel", prof)
     h2d_ms = sum(v for k, v in prof["device_ms"].items() if "HtoD" in k)
 
     engine.reset_stats()
@@ -2634,8 +2740,9 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
     replay_spans = [s for r in tr.roots for s in r.walk()
                     if s.name == "channel.replay"]
     check(len(replay_spans) == counts["replay"] and all(
-        s.attrs.get("device_s", 0.0) > 0.0 for s in replay_spans),
-        "9a: a channel.replay span of the worker's run has no device_s")
+        "device_s" in s.attrs for s in replay_spans),
+        f"9a: {len(replay_spans)} channel.replay spans of the worker's run "
+        f"for {counts['replay']} K5 launches, or one has no device_s")
     check(tr.depth == 0, "9a: the worker left spans open")
     del tickets_t
 
@@ -2860,8 +2967,9 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
     replay_spans = [s for r in tr.roots for s in r.walk()
                     if s.name == "channel.replay"]
     check(len(replay_spans) == k5_traced
-          and all(s.attrs.get("device_s", 0.0) > 0.0 for s in replay_spans),
-          "9c: a channel.replay span has no device_s")
+          and all("device_s" in s.attrs for s in replay_spans),
+          f"9c: {len(replay_spans)} channel.replay spans for {k5_traced} K5 "
+          f"launches, or one has no device_s")
     trace_path = Path(record["trace_path"])
     trace_path.parent.mkdir(parents=True, exist_ok=True)
     trace = obs.write_chrome_trace(str(trace_path), tracer=tr)
@@ -2876,10 +2984,14 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
         lambda: ch.dispatch(mix), ch.reset_stats, "channel.replay")
     device_ms = [pairs[i][0] for i in sorted(pairs)]
     prof_ms = [pairs[i][1] for i in sorted(pairs)]
-    check(all(abs(d - p) <= 0.05 * p + DEVICE_S_SLACK_MS
-              for d, p in pairs.values()),
-          f"9c: device_s is not within 5 % (+ {DEVICE_S_SLACK_MS} ms) of "
-          f"the profiler's K5 time: {pairs}")
+    # printed, not checked: both are times
+    off = [(i, (d - p) / p if p else None)
+           for i, (d, p) in sorted(pairs.items())]
+    print(f"[9c] device_s against the profiler's K5 time per round "
+          f"(relative): {off}; "
+          f"{sum(abs(d - p) > 0.05 * p + DEVICE_S_SLACK_MS for d, p in pairs.values())} "
+          f"of {len(pairs)} rounds off by more than 5 % (+ "
+          f"{DEVICE_S_SLACK_MS} ms)", flush=True)
     if len(pairs) < n_rounds:
         print(f"[9c] the profiler recorded the K5 launch of {len(pairs)} "
               f"of {n_rounds} rounds in {len(sessions)} sessions "
@@ -2924,6 +3036,618 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
     return total
 
 
+# -- phase 10: the LM server ----------------------------------------------------
+
+def release_device_memory() -> None:
+    """Free what the earlier phases left on the card (their collected
+    tensors, the command-table cache, the allocator's cached blocks) and
+    print what is free before the LM is built."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.control_unit import TABLE_CACHE
+    TABLE_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[10] before the LM: {free / 2**30:.2f} GiB free of "
+          f"{total / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB still allocated by this process", flush=True)
+
+
+def _lm_close(got, want, what: str, tol: float = LM_TOL) -> float:
+    """``got`` within ``tol`` of ``want`` (rtol and atol): the largest
+    absolute difference."""
+    g = got.detach().float().cpu()
+    w = want.detach().float().cpu()
+    check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} != "
+          f"{tuple(w.shape)}")
+    if not g.numel():
+        return 0.0
+    err = (g - w).abs()
+    bad = err > tol + tol * w.abs()
+    check(not bool(bad.any()),
+          f"{what}: {int(bad.sum())} of {g.numel()} entries differ by more "
+          f"than rtol = atol = {tol}; largest {float(err.max()):.3e} "
+          f"(got {float(g.flatten()[err.argmax()]):.6g}, want "
+          f"{float(w.flatten()[err.argmax()]):.6g})")
+    return float(err.max())
+
+
+def _margins(logits):
+    """Each row's top-1/top-2 logit margin and max |logit| (float32,
+    host)."""
+    import torch
+    x = logits.detach().float().reshape(-1, logits.shape[-1])
+    top2 = torch.topk(x, 2, dim=-1).values
+    return ((top2[:, 0] - top2[:, 1]).cpu().numpy(),
+            x.abs().amax(-1).cpu().numpy())
+
+
+def _lm_tokens(got, want, tol, what: str, relative: bool = False) -> tuple:
+    """Greedy tokens of ``got`` ``==`` those of ``want`` (the reference
+    side) at every row whose top-1/top-2 margin exceeds ``2 * tol`` (of
+    the row's max |logit| where ``relative``): (rows held, rows)."""
+    import torch
+    margin, top = _margins(want)
+    thr = 2 * tol * (top if relative else 1.0)
+    held = margin > thr
+    g = torch.argmax(got.detach().float().reshape(-1, got.shape[-1]), -1)
+    w = torch.argmax(want.detach().float().reshape(-1, want.shape[-1]), -1)
+    diff = (g.cpu() != w.cpu()).numpy() & held
+    check(not diff.any(), f"{what}: greedy tokens differ at rows "
+          f"{np.flatnonzero(diff).tolist()} whose margins "
+          f"{margin[diff].tolist()} exceed {np.broadcast_to(thr, margin.shape)[diff].tolist()}")
+    return int(held.sum()), int(held.size)
+
+
+def _lm_card_vs_cpu(dev, cfg, steps: int, quantize: bool = False) -> dict:
+    """``lm_forward`` and ``steps`` decode steps of ``cfg`` (weights from
+    one torch generator, optionally ``quantize_tree``'d) on the card and
+    on the CPU, on the same weights and inputs: the largest differences
+    of the logits, the aux loss, the decode logits and each cache (int8
+    cache entries within 1, as a rounding at a half step may differ),
+    and the greedy tokens held under the margin rule."""
+    import torch
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.quantized import quantize_tree
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                init_lm, lm_forward)
+    tree = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
+    if quantize:
+        tree = quantize_tree(tree)
+    on_card = tree_map(lambda t: t.to(dev), tree)
+    rng = np.random.default_rng(0)
+    b, l = 2, 16
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, l)))
+    stubs = {}
+    if cfg.is_encdec:
+        stubs["encoder_feats"] = rng.normal(size=(b, 8, cfg.d_model))
+    if cfg.family == "vlm":
+        stubs["vision_embeds"] = rng.normal(
+            size=(b, cfg.frontend_seq, cfg.d_model))
+    stubs = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in stubs.items()}
+    runs = {}
+    with torch.no_grad():
+        for where, m, d in (("cpu", tree, "cpu"), ("card", on_card, dev)):
+            kw = {k: v.to(d) for k, v in stubs.items()}
+            logits, aux = lm_forward(m, toks.to(d), cfg, **kw)
+            caches = init_caches(cfg, b, 32, d)
+            lgs = []
+            for t in range(steps):
+                lg, caches = decode_step(
+                    m, caches, toks[:, t].to(d),
+                    torch.full((b,), t, dtype=torch.int32, device=d), cfg,
+                    memory=kw.get("encoder_feats"))
+                lgs.append(lg)
+            runs[where] = (logits, aux, torch.stack(lgs), caches)
+    (lc, ac, dc, cc), (lg_, ag, dg, cg) = runs["cpu"], runs["card"]
+    name = cfg.name + (" int8 weights" if quantize else "")
+    errs = {"logits": _lm_close(lg_, lc, f"10a {name} logits"),
+            "aux": _lm_close(ag, ac, f"10a {name} aux"),
+            "decode": _lm_close(dg, dc, f"10a {name} decode logits")}
+    held = [_lm_tokens(lg_, lc, LM_TOL, f"10a {name} forward"),
+            _lm_tokens(dg, dc, LM_TOL, f"10a {name} decode")]
+    for kind, c in cc.items():
+        for leaf, want in c.items():
+            got = cg[kind][leaf]
+            what = f"10a {name} cache {kind}.{leaf}"
+            check(got.dtype == want.dtype, f"{what}: dtype {got.dtype} != "
+                  f"{want.dtype}")
+            if want.dtype == torch.int8:
+                e = int((got.cpu().to(torch.int64)
+                         - want.to(torch.int64)).abs().max())
+                check(e <= 1, f"{what}: int8 entries differ by {e} (at most "
+                      f"1 allowed)")
+                errs[f"{kind}.{leaf}"] = e
+            else:
+                errs[f"{kind}.{leaf}"] = _lm_close(got, want, what)
+    errs["tokens_held"] = [sum(h for h, _ in held), sum(n for _, n in held)]
+    return errs
+
+
+def _k5_stacked(dev, rounds) -> tuple:
+    """Each recorded round (``(states, CommandTables)`` of a chip
+    executor) through K5, and the rounds of one state shape through the
+    plain replay in one call (:func:`_stacked_plain`): (max_abs_err per
+    round, plain s per group)."""
+    import torch
+
+    from repro_torch.core.control_unit import replay, replay_plain
+    members = []
+    for states_np, ct in rounds:
+        tables, schedule = ct
+        n_rows, n_words = states_np.shape[-2:]
+        states = torch.from_numpy(np.ascontiguousarray(
+            states_np.reshape(-1, n_rows, n_words)).view(np.int32)).to(dev)
+        out = replay(states, ct)
+        per_unit = tables if tables.dim() == 3 else tables.expand(
+            states.shape[0], *tables.shape)
+        members.append(((n_rows, n_words),
+                        (states, per_unit[:, :int(schedule[0].max())]),
+                        (out,)))
+    errs, plain_s = _stacked_plain(
+        members, lambda key, st, tables: (replay_plain(st, tables),))
+    check(max(errs, default=0) == 0,
+          f"10b: K5 disagrees with the plain replay: errors per round {errs}")
+    return errs, plain_s
+
+
+def _serve_burst(cfg, params, dev, prompts, offload=None) -> dict:
+    """``prompts`` through a fresh ``Server`` of LM_SLOTS x LM_MAX_LEN:
+    the tokens, the wall, each model step's time and, on the host, the
+    logits each step's tokens were drawn from (after the offload)."""
+    import torch
+
+    from repro_torch.train.serve import Request, Server
+    server = Server(cfg, params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                    pum_offload=offload, device=dev)
+    step_fn, step_s, logits = server.step_fn, [], []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = step_fn(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        logits.append(res[0])
+        return res
+
+    server.step_fn = timed
+    reqs = [Request(prompt=list(p), max_new=LM_MAX_NEW) for p in prompts]
+    for r in reqs:
+        server.submit(r)
+    t0 = time.perf_counter()
+    server.run(max_steps=256)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.done for r in reqs),
+          f"10b: {sum(not r.done for r in reqs)} of {len(reqs)} requests "
+          f"did not complete in 256 steps")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for c in server.caches.values() for t in c.values())
+    # the server wrote the offload's result into each step's logits
+    return {"tokens": [r.out for r in reqs], "wall_s": wall,
+            "step_s": step_s, "logits": [x.cpu() for x in logits],
+            "cache_bytes": cache_bytes}
+
+
+def _same_burst(got, want, what: str) -> int:
+    """Two served bursts of one deterministic model: every step's logits
+    and every request's tokens ``==``.  Returns the tokens compared."""
+    import torch
+    check(len(got["logits"]) == len(want["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(got["logits"], want["logits"])),
+        f"{what}: the logits differ at steps "
+        f"{[i for i, (a, b) in enumerate(zip(got['logits'], want['logits'])) if not torch.equal(a, b)]}"
+        f" of {len(got['logits'])} (against {len(want['logits'])})")
+    check(got["tokens"] == want["tokens"], f"{what}: tokens {got['tokens']} "
+          f"!= {want['tokens']}")
+    return sum(len(t) for t in got["tokens"])
+
+
+def lm_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 10: the LM stack.  10a every arch at smoke_config, card
+    against CPU, the int8 cache, int8 weights and the PuM MLP on K3; 10b
+    yi-6b at full width serving a burst through PumServeOffload (K5);
+    10c make_prefill against decode at full width.  Every K3 and K5
+    launch of the counted runs has its twin through the plain version;
+    returns their launch counts, summed."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, smoke_config
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.kernels import build
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import init_caches, init_lm, lm_forward
+    from repro_torch.train.serve import (PumServeOffload, make_prefill,
+                                         make_serve_step)
+
+    card = record["card"]
+    out = record["lm"] = {}
+    total = {k: 0 for k in build.LAUNCHES}
+    t_phase = time.perf_counter()
+
+    # -- 10a: every arch at smoke_config, card against CPU ---------------
+    phase("10a")
+    smoke = {}
+    for arch in sorted(ARCHS):
+        smoke[arch] = _lm_card_vs_cpu(
+            dev, smoke_config(arch).replace(param_dtype="float32"), steps=2)
+    yi = smoke_config(LM_ARCH).replace(param_dtype="float32")
+    smoke["yi-6b int8 cache"] = _lm_card_vs_cpu(
+        dev, yi.replace(kv_cache_dtype="int8"), steps=4)
+    smoke["yi-6b int8 weights"] = _lm_card_vs_cpu(dev, yi, steps=2,
+                                                  quantize=True)
+    # tests/test_system.py::test_pum_offload_inside_lm's configuration:
+    # the MLP's relu as a bbop, K3 on the card
+    pum = smoke_config("seamless-m4t-medium").replace(
+        act="relu", pum="bitplane", pum_bits=8, param_dtype="float32")
+    build.reset_launches()
+    smoke["seamless-m4t-medium pum"] = _lm_card_vs_cpu(dev, pum, steps=2)
+    counts_a = dict(build.LAUNCHES)
+    want_k3 = pum.n_layers + pum.n_encoder_layers + 2 * pum.n_layers
+    check(counts_a["circuit"] == want_k3 and all(
+        v == 0 for k, v in counts_a.items() if k != "circuit"),
+        f"10a: the PuM MLP launched {counts_a}, expected {want_k3} K3 "
+        f"launches (one a layer: the forward's encoder and decoder layers "
+        f"and the two decode steps' decoder layers) and nothing else")
+    with _Twins() as tw:
+        _lm_card_vs_cpu(dev, pum, steps=2)
+    errs_k3 = tw.errs["circuit"]
+    check(len(errs_k3) == counts_a["circuit"] and max(errs_k3, default=0) == 0,
+          f"10a: {len(errs_k3)} K3 twins for {counts_a['circuit']} "
+          f"launches, errors {errs_k3}")
+    for k, v in counts_a.items():
+        total[k] += v
+    _agree(kern["circuit"]["agreement"], "lm", counts_a["circuit"], errs_k3)
+    worst = {name: max(v for k, v in e.items() if k != "tokens_held")
+             for name, e in smoke.items()}
+    held = [sum(e["tokens_held"][i] for e in smoke.values()) for i in (0, 1)]
+    out["10a"] = {"max_abs_err": smoke, "k3_launches": counts_a["circuit"],
+                  "tolerance": f"rtol = atol = {LM_TOL}; int8 cache entries "
+                               f"1; greedy tokens == where the CPU's "
+                               f"top-1/top-2 margin > {2 * LM_TOL}"}
+    print(f"[10a] {len(ARCHS)} archs at smoke_config (float32), the int8 "
+          f"cache, int8 weights and the PuM MLP: card == CPU within rtol = "
+          f"atol = {LM_TOL} (int8 cache entries within 1); largest "
+          f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      worst.items())
+          + f"; greedy tokens equal at {held[0]} of {held[1]} positions "
+          f"(those with a margin above {2 * LM_TOL}); the PuM MLP made "
+          f"{counts_a['circuit']} K3 launches, each equal to the plain "
+          f"circuit; {card}", flush=True)
+
+    # -- 10b: yi-6b at full width, served ------------------------------------
+    phase("10b")
+    t_b = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(0),
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == cfg.param_count(), f"10b: {n_params} parameters, "
+          f"param_count() {cfg.param_count()}")
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
+               for n in LM_PROMPTS]
+    chip = SimdramChip(n_banks=4, n_subarrays=2, device=dev)
+    offload = PumServeOffload(chip=chip)
+    steps, warm_steps, rounds = [], [], []
+    into = [steps]
+    executor = chip.executor
+
+    def watched(x):
+        """The offload of one step, timed; its result must be the logits
+        it was given (the default stages are a grid no-op) and
+        ``offload.reference``'s, bit for bit."""
+        r0, k0 = chip.stats.rounds, build.LAUNCHES["replay"]
+        t = time.perf_counter()
+        y = offload(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(y, x), f"10b: step {len(into[0])}: the offload "
+              f"changed {int((y != x).sum())} of {x.size} logits")
+        into[0].append({"ms": ms, "rows": x.shape[0],
+                        "rounds": chip.stats.rounds - r0,
+                        "k5": build.LAUNCHES["replay"] - k0, "x": x})
+        return y
+
+    # the first burst warms the model's kernels up; the counted burst goes
+    # through the offload (its chip compiles its tables); then warm bursts
+    # with and without it, timed.  Under deterministic algorithms (and the
+    # fixed cuBLAS workspace main() sets) the model's steps are the same
+    # on the same inputs, so every burst's logits must equal the first's
+    # bit for bit: the offload gives back the logits it was given.  (New
+    # tensors are left unfilled, as they are outside this mode: filling
+    # them would only slow the timed bursts.)
+    import torch.utils.deterministic as deterministic
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        plain = _serve_burst(cfg, params, dev, prompts)
+        chip.executor = _recording(executor, rounds)
+        build.reset_launches()
+        pum_run = _serve_burst(cfg, params, dev, prompts, watched)
+        counts_b = dict(build.LAUNCHES)
+        rounds_b = chip.stats.rounds
+        chip.executor = executor
+        into[0] = warm_steps
+        warm_pum = _serve_burst(cfg, params, dev, prompts, watched)
+        warm = _serve_burst(cfg, params, dev, prompts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    check(counts_b["replay"] == rounds_b > 0 and all(
+        v == 0 for k, v in counts_b.items() if k != "replay"),
+        f"10b: launches {counts_b} for {rounds_b} chip rounds in the counted "
+        f"burst, expected one K5 launch a round and nothing else")
+    check(all(s["k5"] == s["rounds"] for s in steps),
+          f"10b: K5 launches per step {[s['k5'] for s in steps]}, chip "
+          f"rounds per step {[s['rounds'] for s in steps]}")
+    check(len(rounds) == counts_b["replay"],
+          f"10b: {len(rounds)} recorded rounds, {counts_b['replay']} K5 "
+          f"launches")
+    bad = [i for i, s in enumerate(steps + warm_steps)
+           if not np.array_equal(offload.reference(s["x"]), s["x"])]
+    check(not bad, f"10b: offload.reference differs from the offload at "
+          f"steps {bad}")
+    n_same = _same_burst(pum_run, plain, "10b: the burst through the "
+                         "offload against the plain burst")
+    n_warm = _same_burst(warm, plain, "10b: a warm plain burst against the "
+                         "first")
+    n_warm_pum = _same_burst(warm_pum, plain, "10b: a warm burst through "
+                             "the offload against the plain burst")
+    for k, v in counts_b.items():
+        total[k] += v
+    errs_k5, plain_s = _k5_stacked(dev, rounds)
+    del rounds
+    _agree(kern["replay"]["agreement"], "lm", counts_b["replay"], errs_k5)
+    k5_per_step = [s["k5"] for s in steps]
+    noop_rows = sum(s["rows"] for s in steps + warm_steps)
+    n_tokens = sum(len(t) for t in pum_run["tokens"])
+    offload_ms = [s["ms"] for s in steps]
+    warm_offload_ms = [s["ms"] for s in warm_steps]
+    for s in steps + warm_steps:
+        del s["x"]
+    # a few served steps under the profiler: the card's idle share
+    prof = device_breakdown(lambda: _serve_burst(cfg, params, dev,
+                                                 prompts[:LM_SLOTS],
+                                                 offload))
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params)) \
+        - params["embed"]["emb"].numel() * params["embed"]["emb"].element_size()
+    step_bound = bound(w_bytes + plain["cache_bytes"], 0)
+    step_ms = float(np.median(warm_pum["step_s"])) * 1e3
+    step_plain_ms = float(np.median(warm["step_s"])) * 1e3
+    out["10b"] = {
+        "init_s": init_s, "params": n_params, "steps": len(pum_run["step_s"]),
+        "tokens": pum_run["tokens"], "generated": n_tokens,
+        "tokens_compared_offload_vs_plain": n_same,
+        "tokens_compared_warm_vs_first": n_warm,
+        "tokens_compared_warm_offload_vs_plain": n_warm_pum,
+        "offload_noop_rows": noop_rows,
+        "wall_plain_first_s": plain["wall_s"],
+        "wall_offload_first_s": pum_run["wall_s"],
+        "wall_offload_s": warm_pum["wall_s"], "wall_plain_s": warm["wall_s"],
+        "tokens_per_s_offload": n_tokens / warm_pum["wall_s"],
+        "tokens_per_s_plain": n_tokens / warm["wall_s"],
+        "model_step_ms_median": step_ms,
+        "model_step_ms_median_plain": step_plain_ms,
+        "model_step_ms": [t * 1e3 for t in warm_pum["step_s"]],
+        "offload_ms_median": float(np.median(warm_offload_ms)),
+        "offload_ms": warm_offload_ms,
+        "offload_ms_median_first": float(np.median(offload_ms)),
+        "offload_ms_first": offload_ms, "k5_per_step": k5_per_step,
+        "k5_launches": counts_b["replay"], "k5_plain_s": plain_s,
+        "chip_stats": chip.stats.as_dict(),
+        "weight_bytes_per_step": w_bytes, "cache_bytes": plain["cache_bytes"],
+        "step_bound_ms": step_bound[0],
+        "profiled": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                          "idle_share", "device_ms")}}
+    print(f"[10b] {LM_ARCH} at full width ({n_params:,} parameters == "
+          f"param_count(), bf16, initialized on the card in {init_s:.2f} s): "
+          f"{len(prompts)} requests, {n_tokens} tokens in "
+          f"{len(pum_run['step_s'])} steps on {LM_SLOTS} slots of "
+          f"{LM_MAX_LEN} positions, all complete; every step's offload "
+          f"returned the logits it was given and offload.reference's, bit "
+          f"for bit ({noop_rows} no-op rows in two bursts); under "
+          f"deterministic algorithms every step's logits and every token "
+          f"of the bursts through the offload == the plain burst's "
+          f"({n_same} tokens; warm: {n_warm_pum}), a warm plain burst's "
+          f"== the first's ({n_warm}); {card}", flush=True)
+    print(f"[10b] warm: model step {step_ms:.2f} ms median with the "
+          f"offload ({step_plain_ms:.2f} ms without), offload "
+          f"{out['10b']['offload_ms_median']:.2f} ms median (counted burst "
+          f"{out['10b']['offload_ms_median_first']:.2f}), K5 launches a "
+          f"step {sorted(set(k5_per_step))} (= the chip's stacked rounds, "
+          f"{counts_b['replay']} in all, each equal to the plain replay, "
+          f"stacked by shape: " + fmt_list(plain_s) + f" s); "
+          f"{n_tokens / warm_pum['wall_s']:.2f} tokens/s with the offload, "
+          f"{n_tokens / warm['wall_s']:.2f} without (the first bursts "
+          f"{pum_run['wall_s']:.2f} and {plain['wall_s']:.2f} s); decode "
+          f"step bound "
+          f"{step_bound[0]:.3f} ms ({w_bytes / 1e9:.2f} GB of weights + "
+          f"{plain['cache_bytes'] / 1e9:.3f} GB of cache over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {card}", flush=True)
+    note_profiled("10b", "replay_kernel", prof)
+    print(f"[10b] a profiled burst of {LM_SLOTS} requests through the "
+          f"offload: wall {prof['wall_ms']:.1f} ms, card busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.4f}; top device ms "
+          + json.dumps(dict(list(prof["device_ms"].items())[:8]))
+          + f"; {card}", flush=True)
+    del plain, pum_run, warm, warm_pum
+
+    # -- 10c: make_prefill against decode at full width ----------------------
+    phase("10c")
+    t_c = time.perf_counter()
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                         (1, LM_PREFILL_LEN))).to(dev)
+    prefill = make_prefill(cfg)
+    step = make_serve_step(cfg)
+    with torch.no_grad():
+        full, _ = lm_forward(params, toks, cfg)
+    last = prefill(params, toks)
+    # the prompt decoded position by position through make_serve_step's
+    # step, replayed as one CUDA graph a step (the same kernels on the
+    # same tensors, without the host's launch time)
+    caches = init_caches(cfg, 1, LM_PREFILL_LEN, dev)
+    graph, tok, pos, logits = _graphed_step(step, params, caches, dev)
+    dec = torch.empty((LM_PREFILL_LEN, logits.shape[-1]), dtype=logits.dtype,
+                      device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(LM_PREFILL_LEN):
+        tok.copy_(toks[0, t:t + 1])
+        pos.fill_(t)
+        graph.replay()
+        dec[t].copy_(logits[0])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    want = full[0].float()
+
+    def rel_err(d):
+        w = want[:d.shape[0]]
+        return ((d.float() - w).abs().amax(-1) / w.abs().amax(-1)).cpu().numpy()
+
+    rel = rel_err(dec)
+    # two planted faults over the first LM_FAULT_LEN positions, each of
+    # which the tolerance must catch: the cache write of position
+    # LM_FAULT_AT dropped (its keys and values zeroed after its step), and
+    # every step one position late (the empty slot 0 is attended to)
+    faults = {}
+    for fault in ("dropped cache write", "position off by one"):
+        for c in caches.values():
+            for x in c.values():
+                x.zero_()           # a bf16 cache starts at zero
+        bad_dec = torch.empty_like(dec[:LM_FAULT_LEN])
+        for t in range(LM_FAULT_LEN):
+            tok.copy_(toks[0, t:t + 1])
+            pos.fill_(t + 1 if fault == "position off by one" else t)
+            graph.replay()
+            if fault == "dropped cache write" and t == LM_FAULT_AT:
+                for x in caches["attn"].values():
+                    x[:, :, t].zero_()
+            bad_dec[t].copy_(logits[0])
+        r = rel_err(bad_dec)
+        faults[fault] = {"max_rel": float(r.max()),
+                         "positions_over_tolerance": int((r > LM_BF16_REL).sum()),
+                         "positions": LM_FAULT_LEN}
+        check(r.max() > LM_BF16_REL, f"10c: a planted fault ({fault}) reads "
+              f"{float(r.max()):.3e} of max|logits| at most, within the "
+              f"tolerance {LM_BF16_REL}")
+    del graph, caches, bad_dec
+    held = _lm_tokens(dec, full[0], LM_BF16_REL, "10c decode against the "
+                      "prefill", relative=True)
+    bad = np.flatnonzero(rel > LM_BF16_REL)
+    check(not len(bad), f"10c: decode against prefill off by more than "
+          f"{LM_BF16_REL} of max|logits| at positions {bad[:16].tolist()}: "
+          f"{rel[bad[:16]].tolist()}")
+    # make_prefill's own output (the last position) against that decode
+    want = last.float()
+    rel_last = float((dec[-1].float() - want).abs().max() / want.abs().max())
+    _lm_tokens(dec[-1:], last, LM_BF16_REL, "10c make_prefill's last "
+               "position", relative=True)
+    check(rel_last <= LM_BF16_REL, f"10c: make_prefill's last position off "
+          f"the decode's by {rel_last:.3e} of max|logits|, tolerance "
+          f"{LM_BF16_REL}")
+    rel = rel.tolist()
+    del full, dec
+    prefill_ms = time_ms(lambda: prefill(params, toks), reps=3, warmup=1)
+    mm = sum(t.numel() for k, t in _matmul_weights(params))
+    flops = (2 * mm * LM_PREFILL_LEN + cfg.n_layers * 4 * cfg.n_heads
+             * LM_PREFILL_LEN ** 2 * cfg.hd)
+    prefill_bound = bound(0, flops, BF16_FLOPS_PER_S)
+    peak = torch.cuda.max_memory_allocated()
+    out["10c"] = {"decode_vs_prefill_rel": rel, "planted_faults": faults,
+                  "make_prefill_last_rel": rel_last,
+                  "tolerance": f"{LM_BF16_REL} of max|logits| per position; "
+                               f"greedy tokens == where the prefill's margin "
+                               f"> {2 * LM_BF16_REL} of it",
+                  "tokens_held": held, "decode_s": decode_s,
+                  "graphed_step_ms": decode_s / LM_PREFILL_LEN * 1e3,
+                  "prefill_ms": prefill_ms, "prefill_tokens": LM_PREFILL_LEN,
+                  "prefill_flops": flops,
+                  "prefill_bound_ms": prefill_bound[0],
+                  "max_memory_allocated": peak}
+    print(f"[10c] lm_forward (make_prefill's forward) over {LM_PREFILL_LEN} "
+          f"tokens against {LM_PREFILL_LEN} decode steps (one CUDA graph a "
+          f"step, {decode_s / LM_PREFILL_LEN * 1e3:.2f} ms a step): largest "
+          f"difference {max(rel):.3e} of max|logits|, median "
+          f"{float(np.median(rel)):.3e} (tolerance "
+          f"{LM_BF16_REL}), greedy tokens equal at {held[0]} of {held[1]} "
+          f"positions (those with a margin above {2 * LM_BF16_REL} of "
+          f"max|logits|); make_prefill's own last position off the "
+          f"decode's by {rel_last:.3e}; planted faults over the first "
+          f"{LM_FAULT_LEN} positions read " + ", ".join(
+              f"{k} (at {LM_FAULT_AT}) {v['max_rel']:.3e}" if k.startswith(
+                  "dropped") else f"{k} {v['max_rel']:.3e}"
+              for k, v in faults.items())
+          + f" ({' and '.join(str(v['positions_over_tolerance']) for v in faults.values())}"
+          f" of {LM_FAULT_LEN} positions over the tolerance); make_prefill "
+          f"{prefill_ms:.1f} ms (CUDA events), bound "
+          f"{prefill_bound[0]:.1f} ms ({flops / 1e12:.1f} TFLOP over "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; {card}", flush=True)
+    del params, toks
+    torch.cuda.empty_cache()
+
+    kern["circuit"]["lm"] = {"launches": counts_a["circuit"]}
+    kern["replay"]["lm"] = {"launches": counts_b["replay"],
+                            "per_step": k5_per_step,
+                            "round_plain_s": plain_s}
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    out["part_seconds"] = {"10a": t_b - t_phase, "10b": t_c - t_b,
+                           "10c": t_end - t_c}
+    print(f"[10] LM path: launches {total}; phase 10 took "
+          f"{out['seconds']:.1f} s ({json.dumps(out['part_seconds'])})",
+          flush=True)
+    return total
+
+
+def _graphed_step(step, params, caches, dev):
+    """``step`` (``make_serve_step``'s function) on one slot captured as a
+    CUDA graph after one warm-up call on a side stream: (graph, token and
+    position input tensors, logits output tensor).  A replay runs the
+    step on whatever the inputs hold and writes the caches in place."""
+    import torch
+    tok = torch.zeros(1, dtype=torch.int64, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(params, caches, tok, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, _ = step(params, caches, tok, pos)
+    return graph, tok, pos, logits
+
+
+def _matmul_weights(params):
+    """(key path, tensor) of every weight a matrix product reads: the
+    dense, MoE and router weights and the readout (not the embedding
+    table, which a lookup reads, nor the SSM's depthwise conv)."""
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+            elif v.dim() >= 2 and k not in ("emb", "conv_w"):
+                yield ".".join(path + (k,)), v
+    yield from walk(params, ())
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", help="also write the full record here")
@@ -2931,6 +3655,10 @@ def main() -> int:
                                           "serving_channel_trace.json"),
                    help="where phase 9c writes its Chrome trace")
     args = p.parse_args()
+    # cuBLAS picks its algorithms reproducibly with a fixed workspace; it
+    # reads this when its first handle is made, so before torch starts
+    # CUDA (phase 10b holds two served runs bit for bit)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     try:
         import torch
     except ImportError:

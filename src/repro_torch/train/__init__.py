@@ -1,6 +1,7 @@
-"""The serving path's PuM hook (:mod:`repro_torch.train.serve`).
+"""The serving path (:mod:`repro_torch.train.serve`).
 
-Counterpart of part of ``repro.train``: the host oracle and the
-quantized logit offload.  The training loop, optimizer, data,
-checkpointing and the LM server come with the model stack.
+Counterpart of part of ``repro.train``: ``make_prefill``,
+``make_serve_step``, ``Request``, the LM ``Server``, the host oracle and
+the quantized logit offload.  The training loop, optimizer, data,
+checkpointing, compression and fault tolerance are not ported yet.
 """

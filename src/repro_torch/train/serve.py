@@ -1,7 +1,13 @@
-"""The serving path's PuM hook: the host oracle and the logit offload.
+"""Serving path: prefill and decode steps, a batched request scheduler,
+and the PuM hook (counterpart of :mod:`repro.train.serve`).
 
-Counterpart of the model-free part of :mod:`repro.train.serve`:
-
+  - :func:`make_prefill` and :func:`make_serve_step` build the inference
+    functions: a full-sequence forward returning last-position logits,
+    and one decode step against the caches.  Both run where the params
+    are;
+  - :class:`Server` is the reference's continuous-batching loop: fixed
+    batch slots, per-slot positions, prefill-by-decode, greedy sampling,
+    EOS handling, slot reuse;
   - :func:`bbop_host_oracle`, the exact semantics of one ``bbop`` on the
     host — the graceful-degradation path the serving front-end's circuit
     breaker and :class:`PumServeOffload` answer from;
@@ -9,22 +15,60 @@ Counterpart of the model-free part of :mod:`repro.train.serve`:
     decode step's quantized logits through a
     :class:`~repro_torch.core.chip.SimdramChip` as Ref-linked stage
     chains, one per batch row.
-
-``make_prefill``, ``make_serve_step`` and ``Server`` drive a language
-model and come with the port's model stack (``models/``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.fault import FaultExhaustedError
 from ..core.isa import _np_signed
 from ..core.ops_library import get_op
 from ..core.telemetry import REGISTRY, active_tracer
+from ..kernels.build import resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import decode_step, init_caches, lm_forward
+
+
+def _device_of(params) -> torch.device:
+    return params["embed"]["emb"].device
+
+
+def make_prefill(cfg: ModelConfig, remat: str = "dots", unroll: bool = False):
+    """Full-sequence forward returning last-position logits (B, V), on the
+    params' device."""
+
+    @torch.no_grad()
+    def prefill(params, tokens, encoder_feats=None, vision_embeds=None):
+        dev = _device_of(params)
+        kw = {}
+        if cfg.is_encdec:
+            kw["encoder_feats"] = torch.as_tensor(encoder_feats, device=dev)
+        if cfg.family == "vlm":
+            kw["vision_embeds"] = torch.as_tensor(vision_embeds, device=dev)
+        logits, _ = lm_forward(params, torch.as_tensor(tokens, device=dev),
+                               cfg, remat=remat, unroll=unroll, **kw)
+        return logits[:, -1, :]
+
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig, unroll: bool = False):
+    """One-token decode against a KV/SSM cache (the decode_* cells), on
+    the params' device; the caches are written in place and returned."""
+
+    @torch.no_grad()
+    def serve_step(params, caches, token, pos, memory=None):
+        dev = _device_of(params)
+        return decode_step(params, caches, torch.as_tensor(token, device=dev),
+                           torch.as_tensor(pos, device=dev), cfg,
+                           memory=memory, unroll=unroll)
+
+    return serve_step
 
 
 def bbop_host_oracle(op: str, n_bits: int, operands,
@@ -87,14 +131,14 @@ class PumServeOffload:
     the same pipeline, which :meth:`__call__` matches bit-exactly.
 
     ``chip`` defaults to a 4-bank × 2-subarray
-    :class:`~repro_torch.core.chip.SimdramChip` on ``"cuda"``.
+    :class:`~repro_torch.core.chip.SimdramChip` on ``device``.
     """
 
     def __init__(self, chip=None, stages: Optional[Tuple[PumStage, ...]] = None,
-                 n_bits: int = 8):
+                 n_bits: int = 8, device="cuda"):
         if chip is None:
             from ..core.chip import SimdramChip
-            chip = SimdramChip(n_banks=4, n_subarrays=2)
+            chip = SimdramChip(n_banks=4, n_subarrays=2, device=device)
         self.chip = chip
         self.n_bits = n_bits
         self.host_fallbacks = 0
@@ -197,3 +241,94 @@ class PumServeOffload:
                 v = v.astype(np.uint64) & ((1 << self.n_bits) - 1)
             rows.append(v)
         return self._dequantize(x, q, np.stack(rows), lo, scale)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: List[int]
+    max_new: int = 16
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # prompt tokens still to feed (prefill-by-decode)
+    _feed: List[int] = dataclasses.field(default_factory=list, init=False,
+                                         repr=False, compare=False)
+
+
+class Server:
+    """Greedy continuous-batching server over fixed cache slots on
+    ``device``, where the params must be.
+
+    With ``pum_offload``, every step hands the active slots' logits to
+    the offload (on the host, as float32) and writes its result back into
+    the logits in their own dtype, as the reference writes them into its
+    host copy; greedy sampling takes the first maximum, as ``jnp.argmax``
+    does."""
+
+    def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
+                 max_len: int = 256, eos_id: int = 1,
+                 pum_offload: Optional[PumServeOffload] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.params = params
+        if _device_of(self.params).type != self.device.type:
+            raise ValueError(f"the params are on {_device_of(self.params)}, "
+                             f"the server on {self.device}")
+        self.cfg = cfg
+        self.caches = init_caches(cfg, batch_slots, max_len, self.device)
+        self.step_fn = make_serve_step(cfg)
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.cur = np.zeros(batch_slots, np.int32)
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.queue: List[Request] = []
+        self.pum_offload = pum_offload
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                # feed prompt tokens one by one (prefill-by-decode)
+                self.pos[i] = 0
+                self.cur[i] = req.prompt[0]
+                req._feed = list(req.prompt[1:])
+
+    def step(self) -> None:
+        self._admit()
+        logits, self.caches = self.step_fn(self.params, self.caches,
+                                           self.cur, self.pos)
+        if self.pum_offload is not None:
+            # the active slots' quantized elementwise logit stages drain
+            # through one chip dispatch (empty slots hold stale tokens —
+            # not real traffic, so not dispatched)
+            act = [i for i, s in enumerate(self.slots) if s is not None]
+            if act:
+                rows = torch.tensor(act, device=logits.device)
+                host = logits[rows].to(torch.float32).cpu().numpy()
+                logits[rows] = torch.from_numpy(self.pum_offload(host)).to(
+                    logits.device, logits.dtype)
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.pos[i] += 1
+            if req._feed:
+                self.cur[i] = req._feed.pop(0)
+                continue
+            tok = int(nxt[i])
+            req.out.append(tok)
+            self.cur[i] = tok
+            if tok == self.eos_id or len(req.out) >= req.max_new \
+                    or self.pos[i] >= self.max_len - 1:
+                req.done = True
+                self.slots[i] = None
+
+    def run(self, max_steps: int = 512) -> None:
+        for _ in range(max_steps):
+            if not self.queue and all(s is None for s in self.slots):
+                break
+            self.step()

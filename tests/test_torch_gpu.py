@@ -817,3 +817,141 @@ def test_worker_thread_on_card_equals_the_pump(cuda):
     worker, seen = _served_window("cuda", worker=True, traced=True)
     assert worker == sync
     assert seen and all(t != main[0] and s == main[1] for t, s in seen)
+
+
+# -- the LM stack -------------------------------------------------------------
+
+LM_TOL = 1e-3        # cuBLAS against CPU BLAS, float32 (no TF32)
+
+
+def _lm_runs(cfg, device, params):
+    """lm_forward and two decode steps of ``cfg`` on ``device``: the
+    logits, aux, decode logits and every cache leaf."""
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                lm_forward)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    kw = {}
+    if cfg.is_encdec:
+        kw["encoder_feats"] = torch.from_numpy(
+            rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        kw["vision_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.frontend_seq, cfg.d_model)).astype(
+                np.float32))
+    kw = {k: v.to(device) for k, v in kw.items()}
+    with torch.no_grad():
+        logits, aux = lm_forward(params, toks.to(device), cfg, **kw)
+        caches = init_caches(cfg, 2, 16, device)
+        steps = []
+        for t in range(2):
+            lg, caches = decode_step(
+                params, caches, toks[:, t].to(device),
+                torch.full((2,), t, dtype=torch.int32, device=device), cfg,
+                memory=kw.get("encoder_feats"))
+            steps.append(lg)
+    return [logits, aux, torch.stack(steps)] + [
+        t for kind in sorted(caches) for _, t in sorted(caches[kind].items())]
+
+
+def _smoke_arch_names():
+    from repro_torch.configs import ARCHS
+    return sorted(ARCHS)
+
+
+def _on(params, device):
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda t: t.to(device), params)
+
+
+@pytest.mark.parametrize("arch", _smoke_arch_names())
+def test_lm_on_card_equals_cpu(cuda, arch):
+    """Every arch at smoke_config (float32): the forward, its aux loss,
+    two decode steps and the caches on the card within 1e-3 of the CPU
+    run of the same weights (int8 cache entries within 1)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_lm
+    cfg = smoke_config(arch).replace(param_dtype="float32")
+    params = init_lm(cfg, device="cpu")
+    cpu = _lm_runs(cfg, "cpu", params)
+    card = _lm_runs(cfg, cuda, _on(params, cuda))
+    for got, want in zip(card, cpu):
+        if want.dtype == torch.int8:
+            assert (got.cpu().int() - want.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=LM_TOL, atol=LM_TOL)
+
+
+def test_pum_mlp_on_card_launches_k3(cuda):
+    """The PuM MLP (relu as a bbop) makes one K3 launch a layer on the
+    card, its integer stage equals the CPU's plain circuit bit for bit,
+    and the logits equal the CPU's within 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.layers import relu_stage
+    from repro_torch.models.transformer import init_lm, lm_forward
+    cfg = smoke_config("seamless-m4t-medium").replace(
+        act="relu", pum="bitplane", pum_bits=8, param_dtype="float32")
+    params = init_lm(cfg, device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    feats = torch.zeros((1, 4, cfg.d_model))
+    with torch.no_grad():
+        want, _ = lm_forward(params, toks, cfg, encoder_feats=feats)
+        build.reset_launches()
+        got, _ = lm_forward(_on(params, cuda), toks.to(cuda), cfg,
+                            encoder_feats=feats.to(cuda))
+    assert build.LAUNCHES["circuit"] == cfg.n_layers + cfg.n_encoder_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=LM_TOL, atol=LM_TOL)
+    up = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 8, 128)).astype(np.float32))
+    assert torch.equal(relu_stage(up.to(cuda)).cpu(), relu_stage(up))
+
+
+def test_lm_server_on_card_with_offload(cuda):
+    """Smoke yi-6b (float32) served on the card through PumServeOffload
+    on a card chip: every step's offload returns the logits it was given
+    and one K5 launch a stacked round; fed the logits the CPU run's
+    offload was given (the card's own may part from them at a near-tie),
+    a card chip's modeled stats equal the CPU chip's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.serve import PumServeOffload, Request, Server
+    cfg = smoke_config("yi-6b").replace(param_dtype="float32")
+    params = init_lm(cfg, device="cpu")
+
+    def stats(off):
+        return {k: v for k, v in off.chip.stats.as_dict().items()
+                if k not in ("wall_s", "pack_wall_s")}
+
+    def serve(device, p):
+        off = PumServeOffload(chip=SimdramChip(n_banks=2, n_subarrays=2,
+                                               device=device))
+        given = []
+
+        def watched(x):
+            y = off(x)
+            given.append((x.copy(), np.array_equal(y, x)))
+            return y
+
+        server = Server(cfg, p, batch_slots=2, max_len=32,
+                        pum_offload=watched, device=device)
+        reqs = [Request(prompt=pr, max_new=4) for pr in ([5, 6, 7], [9], [3])]
+        for r in reqs:
+            server.submit(r)
+        server.run(max_steps=64)
+        assert all(r.done for r in reqs) and all(ok for _, ok in given)
+        return stats(off), [x for x, _ in given]
+
+    want_stats, given = serve("cpu", params)
+    build.reset_launches()
+    got_stats, _ = serve(cuda, _on(params, cuda))
+    assert build.LAUNCHES["replay"] == got_stats["rounds"] > 0
+    off = PumServeOffload(chip=SimdramChip(n_banks=2, n_subarrays=2,
+                                           device=cuda))
+    for x in given:
+        assert np.array_equal(off(x), x)
+    fed = stats(off)
+    assert fed.keys() == want_stats.keys()
+    for k, v in want_stats.items():
+        assert np.array_equal(np.asarray(fed[k]), np.asarray(v)), k

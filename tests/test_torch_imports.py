@@ -54,6 +54,8 @@ def test_imports_with_jax_blocked():
 
 
 def _entry_points():
+    import torch
+
     from repro_torch.core import bitplane, control_unit
     from repro_torch.core.bank import Bank, VerticalOperand
     from repro_torch.core.fault import FaultModel
@@ -61,8 +63,12 @@ def _entry_points():
     from repro_torch.core.chip import SimdramChip
     from repro_torch.core.isa import SimdramDevice
     from repro_torch.core.rank import SimdramRank
+    from repro_torch.configs import smoke_config
     from repro_torch.distributed import pum
     from repro_torch.kernels import ops as kops
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.models.transformer import init_caches, init_lm
+    from repro_torch.train import serve
 
     x = np.arange(64, dtype=np.int64)
     state = np.zeros((16, 2), np.uint32)
@@ -106,6 +112,14 @@ def _entry_points():
             np.ones((4, 32), np.int32), np.ones((32, 4), np.int32), 1, 1),
         "quantized_matmul": lambda: kops.quantized_matmul(
             np.ones((4, 32), np.int32), np.ones((32, 4), np.int32), 8, 8),
+        "init_lm": lambda: init_lm(smoke_config("yi-6b")),
+        "init_caches": lambda: init_caches(smoke_config("yi-6b"), 1, 8),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"w": np.ones((2, 2), np.float32)}),
+        "Server": lambda: serve.Server(
+            smoke_config("yi-6b"),
+            {"embed": {"emb": torch.zeros(4, 4)}}),
+        "PumServeOffload": lambda: serve.PumServeOffload(),
     }
 
 
