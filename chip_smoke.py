@@ -157,6 +157,29 @@ Chrome trace goes to ``--trace`` (default
      cache write, every step a position late) must read more than
      ``LM_BF16_REL``; ``make_prefill``'s time beside its FLOP bound and
      ``torch.cuda.max_memory_allocated`` (the ``lm`` path of K3 and K5);
+ 12. the trainer (``src/repro_torch/train``, ``launch/train.py``), run
+     after phase 10 and before the kernels line, once phase 10's model
+     is released: (12a) every arch at ``smoke_config`` in float32, two
+     ``make_train_step`` steps on the card against the CPU run of the
+     same weights and batches (no TF32), each step's loss, aux and grad
+     norm and every final parameter within ``LM_TOL``; yi-6b in two
+     microbatches; the PuM relu MLP (phase 10a's configuration), its
+     relu a K3 launch in every forward and recompute, each held against
+     the plain circuit; ``compressed_grad_transform`` over one gradient
+     tree, card ``==`` CPU; (12b) internvl2-1b at its published width
+     through ``launch.train.train`` (bf16 params, fp32 moments, random
+     weights from a seeded generator): ``TRAIN_STEPS`` steps of
+     ``TRAIN_BATCH`` x (256 + ``TRAIN_SEQ``) positions in two
+     microbatches, checkpoints every ``TRAIN_CKPT_EVERY`` steps under
+     ``build/``; the step-3 checkpoints moved to another directory resume
+     the same call at step 4, and, under deterministic algorithms, its
+     losses, grad norms and final parameters equal the uninterrupted
+     run's bit for bit; every loss finite; a flipped byte in a saved
+     shard makes ``restore`` raise; printed: the step's time, positions
+     and text tokens a second, save and restore seconds,
+     ``max_memory_allocated``, the step's FLOP bound and AdamW's bytes
+     bound, and the idle share of one profiled step (the ``train`` path
+     of K3);
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -171,8 +194,9 @@ Chrome trace goes to ``--trace`` (default
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6, each tier of phase 7, each app run of phase 8, each served run
-of phase 9, and the PuM forward and the counted burst of phase 10) and
-read just after; comparison launches come after the read.
+of phase 9, the PuM forward and the counted burst of phase 10, and the
+PuM train steps of phase 12) and read just after; comparison launches
+come after the read.
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line; each failed check names its
 phase and the values it compared.  No check reads a time, a rate, an
@@ -322,6 +346,28 @@ LM_FAULT_LEN = 256
 LM_FAULT_AT = 64
 # dense bf16 tensor-core peak of one H100 SXM (data sheet, no sparsity)
 BF16_FLOPS_PER_S = 989e12
+# the trainer (phase 12).  12a: every arch at smoke_config in float32,
+# TRAIN_SMOKE_STEPS train steps on the card against the port's own CPU run
+# of the same weights and synth_batch(TRAIN_SMOKE_DATA) batches, loss,
+# aux, grad norm and every parameter within LM_TOL.  The optimizer's eps
+# is 1e-3 (TRAIN_SMOKE_OPT): at the default 1e-8 AdamW moves a parameter
+# by about lr whatever its gradient's size, so a gradient entry within
+# rounding of zero (its sign set by summation order) moves by +-lr on
+# either side; with eps 1e-3 the step is a smooth function of the
+# gradient.  12b: internvl2-1b at its published width in bf16 (fp32
+# moments) through launch.train.train: TRAIN_STEPS steps of TRAIN_BATCH x
+# (256 vision + TRAIN_SEQ text) positions in TRAIN_MICRO microbatches,
+# checkpoints every TRAIN_CKPT_EVERY steps under build/, resumed from the
+# first checkpoint in another directory bit for bit
+TRAIN_SMOKE_STEPS = 2
+TRAIN_SMOKE_DATA = (16, 4, 0)          # seq_len, global_batch, seed
+TRAIN_SMOKE_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_ARCH = "internvl2-1b"
+TRAIN_STEPS = 6
+TRAIN_SEQ = 512
+TRAIN_BATCH = 8
+TRAIN_MICRO = 2
+TRAIN_CKPT_EVERY = 3
 
 TRANSPOSE_WIDTHS = (8, 16, 32)
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
@@ -947,6 +993,9 @@ def run(trace_path: str) -> dict:
     release_device_memory()
     phase("10")
     counts_lm = lm_phase(dev, record, kern)
+    release_device_memory("12")
+    phase("12")
+    counts_train = train_phase(dev, record, kern)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -968,9 +1017,11 @@ def run(trace_path: str) -> dict:
           f"K5 or K6 was not launched on the serving path: {counts_serve}")
     check(counts_lm["circuit"] > 0 and counts_lm["replay"] > 0,
           f"K3 or K5 was not launched on the LM path: {counts_lm}")
+    check(counts_train["circuit"] > 0,
+          f"K3 was not launched on the training path: {counts_train}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
-                + counts_serve[name] + counts_lm[name]
+                + counts_serve[name] + counts_lm[name] + counts_train[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
@@ -1019,7 +1070,7 @@ def run(trace_path: str) -> dict:
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
                     "ns_per_real_cmd", "per_width", "ladder", "serving",
-                    "lm"):
+                    "lm", "train"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
@@ -1034,6 +1085,7 @@ def run(trace_path: str) -> dict:
     record["launches_apps"] = counts_apps
     record["launches_serving"] = counts_serve
     record["launches_lm"] = counts_lm
+    record["launches_train"] = counts_train
     record["profiler_misses"] = PROFILER_MISSES
     print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
@@ -3038,10 +3090,10 @@ def serving_phase(dev, record: dict, kern: dict) -> dict:
 
 # -- phase 10: the LM server ----------------------------------------------------
 
-def release_device_memory() -> None:
+def release_device_memory(label: str = "10") -> None:
     """Free what the earlier phases left on the card (their collected
     tensors, the command-table cache, the allocator's cached blocks) and
-    print what is free before the LM is built."""
+    print what is free before phase ``label`` builds its model."""
     import gc
 
     import torch
@@ -3051,7 +3103,7 @@ def release_device_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    print(f"[10] before the LM: {free / 2**30:.2f} GiB free of "
+    print(f"[{label}] before phase {label}: {free / 2**30:.2f} GiB free of "
           f"{total / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.3f}"
           f" GiB still allocated by this process", flush=True)
 
@@ -3611,6 +3663,365 @@ def lm_phase(dev, record: dict, kern: dict) -> dict:
     out["part_seconds"] = {"10a": t_b - t_phase, "10b": t_c - t_b,
                            "10c": t_end - t_c}
     print(f"[10] LM path: launches {total}; phase 10 took "
+          f"{out['seconds']:.1f} s ({json.dumps(out['part_seconds'])})",
+          flush=True)
+    return total
+
+
+def _train_batches(cfg, dev, steps: int, data=TRAIN_SMOKE_DATA) -> list:
+    """``synth_batch`` of steps 0 .. ``steps`` - 1 as tensors on ``dev``."""
+    import torch
+
+    from repro_torch.train.data import DataConfig, synth_batch
+    return [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        cfg, DataConfig(*data), s).items()} for s in range(steps)]
+
+
+def _train_card_vs_cpu(dev, cfg, n_microbatches: int = 1) -> dict:
+    """TRAIN_SMOKE_STEPS train steps of ``cfg`` (weights from one torch
+    generator) on the card and on the CPU, on the same weights and
+    batches: the largest differences of each step's loss, aux and grad
+    norm and of every final parameter, each within LM_TOL."""
+    import torch
+
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    tree = init_lm(cfg, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
+    step = make_train_step(cfg, opt.AdamWConfig(**TRAIN_SMOKE_OPT),
+                           n_microbatches=n_microbatches)
+    runs = {}
+    for where, d in (("cpu", "cpu"), ("card", dev)):
+        params = tree_map(lambda t: t.to(d), tree)
+        state, metrics = opt.init(params), []
+        for b in _train_batches(cfg, d, TRAIN_SMOKE_STEPS):
+            params, state, m = step(params, state, b)
+            metrics.append(m)
+        runs[where] = (params, metrics)
+    (pc, mc), (pg, mg) = runs["cpu"], runs["card"]
+    name = f"12a {cfg.name}" + (f" {n_microbatches} microbatches"
+                                if n_microbatches > 1 else "")
+    errs = {}
+    for k in ("loss", "aux", "grad_norm"):
+        errs[k] = max(_lm_close(g[k], c[k], f"{name} step {i + 1} {k}")
+                      for i, (g, c) in enumerate(zip(mg, mc)))
+    errs["params"] = max(_lm_close(g, c, f"{name} parameter leaf {i}")
+                         for i, (g, c) in enumerate(zip(flatten(pg),
+                                                        flatten(pc))))
+    check(all(bool(torch.isfinite(m["loss"])) for m in mg),
+          f"{name}: a loss on the card is not finite")
+    return errs
+
+
+def _grad_tree(cfg):
+    """The gradient tree of one float32 smoke forward of ``cfg`` on the
+    CPU (``make_loss_fn`` on one batch)."""
+    import torch
+
+    from repro_torch.models.params import flatten, tree_map, unflatten
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.train_loop import make_loss_fn
+    live = tree_map(lambda t: t.requires_grad_(), init_lm(
+        cfg, generator=torch.Generator().manual_seed(1), device="cpu"))
+    total, _ = make_loss_fn(cfg)(live, _train_batches(cfg, "cpu", 1)[0])
+    return unflatten(live, torch.autograd.grad(total, flatten(live)))
+
+
+class _Timed:
+    """Within ``with``: each call of ``mod.<name>`` for ``names`` is timed
+    on the host's clock (after a device synchronize) into
+    ``seconds[name]``."""
+
+    def __init__(self, mod, *names):
+        self.mod, self.names = mod, names
+        self.seconds = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+        self.orig = {n: getattr(self.mod, n) for n in self.names}
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name].append(time.perf_counter() - t)
+                return out
+            return call
+
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, timed(n, fn))
+        return self.seconds
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+
+def _flip_a_byte(path: Path) -> None:
+    """XOR one byte in the middle of ``path`` with 0xFF, in place."""
+    with open(path, "r+b") as f:
+        f.seek(path.stat().st_size // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def train_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 12: the trainer.  12a every arch at smoke_config, train steps
+    on the card against the CPU, two microbatches, the PuM relu MLP on K3
+    (every K3 launch of the counted steps has its twin through the plain
+    circuit) and the compressed gradient transform; 12b internvl2-1b at
+    full width through ``launch.train.train``, checkpointed, moved and
+    resumed bit for bit.  Returns the training path's launch counts."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.compression import compressed_grad_transform
+    from repro_torch.train.train_loop import make_train_step
+
+    card = record["card"]
+    out = record["train"] = {}
+    total = {k: 0 for k in build.LAUNCHES}
+    t_phase = time.perf_counter()
+
+    # -- 12a: every arch at smoke_config, card against CPU ---------------
+    phase("12a")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "12a: TF32 is on for float32 products")
+    smoke = {}
+    for arch in sorted(ARCHS):
+        smoke[arch] = _train_card_vs_cpu(
+            dev, smoke_config(arch).replace(param_dtype="float32"))
+    yi = smoke_config(LM_ARCH).replace(param_dtype="float32")
+    smoke[f"{LM_ARCH} 2 microbatches"] = _train_card_vs_cpu(dev, yi, 2)
+    # tests/test_system.py::test_pum_offload_inside_lm's configuration:
+    # the MLP's relu a bbop on K3, in every forward and every recompute
+    pum = smoke_config("seamless-m4t-medium").replace(
+        act="relu", pum="bitplane", pum_bits=8, param_dtype="float32")
+    build.reset_launches()
+    smoke["seamless-m4t-medium pum"] = _train_card_vs_cpu(dev, pum)
+    counts_a = dict(build.LAUNCHES)
+    check(counts_a["circuit"] > 0 and all(
+        v == 0 for k, v in counts_a.items() if k != "circuit"),
+        f"12a: the PuM MLP's train steps launched {counts_a}, expected K3 "
+        f"launches and nothing else")
+    with _Twins() as tw:
+        _train_card_vs_cpu(dev, pum)
+    errs_k3 = tw.errs["circuit"]
+    check(len(errs_k3) == counts_a["circuit"] and max(errs_k3, default=0) == 0,
+          f"12a: {len(errs_k3)} K3 twins for {counts_a['circuit']} "
+          f"launches, errors {errs_k3}")
+    for k, v in counts_a.items():
+        total[k] += v
+    _agree(kern["circuit"]["agreement"], "train", counts_a["circuit"],
+           errs_k3)
+    grads = _grad_tree(yi)
+    rng = np.random.default_rng(2)
+    res = tree_map(lambda g: torch.from_numpy(
+        1e-3 * rng.standard_normal(tuple(g.shape)).astype(np.float32)), grads)
+    want = compressed_grad_transform(res)(grads)
+    got = compressed_grad_transform(tree_map(lambda t: t.to(dev), res))(
+        tree_map(lambda t: t.to(dev), grads))
+    n_comp = 0
+    for g, w in zip(flatten(got), flatten(want)):
+        check(torch.equal(g.cpu(), w), "12a: compressed_grad_transform on "
+              "the card differs from the CPU's")
+        n_comp += w.numel()
+    worst = {name: max(e.values()) for name, e in smoke.items()}
+    out["12a"] = {"max_abs_err": smoke, "k3_launches": counts_a["circuit"],
+                  "compressed_values": n_comp,
+                  "tolerance": f"rtol = atol = {LM_TOL}; "
+                               f"compressed_grad_transform =="}
+    print(f"[12a] {len(ARCHS)} archs at smoke_config (float32), yi-6b in "
+          f"2 microbatches and the PuM relu MLP: {TRAIN_SMOKE_STEPS} train "
+          f"steps on the card == CPU within rtol = atol = {LM_TOL} (loss, "
+          f"aux, grad norm, every parameter); largest differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; the PuM steps made {counts_a['circuit']} K3 launches, each "
+          f"equal to the plain circuit; compressed_grad_transform == over "
+          f"{n_comp:,} gradient values; {card}", flush=True)
+
+    # -- 12b: internvl2-1b at full width, checkpointed and resumed -----------
+    phase("12b")
+    t_b = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    root = ROOT / "build" / "train_ckpt"
+    a, b = root / "A", root / "B"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    disk = shutil.disk_usage(root)
+    print(f"[12b] {disk.free / 1e9:.1f} GB free on the disk of {root}",
+          flush=True)
+    kw = dict(arch=TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+              seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+              n_microbatches=TRAIN_MICRO, ckpt_every=TRAIN_CKPT_EVERY,
+              device=dev)
+    import torch.utils.deterministic as deterministic
+    fill = deterministic.fill_uninitialized_memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # under deterministic algorithms (and the fixed cuBLAS workspace
+        # main() sets) the resumed run must repeat the first bit for bit
+        torch.use_deterministic_algorithms(True)
+        deterministic.fill_uninitialized_memory = False
+        with _Timed(ckpt, "save", "restore") as io_s:
+            ra = train(ckpt_dir=str(a), **kw)
+            check(ckpt.latest_step(str(a)) == TRAIN_STEPS
+                  and ckpt.latest_step(str(a) + "_opt") == TRAIN_STEPS,
+                  f"12b: run A's checkpoints end at step "
+                  f"{ckpt.latest_step(str(a))}, expected {TRAIN_STEPS}")
+            for suffix in ("", "_opt"):
+                (root / f"B{suffix}").mkdir()
+                shutil.move(root / f"A{suffix}" / f"step_{TRAIN_CKPT_EVERY:08d}",
+                            root / f"B{suffix}" / f"step_{TRAIN_CKPT_EVERY:08d}")
+                shutil.rmtree(root / f"A{suffix}")
+            rb = train(ckpt_dir=str(b), **kw)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    # param_count() counts the published vocabulary and no modality stub:
+    # add the embedding's and readout's padded rows and the vision stub's
+    # projection
+    n_params = sum(t.numel() for t in flatten(ra["params"]))
+    unpublished = ((cfg.vocab_padded - cfg.vocab_size) * cfg.d_model
+                   * (1 if cfg.tie_embeddings else 2)
+                   + (cfg.d_model ** 2 if cfg.frontend else 0))
+    check(n_params == cfg.param_count() + unpublished,
+          f"12b: {n_params} parameters, param_count() {cfg.param_count()} "
+          f"+ {unpublished} of padded vocabulary and the vision stub")
+    check(all(np.isfinite(r["loss"]) for r in ra["logs"] + rb["logs"]),
+          f"12b: a loss is not finite: {[r['loss'] for r in ra['logs']]}, "
+          f"{[r['loss'] for r in rb['logs']]}")
+    resumed = [r["step"] for r in rb["logs"]]
+    check(resumed == list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)),
+          f"12b: the run from B's checkpoints logged steps {resumed}")
+    pairs = list(zip(rb["logs"], ra["logs"][TRAIN_CKPT_EVERY:]))
+    check(all((x["loss"], x["grad_norm"]) == (y["loss"], y["grad_norm"])
+              for x, y in pairs),
+          f"12b: resumed losses and grad norms "
+          f"{[(x['loss'], x['grad_norm']) for x, _ in pairs]} != run A's "
+          f"{[(y['loss'], y['grad_norm']) for _, y in pairs]}")
+    leaves_a, leaves_b = flatten(ra["params"]), flatten(rb["params"])
+    differ = [i for i, (x, y) in enumerate(zip(leaves_b, leaves_a))
+              if not torch.equal(x, y)]
+    check(not differ, f"12b: the resumed run's final parameter leaves "
+          f"{differ} differ from run A's")
+    # the step's FLOPs: every weight product (the blocks' over every
+    # position, the readout over the text, the vision stub's projection
+    # over the patches) and attention's two batched products, forward
+    # and twice that backward
+    positions = TRAIN_BATCH * (cfg.frontend_seq + TRAIN_SEQ)
+    text = TRAIN_BATCH * TRAIN_SEQ
+    over = {"blocks": positions, "out": text,
+            "frontend_proj": TRAIN_BATCH * cfg.frontend_seq}
+    mm = sum(t.numel() * over[path.split(".")[0]]
+             for path, t in _matmul_weights(ra["params"]))
+    attn = (cfg.n_layers * 4 * TRAIN_BATCH * cfg.n_heads
+            * (cfg.frontend_seq + TRAIN_SEQ) ** 2 * cfg.hd)
+    flops = 3 * (2 * mm + attn)
+    step_bound = bound(0, flops, BF16_FLOPS_PER_S)
+    # AdamW reads the bf16 params, the fp32 gradients (summed over the
+    # microbatches) and both moments and writes the params and moments
+    opt_bytes = n_params * (2 + 4 + 8 + 2 + 8)
+    del ra["params"], leaves_a
+    # a flipped byte in a saved shard must make restore raise
+    _flip_a_byte(b / f"step_{TRAIN_STEPS:08d}" / "shard_0.npz")
+    try:
+        ckpt.restore(str(b), TRAIN_STEPS, rb["params"], device=dev)
+    except Exception as e:          # noqa: BLE001 -- any refusal will do
+        refused = f"{type(e).__name__}: {e}"
+    else:
+        refused = None
+    check(refused is not None, "12b: restore read a shard with a flipped "
+          "byte without complaint")
+    ckpt_bytes = {d.name: sum(f.stat().st_size for f in d.rglob("*")
+                              if f.is_file()) for d in root.iterdir()}
+    shutil.rmtree(root, ignore_errors=True)
+    # one more step of B's model, profiled: the card's idle share
+    step_fn = make_train_step(cfg, opt.AdamWConfig(
+        lr=3e-4, warmup_steps=max(2, TRAIN_STEPS // 10),
+        total_steps=TRAIN_STEPS), n_microbatches=TRAIN_MICRO)
+    batch = _train_batches(cfg, dev, 1, (TRAIN_SEQ, TRAIN_BATCH, 0))[0]
+    held = list(step_fn(rb["params"], opt.init(rb["params"]), batch)[:2])
+    del rb["params"], leaves_b
+
+    def one_step():
+        held[:] = step_fn(held[0], held[1], batch)[:2]
+
+    prof = device_breakdown(one_step)
+    del held, batch
+    torch.cuda.empty_cache()
+
+    steps_s = [r["sec"] for r in ra["logs"] + rb["logs"]]
+    step_s = float(np.median(steps_s[1:]))
+    save_s, restore_s = io_s["save"], io_s["restore"]
+    out["12b"] = {
+        "params": n_params, "param_count": cfg.param_count(),
+        "losses": [r["loss"] for r in ra["logs"]],
+        "resumed_losses": [r["loss"] for r in rb["logs"]],
+        "grad_norms": [r["grad_norm"] for r in ra["logs"]],
+        "step_s": steps_s, "step_s_median": step_s,
+        "positions_per_step": positions, "text_tokens_per_step": text,
+        "positions_per_s": positions / step_s,
+        "text_tokens_per_s": text / step_s,
+        "save_s": save_s, "restore_s": restore_s,
+        "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": disk.free,
+        "corrupt_restore_refused": refused,
+        "max_memory_allocated": peak, "step_flops": flops,
+        "step_bound_ms": step_bound[0], "optimizer_bytes": opt_bytes,
+        "optimizer_bound_ms": bound(opt_bytes, 0)[0],
+        "profiled_step": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                               "idle_share", "device_ms")}}
+    print(f"[12b] {TRAIN_ARCH} at full width ({n_params:,} parameters: "
+          f"param_count() {cfg.param_count():,} + {unpublished:,} of padded "
+          f"vocabulary and the vision stub; bf16, fp32 moments): "
+          f"{TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x ({cfg.frontend_seq} + {TRAIN_SEQ}) positions "
+          f"in {TRAIN_MICRO} microbatches, losses "
+          + fmt_list([r["loss"] for r in ra["logs"]])
+          + f", all finite; its step-{TRAIN_CKPT_EVERY} checkpoints, moved "
+          f"to another directory, resumed the same call at step "
+          f"{resumed[0]} and, under deterministic algorithms, steps "
+          f"{resumed[0]}-{resumed[-1]}'s losses and grad norms and the "
+          f"final parameters == the uninterrupted run's, bit for bit; a "
+          f"flipped byte in a shard was refused ({refused.split(':')[0]}); "
+          f"{card}", flush=True)
+    print(f"[12b] step {step_s * 1e3:.1f} ms median (host clock, steps 2-"
+          f"{TRAIN_STEPS} and the resumed 3; the first "
+          f"{steps_s[0] * 1e3:.1f} ms), {positions / step_s:,.0f} positions/s"
+          f" ({text / step_s:,.0f} text tokens/s); FLOP bound "
+          f"{step_bound[0]:.1f} ms ({flops / 1e12:.2f} TFLOP over "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16), AdamW's "
+          f"bytes bound {bound(opt_bytes, 0)[0]:.2f} ms ({opt_bytes / 1e9:.1f}"
+          f" GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); saves "
+          + fmt_list(save_s) + " s, restores " + fmt_list(restore_s)
+          + f" s ({json.dumps({k: round(v / 1e9, 3) for k, v in ckpt_bytes.items()})}"
+          f" GB on disk at the end); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; {card}", flush=True)
+    print(f"[12b] one profiled step: wall {prof['wall_ms']:.1f} ms, card "
+          f"busy {prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.4f}; top device ms "
+          + json.dumps(dict(list(prof["device_ms"].items())[:8]))
+          + f"; {card}", flush=True)
+
+    kern["circuit"]["train"] = {"launches": counts_a["circuit"]}
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    out["part_seconds"] = {"12a": t_b - t_phase, "12b": t_end - t_b}
+    print(f"[12] training path: launches {total}; phase 12 took "
           f"{out['seconds']:.1f} s ({json.dumps(out['part_seconds'])})",
           flush=True)
     return total

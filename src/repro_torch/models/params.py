@@ -43,6 +43,45 @@ def layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def unstack(tree) -> list:
+    """Every layer of a stacked tree, each a tree of views: one ``unbind``
+    a leaf, so that a backward through all of them is one ``stack`` a
+    leaf (a ``t[i]`` view's backward writes a zero tensor of the whole
+    leaf, once a layer)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(next(tree_leaves(parts)))
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
+def flatten(tree) -> list:
+    """The leaves in ``jax.tree.flatten``'s order: dict keys sorted,
+    tuples (an ``OptState``) in field order.  Checkpoints number their
+    leaves in this order, as the reference's do."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in flatten(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in flatten(v)]
+    return [tree]
+
+
+def unflatten(like, leaves):
+    """``like``'s structure (key order, tuple types) with :func:`flatten`'s
+    leaves put back in their places."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            got = {k: build(node[k]) for k in sorted(node)}
+            return {k: got[k] for k in node}
+        if isinstance(node, tuple):
+            vals = [build(v) for v in node]
+            return type(node)(*vals) if hasattr(node, "_fields") else \
+                tuple(vals)
+        return next(it)
+
+    return build(like)
+
+
 def to_tensor(a, device) -> torch.Tensor:
     """A numpy leaf as a tensor on ``device`` with its dtype kept; a
     bfloat16 array (``ml_dtypes``) goes through its uint16 bits."""
@@ -65,9 +104,10 @@ def params_from_numpy(tree, device="cuda"):
 
 class LM(nn.Module):
     """A param tree as a module: floating leaves are parameters (with no
-    gradient: the port serves, it does not train), integer leaves (int8
-    weights) buffers, sub-dicts child modules.  :meth:`tree` gives the
-    dict back, on whatever device the module was moved to."""
+    gradient: training takes the tree itself, see
+    :mod:`repro_torch.train.train_loop`), integer leaves (int8 weights)
+    buffers, sub-dicts child modules.  :meth:`tree` gives the dict back,
+    on whatever device the module was moved to."""
 
     def __init__(self, tree: Mapping):
         super().__init__()

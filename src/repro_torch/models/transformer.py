@@ -5,7 +5,12 @@ A model = embeddings + a stack of homogeneous blocks + final norm
 (+ optional encoder stack for enc-dec, + modality-stub inputs for VLM /
 audio).  Layer params are stacked on a leading axis, as in the
 reference; where it runs ``lax.scan`` over that axis, the port loops
-over it (``remat`` and ``unroll`` are accepted and change nothing).
+over it (``unroll`` is accepted and changes nothing).  ``remat`` is the
+reference's rematerialization policy for a block when a backward will
+run: ``"full"`` checkpoints each block, ``"dots"`` saves only its
+unbatched weight products (``aten.mm``/``addmm``, what
+``dots_with_no_batch_dims_saveable`` saves) and recomputes the rest,
+attention's batched einsums included; anything else saves everything.
 
 Families:
   dense   : GQA attention + (Sw)GLU MLP            (granite/yi/qwen/phi3)
@@ -18,9 +23,12 @@ Families:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.build import resolve_device
 from .attention import attention, attn_init, init_cache
@@ -28,7 +36,7 @@ from .config import ModelConfig
 from .layers import (Params, _dtype, dense, dense_init, embed, embedding_init,
                      mlp, mlp_init, mlp_pum, rmsnorm, rmsnorm_init, unembed)
 from .moe import moe_forward, moe_forward_ep, moe_forward_grouped, moe_init
-from .params import layer, tree_leaves, tree_map
+from .params import layer, tree_leaves, tree_map, unstack
 from .ssm import init_ssm_cache, ssm_forward, ssm_init
 
 
@@ -178,14 +186,35 @@ def _n_layers(blocks: Params) -> int:
     return next(tree_leaves(blocks)).shape[0]
 
 
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _scan_blocks(blocks: Params, x, positions, cfg, *, memory=None,
-                 causal=True):
+                 causal=True, remat: str = "dots"):
     """The block stack over the full sequence (train/prefill; no cache):
-    a loop over the stacked layer axis."""
+    a loop over the layers of the stacked tree, each block under
+    ``remat`` when autograd records."""
+
+    def body(h, lp):
+        h, _, a = block_forward(lp, h, positions, cfg, memory=memory,
+                                causal=causal)
+        return h, a
+
+    if torch.is_grad_enabled() and remat == "full":
+        body = functools.partial(checkpoint, body, use_reentrant=False)
+    elif torch.is_grad_enabled() and remat == "dots":
+        body = functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_products))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_n_layers(blocks)):
-        x, _, a = block_forward(layer(blocks, i), x, positions, cfg,
-                                memory=memory, causal=causal)
+    for lp in unstack(blocks):
+        x, a = body(x, lp)
         aux = aux + a
     return x, aux
 
@@ -217,7 +246,7 @@ def lm_forward(
         fpos = torch.arange(ef.shape[1], dtype=torch.int32,
                             device=dev)[None].expand(*ef.shape[:2])
         memory, _ = _scan_blocks(params["enc_blocks"], ef, fpos, cfg,
-                                 causal=False)
+                                 causal=False, remat=remat)
         memory = rmsnorm(params["enc_ln_f"], memory, cfg.norm_eps)
 
     if vision_embeds is not None:
@@ -228,7 +257,8 @@ def lm_forward(
             [torch.arange(vp, dtype=torch.int32, device=dev)[None].expand(
                 b, vp), positions + vp], dim=1)
 
-    x, aux = _scan_blocks(params["blocks"], x, positions, cfg, memory=memory)
+    x, aux = _scan_blocks(params["blocks"], x, positions, cfg, memory=memory,
+                          remat=remat)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if vision_embeds is not None:
         x = x[:, vision_embeds.shape[1]:, :]

@@ -1,7 +1,11 @@
-"""The serving path (:mod:`repro_torch.train.serve`).
+"""Training and serving substrate (counterpart of :mod:`repro.train`):
+the optimizer (``optimizer``), the train step (``train_loop``), synthetic
+data (``data``), checkpoints (``checkpoint``), gradient compression
+(``compression``), fault tolerance (``fault_tolerance``) and the serving
+path (``serve``)."""
 
-Counterpart of part of ``repro.train``: ``make_prefill``,
-``make_serve_step``, ``Request``, the LM ``Server``, the host oracle and
-the quantized logit offload.  The training loop, optimizer, data,
-checkpointing, compression and fault tolerance are not ported yet.
-"""
+from . import (checkpoint, compression, data, fault_tolerance, optimizer,
+               train_loop)
+
+__all__ = ["checkpoint", "compression", "data", "fault_tolerance",
+           "optimizer", "train_loop"]

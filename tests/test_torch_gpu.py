@@ -955,3 +955,140 @@ def test_lm_server_on_card_with_offload(cuda):
     assert fed.keys() == want_stats.keys()
     for k, v in want_stats.items():
         assert np.array_equal(np.asarray(fed[k]), np.asarray(v)), k
+
+
+# -- training -------------------------------------------------------------------
+
+TRAIN_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _train_steps(cfg, device, params, steps=2, n_microbatches=1):
+    """``steps`` train steps on ``synth_batch``es on ``device``: the final
+    params and each step's metrics (eps 1e-3: see
+    tests/test_torch_train_step.py)."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.train_loop import make_train_step
+    step = make_train_step(cfg, opt.AdamWConfig(**TRAIN_OPT),
+                           n_microbatches=n_microbatches)
+    state, metrics = opt.init(params), []
+    for s in range(steps):
+        b = {k: torch.from_numpy(v).to(device) for k, v in synth_batch(
+            cfg, DataConfig(16, 4, 0), s).items()}
+        params, state, m = step(params, state, b)
+        metrics.append(m)
+    return params, metrics
+
+
+@pytest.mark.parametrize("n_microbatches", [1, 2])
+@pytest.mark.parametrize("arch", _smoke_arch_names())
+def test_train_step_on_card_equals_cpu(cuda, arch, n_microbatches):
+    """Every arch at smoke_config (float32): two train steps on the card,
+    their losses, grad norms and final params within 1e-3 of the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.params import flatten
+    from repro_torch.models.transformer import init_lm
+    cfg = smoke_config(arch).replace(param_dtype="float32")
+    params = init_lm(cfg, device="cpu")
+    want_p, want_m = _train_steps(cfg, "cpu", params,
+                                  n_microbatches=n_microbatches)
+    got_p, got_m = _train_steps(cfg, cuda, _on(params, cuda),
+                                n_microbatches=n_microbatches)
+    for g, w in zip(got_m, want_m):
+        for k in ("loss", "aux", "grad_norm", "lr"):
+            torch.testing.assert_close(g[k].cpu(), w[k], rtol=LM_TOL,
+                                       atol=LM_TOL)
+    for g, w in zip(flatten(got_p), flatten(want_p)):
+        torch.testing.assert_close(g.cpu(), w, rtol=LM_TOL, atol=LM_TOL)
+
+
+def test_pum_train_step_on_card_launches_k3(cuda):
+    """The PuM relu MLP trains on the card through K3 (forward and
+    recompute), ``up`` moves by decay alone, and the params equal the
+    CPU's within 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.params import flatten
+    from repro_torch.models.transformer import init_lm
+    cfg = smoke_config("seamless-m4t-medium").replace(
+        act="relu", pum="bitplane", pum_bits=8, param_dtype="float32")
+    params = init_lm(cfg, device="cpu")
+    want, _ = _train_steps(cfg, "cpu", params)
+    build.reset_launches()
+    got, _ = _train_steps(cfg, cuda, _on(params, cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["circuit"] >= 2 * (cfg.n_layers
+                                             + cfg.n_encoder_layers)
+    for g, w in zip(flatten(got), flatten(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=LM_TOL, atol=LM_TOL)
+    assert torch.equal(got["blocks"]["mlp"]["up"]["w"].cpu(),
+                       want["blocks"]["mlp"]["up"]["w"])
+
+
+def test_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    """A card tree (bf16, fp32 and an OptState) saved and restored onto
+    the card ``==``; a flipped byte makes restore raise."""
+    from repro_torch.models.params import flatten
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    tree = {"w": torch.randn(64, 300, device=cuda).to(torch.bfloat16),
+            "b": {"g": torch.randn(4096, device=cuda)}}
+    state = opt.init(tree)
+    d = str(tmp_path / "ck")
+    ckpt.save(d, 2, {"p": tree, "s": state})
+    back = ckpt.restore(d, 2, {"p": tree, "s": state}, device=cuda)
+    assert isinstance(back["s"], opt.OptState)
+    for a, b in zip(flatten({"p": tree, "s": state}), flatten(back)):
+        assert b.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    shard = tmp_path / "ck" / "step_00000002" / "shard_0.npz"
+    data = bytearray(shard.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    shard.write_bytes(bytes(data))
+    with pytest.raises(Exception):
+        ckpt.restore(d, 2, {"p": tree, "s": state}, device=cuda)
+
+
+def test_compressed_grad_transform_on_card_equals_cpu(cuda):
+    from repro_torch.models.params import flatten
+    from repro_torch.train.compression import compressed_grad_transform
+    rng = np.random.default_rng(0)
+    grads = {"a": torch.from_numpy(rng.normal(size=(33, 70)).astype(
+        np.float32)), "b": torch.from_numpy(rng.normal(size=513).astype(
+            np.float32))}
+    res = {k: 1e-3 * torch.ones_like(v) for k, v in grads.items()}
+    want = compressed_grad_transform(res)(grads)
+    got = compressed_grad_transform(_on(res, cuda))(_on(grads, cuda))
+    for g, w in zip(flatten(got), flatten(want)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_resumed_training_on_card_is_exact(cuda, tmp_path, monkeypatch):
+    """launch.train on the card: a run's step-2 checkpoints, moved to a
+    new directory, resume it bit for bit under deterministic algorithms."""
+    import shutil
+
+    import torch.utils.deterministic as deterministic
+
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import flatten
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    a, b = tmp_path / "A", tmp_path / "B"
+    kw = dict(arch="internvl2-1b", steps=4, seq_len=32, batch=4,
+              n_microbatches=2, ckpt_every=2, device=cuda)
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        ra = train(ckpt_dir=str(a), **kw)
+        for suffix in ("", "_opt"):
+            shutil.copytree(f"{a}{suffix}/step_00000002",
+                            f"{b}{suffix}/step_00000002")
+        rb = train(ckpt_dir=str(b), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    assert [r["step"] for r in rb["logs"]] == [3, 4]
+    assert [r["loss"] for r in rb["logs"]] == [r["loss"] for r in
+                                               ra["logs"][2:]]
+    for x, y in zip(flatten(rb["params"]), flatten(ra["params"])):
+        assert torch.equal(x, y)

@@ -66,9 +66,10 @@ def _entry_points():
     from repro_torch.configs import smoke_config
     from repro_torch.distributed import pum
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import train
     from repro_torch.models.params import params_from_numpy
     from repro_torch.models.transformer import init_caches, init_lm
-    from repro_torch.train import serve
+    from repro_torch.train import checkpoint, serve
 
     x = np.arange(64, dtype=np.int64)
     state = np.zeros((16, 2), np.uint32)
@@ -120,6 +121,9 @@ def _entry_points():
             smoke_config("yi-6b"),
             {"embed": {"emb": torch.zeros(4, 4)}}),
         "PumServeOffload": lambda: serve.PumServeOffload(),
+        "launch.train.train": lambda: train(steps=1),
+        "checkpoint.restore": lambda: checkpoint.restore(
+            "no-such-dir", 1, {"w": torch.zeros(2)}),
     }
 
 
