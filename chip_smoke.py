@@ -25,6 +25,8 @@ Chrome trace goes to ``--trace`` (default
      widths, with each op's times as in phase 2 and its program's gates,
      levels, slots and warps (the ``bitplane`` call's K3 launch repeats
      addition/8's at its shape, so 19 comparisons cover 20 launches);
+     K3's outputs also equal ``kernels.ref.elementwise_circuit_ref``
+     (the eager ``bitplane`` backend on the CPU), lane for lane;
   4. the slice: ``SimdramDevice(backend="bank").dispatch`` of the mix and
      chain queues of ``benchmarks/bank_scaling.py`` at 65,536 lanes per
      instruction, checked against the numpy oracle, with 5 K5 launches;
@@ -180,6 +182,30 @@ Chrome trace goes to ``--trace`` (default
      ``max_memory_allocated``, the step's FLOP bound and AdamW's bytes
      bound, and the idle share of one profiled step (the ``train`` path
      of K3);
+ 13. launch and distributed (``launch/``, ``distributed/``), run after
+     phase 12, once its model is released, and before the kernels line:
+     (13a) ``launch.dryrun.lower_cell`` of internvl2-1b x decode_32k on
+     the 2 x 16 x 16 mesh, traced on meta: per-device argument bytes
+     ``==`` ``DRYRUN_ARGUMENT_BYTES``, FLOPs per device, and the cell's
+     footprint on ``make_host_mesh()`` (1 x 1) against the card's memory;
+     (13b) that cell whole on the card: params from a seeded generator
+     placed by ``param_shardings(..., "serve")``, 24 x {k, v} x (128,
+     32,768, 2, 64) bf16 caches filled with seeded normals, positions
+     drawn in [0, 32,768), one ``make_serve_step`` step under the host
+     mesh (its 96 ``hint_kv`` calls recorded); rows ``DIST_ROWS`` against
+     a CPU run of the same rows from the caches as they were, logits and
+     the written k/v slots within ``DECODE_REL`` of each row's
+     max|value|, and every row's position off by one must read more; the
+     step's time against its bytes bound (the cache slots up to each
+     row's position), ``max_memory_allocated`` (at
+     least the dry run's argument bytes) and one profiled step; (13c)
+     ``gpipe`` of the arch's 24 blocks in float32 over ``DIST_STAGES``
+     stages against the sequential loop, output and the grads of
+     sum(h**2) within ``PIPE_TOL``; (13d) over a one-rank NCCL group,
+     ``async_allreduce_scan`` of smoke yi-6b's gradients over 4
+     microbatches ``==`` plain accumulation and ``pod_psum_compressed``
+     (``x`` itself without a pod axis, ``== compressed_psum`` with pod =
+     1).  Phase 13 launches none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -369,6 +395,37 @@ TRAIN_BATCH = 8
 TRAIN_MICRO = 2
 TRAIN_CKPT_EVERY = 3
 
+# launch and distributed (phase 13).  13a: the reference's dry-run cell,
+# DIST_ARCH x DIST_SHAPE on the 2 x 16 x 16 mesh, traced on meta; its
+# per-device argument bytes are DRYRUN_ARGUMENT_BYTES (the sum over the
+# reference's specs, which tests/test_torch_dryrun.py holds on the CPU).
+# 13b: the same cell whole on the card (batch 128 against a 32,768-slot
+# bf16 cache, every layer), one make_serve_step step; rows DIST_ROWS
+# against a CPU run of the same rows, logits and written k/v slots within
+# DECODE_REL of each row's max|value|, and a planted fault (each row's
+# position off by one) must read more.  13c: gpipe over DIST_STAGES
+# stages of the arch's 24 blocks in float32 (no TF32), PIPE_BATCH x
+# PIPE_SEQ positions in PIPE_MICRO microbatches, forward and the grads of
+# sum(h**2) within PIPE_TOL of the sequential block loop: err <= PIPE_TOL
+# (|want| + max|want|) elementwise, max|want| over the tensor.  13d:
+# async_allreduce_scan and pod_psum_compressed over a one-rank NCCL group.
+# DECODE_REL lies between what bf16 through 24 random layers reads and
+# what the fault reads: over 6 seeds x 8 rows on an H100
+# (experiments/decode32k_tolerance.py) the card's rows sit at most
+# 4.82e-2 of max|value| from the CPU's bf16 run (5.11e-2 from a float32
+# one), and a position off by one reads 0.402 or more
+DIST_ARCH = "internvl2-1b"
+DIST_SHAPE = "decode_32k"
+DRYRUN_ARGUMENT_BYTES = 119_685_856
+DIST_ROWS = (0, 1, 127)
+DIST_SEED = 13
+DECODE_REL = 1e-1
+DIST_STAGES = 4
+PIPE_MICRO = 4
+PIPE_BATCH = 8
+PIPE_SEQ = 512
+PIPE_TOL = 1e-3
+
 TRANSPOSE_WIDTHS = (8, 16, 32)
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
 FAST_PATH = [(op, 8) for op in (
@@ -391,10 +448,25 @@ PROFILER_MISSES: list = []
 
 # the phase that is running, named in every failed check's message
 PHASE = ["0"]
+# wall seconds spent in each numbered phase, its lettered parts included
+PHASE_WALL: dict = {}
+_PHASE_SINCE: list = [None, 0.0]
 
 
 def phase(label: str) -> None:
     PHASE[0] = label
+    top = label.rstrip("abcdefghijklmnopqrstuvwxyz")
+    if top != _PHASE_SINCE[0]:
+        stop_phase_clock()
+        _PHASE_SINCE[:] = [top, time.perf_counter()]
+
+
+def stop_phase_clock() -> None:
+    top, since = _PHASE_SINCE
+    if top is not None:
+        PHASE_WALL[top] = PHASE_WALL.get(top, 0.0) + (
+            time.perf_counter() - since)
+        _PHASE_SINCE[0] = None
 
 
 def check(cond: bool, what: str) -> None:
@@ -648,6 +720,7 @@ def run(trace_path: str) -> dict:
     from repro_torch.kernels.bitplane_ops import (circuit_on_planes,
                                                   circuit_plain, slot_program)
     from repro_torch.kernels.ops import h2v
+    from repro_torch.kernels.ref import elementwise_circuit_ref
     from repro_torch.kernels.transpose_kernel import (h2v_cuda, h2v_plain,
                                                       v2h_cuda, v2h_plain)
     import popmma_probe
@@ -790,11 +863,18 @@ def run(trace_path: str) -> dict:
         err = max_abs_err(out, circuit_plain(circ, ids, ops_planes))
         check(err == 0, f"K3 {op}/{w} disagrees with the plain circuit")
         errs_k3.append(err)
+        # and against K3's oracle, the eager bitplane backend on the CPU
+        oracle = elementwise_circuit_ref(op, w, *inputs[(op, w)])
+        oracle = oracle if isinstance(oracle, tuple) else (oracle,)
+        ends = np.cumsum(spec.out_bits)
+        check(all(torch.equal(v2h_plain(out[hi - ow:hi].contiguous()).cpu(),
+                              want_lanes)
+                  for hi, ow, want_lanes in zip(ends, spec.out_bits, oracle)),
+              f"K3 {op}/{w} disagrees with elementwise_circuit_ref")
         # the fast path's transposes at this op's widths: K1 on each
         # operand, K2 (unsigned and signed) on each output
         errs_t["h2v"] += [max_abs_err(pl, h2v_plain(t, b)) for pl, t, b in
                           zip(ops_planes, vals_t, spec.operand_bits)]
-        ends = np.cumsum(spec.out_bits)
         check(ends[-1] == out.shape[0], f"{op}/{w}: {out.shape[0]} output "
               f"planes for widths {spec.out_bits}")
         for lo, hi in zip(ends - spec.out_bits, ends):
@@ -849,7 +929,8 @@ def run(trace_path: str) -> dict:
         _agree(kern[name]["agreement"], "fast", counts_fast[name], errs)
     k3["agreement"] = {}
     _agree(k3["agreement"], "fast", counts_fast["circuit"], errs_k3)
-    print(f"[3] K3 vs plain circuit on the card: bit-exact for "
+    print(f"[3] K3 vs plain circuit on the card and vs "
+          f"elementwise_circuit_ref on the CPU: bit-exact for "
           f"{len(FAST_PATH)} ops; kernel total {k3['kernel_ms']:.4f} ms "
           f"(profiler), wrapper {k3['ms']:.3f} ms, bound "
           f"{k3_bound_ms:.4f} ms")
@@ -996,6 +1077,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("12")
     phase("12")
     counts_train = train_phase(dev, record, kern)
+    release_device_memory("13")
+    phase("13")
+    distributed_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -4027,6 +4111,359 @@ def train_phase(dev, record: dict, kern: dict) -> dict:
     return total
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rel_rows(got, want):
+    """Per row (leading axis) max|got - want| / max|want|, on the host."""
+    g = got.float().cpu().reshape(got.shape[0], -1)
+    w = want.float().cpu().reshape(want.shape[0], -1)
+    return ((g - w).abs().amax(-1) / w.abs().amax(-1)).numpy()
+
+
+def decode_cell(dev, mesh, seed: int, rows, fp32: bool = False) -> dict:
+    """The dry run's cell (DIST_ARCH x DIST_SHAPE) whole on the card, made
+    from ``seed``: params placed by the serve policy on ``mesh``, caches
+    filled in place with normal bf16 values, tokens and positions (in
+    [0, seq_len)) drawn; one ``make_serve_step`` step under ``mesh``.
+    ``rows`` are held against a CPU run of the same rows from the caches
+    as they were: ``rel`` has, per row, max|card - CPU| / max|CPU| of the
+    logits and of the written k and v slots of every layer, and
+    ``rel_fault`` that of the logits against the CPU run with every row's
+    position one later.  With ``fp32`` the CPU run is also made in float32
+    from the same values (``rel_fp32``), to read bf16's own error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.config import SHAPES_BY_NAME
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.transformer import init_caches, init_lm
+    from repro_torch.train.serve import make_serve_step
+
+    cfg = get_config(DIST_ARCH)
+    shape = SHAPES_BY_NAME[DIST_SHAPE]
+    b, s = shape.global_batch, shape.seq_len
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_lm(cfg, generator=gen, device=dev)
+    params = shd.place(params, shd.param_shardings(params, mesh, "serve"))
+    caches = init_caches(cfg, b, s, device=dev)
+    for t in tree_leaves(caches):
+        t.normal_(generator=gen)
+    tok = torch.randint(cfg.vocab_size, (b,), generator=gen, device=dev)
+    pos = torch.randint(s, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx = torch.tensor(rows, device=dev)
+    before = tree_map(lambda t: t[:, idx].cpu(), caches)
+    step = make_serve_step(cfg)
+    with mesh:
+        logits, _ = step(params, caches, tok, pos)
+    torch.cuda.synchronize()
+    got_logits = logits[idx].cpu()
+    pos_rows = pos[idx].cpu()
+    tok_rows = tok[idx].cpu()
+    # each row's written k/v slot in every layer, (rows, L, G, hd)
+    got_kv = {k: caches["attn"][k][:, idx, pos[idx].long()].transpose(
+        0, 1).cpu() for k in ("k", "v")}
+    at = torch.arange(len(rows))
+
+    def cpu_rows(c, p, positions, ccfg):
+        lg, c = make_serve_step(ccfg)(p, c, tok_rows, positions)
+        return lg, {k: c["attn"][k][:, at, positions.long()].transpose(0, 1)
+                    for k in ("k", "v")}
+
+    def rel_to(want_logits, want_kv):
+        out = {"logits": _rel_rows(got_logits, want_logits)}
+        out.update({k: _rel_rows(got_kv[k], want_kv[k]) for k in got_kv})
+        return out
+
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    want = cpu_rows(tree_map(torch.clone, before), params_cpu, pos_rows, cfg)
+    cpu_s = time.perf_counter() - t0
+    res = {"params": params, "caches": caches, "tok": tok, "pos": pos,
+           "step": step, "logits_shape": tuple(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "pos_rows": pos_rows, "rel": rel_to(*want), "cpu_s": cpu_s}
+    bad = cpu_rows(tree_map(torch.clone, before), params_cpu,
+                   (pos_rows + 1) % s, cfg)
+    res["rel_fault"] = _rel_rows(got_logits, bad[0])
+    if fp32:
+        f32 = lambda t: t.float()                             # noqa: E731
+        res["rel_fp32"] = rel_to(*cpu_rows(
+            tree_map(f32, before), tree_map(f32, params_cpu), pos_rows,
+            cfg.replace(param_dtype="float32")))
+    return res
+
+
+def decode_bound_bytes(cfg, params, caches, pos) -> dict:
+    """The bytes one decode step must move at least: for each row the
+    cache slots 0..pos it attends to (the slot at pos is written, the
+    others read), every weight the step reads once (the embedding table's
+    rows of the batch's tokens only; not the vision stub's projection,
+    which decode never reads) and the logits written.  ``full_cache_bytes``
+    is the whole cache, which a masked read over every slot moves."""
+    from repro_torch.models.params import tree_leaves
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    b = pos.shape[0]
+    kv = caches["attn"]
+    slot = sum(nbytes(kv[k]) // (kv[k].shape[1] * kv[k].shape[2])
+               for k in ("k", "v"))            # one slot of one row, all layers
+    cache_bytes = int((pos.long() + 1).sum()) * slot
+    param_bytes = sum(nbytes(t) for t in tree_leaves(params))
+    embed = params["embed"]["emb"]
+    param_bytes -= nbytes(embed) - b * embed.shape[-1] * embed.element_size()
+    if "frontend_proj" in params:
+        param_bytes -= sum(nbytes(t) for t in tree_leaves(
+            params["frontend_proj"]))
+    logit_bytes = b * cfg.vocab_padded * 2
+    return {"bytes": cache_bytes + param_bytes + logit_bytes,
+            "cache_bytes": cache_bytes, "param_bytes": param_bytes,
+            "logit_bytes": logit_bytes,
+            "full_cache_bytes": sum(nbytes(t) for t in tree_leaves(caches))}
+
+
+def _pipe_err(got, want, what: str) -> float:
+    """``got`` within PIPE_TOL of ``want``: |got - want| <= PIPE_TOL
+    (|want| + max|want|) elementwise; the largest error over max|want|."""
+    g, w = got.detach().float(), want.detach().float()
+    scale = w.abs().max()
+    err = (g - w).abs()
+    bad = err > PIPE_TOL * (w.abs() + scale)
+    check(not bool(bad.any()), f"13c: {what}: {int(bad.sum())} of "
+          f"{w.numel()} entries off by more than {PIPE_TOL} (|want| + "
+          f"max|want|); largest {float(err.max()):.3e}, max|want| "
+          f"{float(scale):.3e}")
+    return float(err.max() / scale)
+
+
+def distributed_phase(dev, record: dict) -> None:
+    """Phase 13: launch and distributed.  13a the dry run of the
+    reference's cell on meta and its footprint on the host mesh; 13b that
+    cell whole on the card, rows held against the CPU; 13c ``gpipe`` at
+    full width against the sequential blocks; 13d the collectives over a
+    one-rank NCCL group.  Launches none of K1-K6."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.collectives import (async_allreduce_scan,
+                                                     pod_psum_compressed)
+    from repro_torch.distributed.pipeline import gpipe, split_stages
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models.config import SHAPES_BY_NAME
+    from repro_torch.models.params import flatten, tree_map, unflatten, unstack
+    from repro_torch.models.transformer import block_forward, init_lm
+    from repro_torch.train.compression import compressed_psum
+    from repro_torch.train.train_loop import make_loss_fn
+
+    card = record["card"]
+    out = record["distributed"] = {}
+    t_phase = time.perf_counter()
+
+    # -- 13a: the dry run on meta ------------------------------------------
+    phase("13a")
+    cell = lower_cell(DIST_ARCH, DIST_SHAPE, multi_pod=True)
+    arg_bytes = cell["memory"]["argument_bytes"]
+    check(arg_bytes == DRYRUN_ARGUMENT_BYTES, f"13a: the dry run's "
+          f"per-device argument bytes {arg_bytes} != {DRYRUN_ARGUMENT_BYTES}")
+    mesh = make_host_mesh()
+    check(mesh.size == 1 and mesh.devices[0].type == "cuda",
+          f"13a: the host mesh is {mesh!r}, expected one card")
+    host = lower_cell(DIST_ARCH, DIST_SHAPE, mesh=mesh)
+    total = torch.cuda.get_device_properties(0).total_memory
+    host_bytes = host["memory"]["argument_bytes"]
+    check(host_bytes < total, f"13a: the cell's arguments take {host_bytes} "
+          f"B on one device, more than the card's {total}")
+    out["dryrun"] = {"cell": cell, "host": host, "total_memory": total}
+    print(f"[13a] {DIST_ARCH} x {DIST_SHAPE} on 2x16x16 (meta, traced in "
+          f"{cell['compile_s']} s): {arg_bytes} argument B and "
+          f"{cell['flops_per_device']:.6e} FLOPs per device "
+          f"({cell['n_devices']} devices); on the host mesh 1x1: "
+          f"{host_bytes} argument B, {host['memory']['output_bytes']} output"
+          f" B, {host['flops_per_device']:.6e} FLOPs, against the card's "
+          f"{total} B")
+
+    # -- 13b: the cell whole on the card -------------------------------------
+    phase("13b")
+    cfg = get_config(DIST_ARCH)
+    b, s = SHAPES_BY_NAME[DIST_SHAPE].global_batch, SHAPES_BY_NAME[
+        DIST_SHAPE].seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.hints.clear()              # 13a's trace on this mesh made some
+    run = decode_cell(dev, mesh, DIST_SEED, DIST_ROWS)
+    peak = torch.cuda.max_memory_allocated()
+    params, caches, tok, pos = run["params"], run["caches"], run["tok"], run[
+        "pos"]
+    check(len(mesh.hints) == 4 * cfg.n_layers, f"13b: {len(mesh.hints)} "
+          f"layout hints in the step, expected {4 * cfg.n_layers}")
+    check(run["logits_shape"] == (b, cfg.vocab_padded) and run["finite"],
+          f"13b: logits of shape {run['logits_shape']} or not finite")
+    rel = run["rel"]
+    for what, r in rel.items():
+        check(r.max() <= DECODE_REL, f"13b: rows {DIST_ROWS} of the card's "
+              f"{what} off the CPU's by {r.tolist()} of max|value|, "
+              f"tolerance {DECODE_REL}")
+    check(run["rel_fault"].min() > DECODE_REL, f"13b: a planted fault "
+          f"(each row's position off by one) reads "
+          f"{run['rel_fault'].tolist()} of max|logit|, within the tolerance "
+          f"{DECODE_REL}")
+    step = run["step"]
+    step_ms = time_ms(lambda: step(params, caches, tok, pos), 5, warmup=1)
+    prof = device_breakdown(lambda: step(params, caches, tok, pos))
+    bound = decode_bound_bytes(cfg, params, caches, pos)
+    bound_ms = bound["bytes"] / HBM_BYTES_PER_S * 1e3
+    full_ms = bound["full_cache_bytes"] / HBM_BYTES_PER_S * 1e3
+    check(peak >= host_bytes, f"13b: max_memory_allocated {peak} B below "
+          f"the dry run's argument bytes {host_bytes}")
+    out["decode"] = {
+        "seed": DIST_SEED, "rows": list(DIST_ROWS),
+        "positions": run["pos_rows"].tolist(),
+        "rel_logits": rel["logits"].tolist(),
+        "rel_k": rel["k"].tolist(), "rel_v": rel["v"].tolist(),
+        "rel_fault": run["rel_fault"].tolist(), "tolerance": DECODE_REL,
+        "step_ms": step_ms, "bound_ms": bound_ms, "bound_bytes": bound,
+        "full_cache_read_ms": full_ms,
+        "max_memory_allocated": peak, "dryrun_argument_bytes": host_bytes,
+        "cpu_rows_s": run["cpu_s"], "profiled": prof, "card": card}
+    print(f"[13b] {DIST_ARCH} decode, batch {b} against {s} cache slots x "
+          f"{cfg.n_layers} layers ({bound['full_cache_bytes']} cache B): "
+          f"rows {DIST_ROWS} at positions {run['pos_rows'].tolist()} within "
+          f"{DECODE_REL} of the CPU's (logits {rel['logits'].max():.3e}, k "
+          f"{rel['k'].max():.3e}, v {rel['v'].max():.3e} of max|value|; CPU "
+          f"rows {run['cpu_s']:.1f} s); each row's position off by one reads "
+          f"{run['rel_fault'].min():.3e} or more")
+    print(f"[13b] step {step_ms:.3f} ms (events, 5 calls) against its bytes "
+          f"bound {bound_ms:.3f} ms ({bound['bytes']} B at "
+          f"{HBM_BYTES_PER_S:.3g} B/s: the {bound['cache_bytes']} cache B "
+          f"that slots 0..pos of each row hold, the params the step reads "
+          f"and the logits); reading the whole cache, as the masked einsum "
+          f"does, would take {full_ms:.3f} ms; max_memory_allocated {peak} B,"
+          f" dry run's arguments {host_bytes} B; {card}")
+    top = list(prof["device_ms"].items())[:4]
+    print(f"[13b] one profiled step: wall {prof['wall_ms']:.1f} ms, card "
+          f"busy {prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}; " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in top))
+    del params, caches, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13c: gpipe at full width, float32 ----------------------------------
+    phase("13c")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "13c: TF32 matmuls are on")
+    cfg32 = cfg.replace(param_dtype="float32")
+    gen = torch.Generator(dev).manual_seed(14)
+    blocks = init_lm(cfg32, generator=gen, device=dev)["blocks"]
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    positions = torch.arange(PIPE_SEQ, dtype=torch.int32, device=dev)
+
+    def stage_fn(stage, h):
+        p = positions[None].expand(h.shape[0], PIPE_SEQ)
+        for lp in unstack(stage):
+            h = block_forward(lp, h, p, cfg32)[0]
+        return h
+
+    live = tree_map(lambda t: t.detach().requires_grad_(), blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_pipe = gpipe(stage_fn, split_stages(live, DIST_STAGES), x,
+                   mesh=Mesh((DIST_STAGES,), ("pod",)), n_micro=PIPE_MICRO)
+    g_pipe = torch.autograd.grad((h_pipe ** 2).sum(), flatten(live))
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    h_pipe = h_pipe.detach()
+    t0 = time.perf_counter()
+    h_seq = stage_fn(live, x)
+    g_seq = torch.autograd.grad((h_seq ** 2).sum(), flatten(live))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    err_h = _pipe_err(h_pipe, h_seq, "the pipeline's output")
+    names = flatten(shd.tree_map_with_path(lambda k, _: ".".join(k), blocks))
+    err_g = max(_pipe_err(a, w, f"grad of blocks.{name}")
+                for a, w, name in zip(g_pipe, g_seq, names))
+    out["gpipe"] = {"stages": DIST_STAGES, "n_micro": PIPE_MICRO,
+                    "batch": PIPE_BATCH, "seq": PIPE_SEQ,
+                    "err_out": err_h, "err_grads": err_g,
+                    "tolerance": PIPE_TOL, "pipe_s": pipe_s, "seq_s": seq_s}
+    print(f"[13c] gpipe: {cfg.n_layers} float32 blocks in {DIST_STAGES} "
+          f"stages, {PIPE_BATCH} x {PIPE_SEQ} positions in {PIPE_MICRO} "
+          f"microbatches: output and grads of sum(h**2) within {PIPE_TOL} of "
+          f"the sequential loop (largest error / max|want|: output "
+          f"{err_h:.3e}, grads {err_g:.3e}); forward+backward {pipe_s:.2f} s"
+          f" piped ({PIPE_MICRO + DIST_STAGES - 1} ticks x {DIST_STAGES} "
+          f"stages), {seq_s:.2f} s sequential")
+    del blocks, live, h_pipe, h_seq, g_pipe, g_seq, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13d: collectives over a one-rank NCCL group -------------------------
+    phase("13d")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        scfg = smoke_config("yi-6b").replace(param_dtype="float32")
+        sp = init_lm(scfg, generator=torch.Generator(dev).manual_seed(15),
+                     device=dev)
+        batch = _train_batches(scfg, dev, 1, data=(16, 8, 0))[0]
+        mbs = {k: v.reshape(4, v.shape[0] // 4, *v.shape[1:])
+               for k, v in batch.items()}
+        loss_fn = make_loss_fn(scfg)
+
+        def grad_fn(p, mb):
+            lv = tree_map(lambda t: t.detach().requires_grad_(), p)
+            loss, _ = loss_fn(lv, mb)
+            return unflatten(lv, torch.autograd.grad(
+                loss, flatten(lv), materialize_grads=True))
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            got = async_allreduce_scan(grad_fn, sp, mbs)
+            plain = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32),
+                             sp)
+            for i in range(4):
+                tree_map(lambda a, g: a.add_(g), plain,
+                         grad_fn(sp, {k: v[i] for k, v in mbs.items()}))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = all(torch.equal(a, b) for a, b in zip(flatten(got),
+                                                     flatten(plain)))
+        check(same, "13d: async_allreduce_scan over one NCCL rank != plain "
+              "accumulation of the same 4 microbatches")
+        xs = torch.randn(1 << 20, generator=torch.Generator(dev)
+                         .manual_seed(16), device=dev)
+        check(pod_psum_compressed(mesh, xs) is xs,
+              "13d: pod_psum_compressed without a pod axis is not x itself")
+        pod = Mesh((1, 1, 1), ("pod", "data", "model"), [dev])
+        check(torch.equal(pod_psum_compressed(pod, xs), compressed_psum(xs)),
+              "13d: pod_psum_compressed with pod=1 != compressed_psum")
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    out["collectives"] = {"grad_leaves": len(flatten(got)), "equal": same}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[13d] one-rank NCCL group: async_allreduce_scan of "
+          f"{len(flatten(got))} smoke yi-6b gradient leaves over 4 "
+          f"microbatches == plain accumulation bit for bit; "
+          f"pod_psum_compressed is x without a pod axis and == "
+          f"compressed_psum with pod=1")
+    print(f"[13] phase 13 took {out['phase_s']:.1f} s")
+
+
 def _graphed_step(step, params, caches, dev):
     """``step`` (``make_serve_step``'s function) on one slot captured as a
     CUDA graph after one warm-up call on a side stream: (graph, token and
@@ -4098,6 +4535,10 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    stop_phase_clock()
+    record["phase_wall_s"] = PHASE_WALL
+    print("[times] wall s by phase " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_WALL.items()}))
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(record, indent=1))

@@ -75,18 +75,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, allow_meta: bool = False) -> torch.device:
     """``torch.device`` for an entry point's ``device`` argument.
 
     ``"cuda"`` with no card raises: the port never moves to the CPU by
-    itself; a caller that wants the plain versions passes ``"cpu"``."""
+    itself; a caller that wants the plain versions passes ``"cpu"``.
+    ``"meta"`` (shapes and dtypes only, no storage) passes where the
+    caller allows it: the model's and caches' init, for the dry run."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "device='cuda' was asked for, but torch finds no CUDA "
                 "device; pass device='cpu' to run the plain versions")
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (allow_meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
 

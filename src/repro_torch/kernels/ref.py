@@ -121,3 +121,12 @@ def bitserial_matmul_ref(
             wbit = ((wu >> j) & 1).to(torch.int64)
             out = out + (sa * sw) * ((abit @ wbit).to(torch.int32) << (i + j))
     return out
+
+
+def elementwise_circuit_ref(name: str, n_bits: int, *operands):
+    """Oracle for the fused bit-plane elementwise kernel (K3): the port's
+    eager ``bitplane`` backend on the CPU, as the reference's oracle is
+    its own ``bitplane.bbop``.  Lane values in, int32 lane tensors out
+    (a tuple for a multi-output op)."""
+    from ..core import bitplane
+    return bitplane.bbop(name, n_bits, *operands, device="cpu")

@@ -1,3 +1,2 @@
-"""Launchers (counterpart of :mod:`repro.launch`): the training launcher.
-The reference's mesh construction and multi-pod dry run are not ported
-yet."""
+"""Launchers (counterpart of :mod:`repro.launch`): the training launcher,
+device meshes and the multi-pod dry run."""

@@ -8,8 +8,10 @@ The reference's einsum form is kept: the scores are an einsum in the
 params' dtype, cast to float32, scaled and masked with ``NEG_INF``; the
 softmax runs in float32 and the probabilities are cast back before the
 second einsum.  (``F.scaled_dot_product_attention`` rounds differently.)
-The reference pins the decode cache's layout under a device mesh
-(``hint_kv``); on one card there is no mesh, and no such hint.
+The decode branch pins the fresh k/v and the written cache to the
+cache's own layout with ``hint_kv`` where the reference does; the hints
+change nothing on one card, and record the fitted spec under a mesh
+(:mod:`repro_torch.distributed.hints`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.hints import hint_kv
 from .layers import Params, apply_rope, dense, dense_init, rope_angles
 
 NEG_INF = -1e30
@@ -152,6 +155,8 @@ def attention(
             rep = kv_head_pad // n_kv
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
+        k = hint_kv(k)
+        v = hint_kv(v)
         rows = torch.arange(b, device=x.device)
         quant = cache["k"].dtype == torch.int8
         # the write slot in place: the same values as the reference's
@@ -171,6 +176,8 @@ def attention(
             cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
             cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
             k_eff, v_eff = cache["k"], cache["v"]
+        hint_kv(cache["k"])
+        hint_kv(cache["v"])
         slots = torch.arange(s, device=x.device)[None, :]     # (1,S)
         cur = positions[:, 0][:, None]                       # (B,1)
         if sliding_window:

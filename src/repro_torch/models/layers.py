@@ -27,9 +27,19 @@ def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
+class MetaDraws:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which
+    has none: the init functions read its ``device``, and :func:`normal`
+    gives a tensor of the shape and dtype with no values."""
+
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """Float32 normals times ``std``, cast to ``dtype``, on the device of
     ``gen`` (the reference's ``(normal(key, shape) * std).astype``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, device=gen.device) * std).to(
         dtype)
 

@@ -19,6 +19,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.hints import hint
+from ..launch.mesh import ambient_mesh
 from .layers import Params, gelu, normal
 from .quantized import effective_weight
 
@@ -78,9 +80,10 @@ def moe_forward(p: Params, x: torch.Tensor, *, top_k: int,
 
 
 def _grouped_local(p: Params, xt: torch.Tensor, *, top_k: int, act: str,
-                   cap: int, e_lo: int, e_loc: int):
+                   cap: int, e_lo: int, e_loc: int, ep_hints: bool = False):
     """Token dispatch restricted to experts [e_lo, e_lo+e_loc) with local
     expert weights ``p``; tokens routed elsewhere contribute zero.
+    ``ep_hints`` pins the expert buffers to ``P("model", ...)``.
 
     Tokens go to per-expert buffers of ``cap`` slots by their queue rank
     (a cumsum of one-hots); overflowed tokens land in the clamped last
@@ -104,6 +107,8 @@ def _grouped_local(p: Params, xt: torch.Tensor, *, top_k: int, act: str,
     buf = torch.zeros((e_loc * cap, d), dtype=xt.dtype, device=xt.device)
     buf.index_add_(0, buf_idx, payload)
     eb = buf.reshape(e_loc, cap, d)
+    if ep_hints:
+        eb = hint(eb, "model", None, None)
 
     up = torch.einsum("ecd,edf->ecf", eb, effective_weight(p["up"], eb.dtype))
     g = (torch.einsum("ecd,edf->ecf", eb,
@@ -111,7 +116,10 @@ def _grouped_local(p: Params, xt: torch.Tensor, *, top_k: int, act: str,
          if act == "swiglu" else None)
     h = _act(up, g, act)
     eout = torch.einsum("ecf,efd->ecd", h, effective_weight(
-        p["down"], eb.dtype)).reshape(e_loc * cap, d)
+        p["down"], eb.dtype))
+    if ep_hints:
+        eout = hint(eout, "model", None, None)
+    eout = eout.reshape(e_loc * cap, d)
 
     w = (topv.reshape(-1) * keep).to(eout.dtype)
     out = torch.zeros((t, d), dtype=eout.dtype, device=xt.device)
@@ -130,14 +138,15 @@ def moe_forward_grouped(
     """Capacity-based dispatch: per-expert buffers of C = cf·T·K/E slots.
     This is :func:`_grouped_local` over every expert (with all experts
     local, its ``mine`` mask is all true and the two compute the same).
-    ``ep_hints`` pins the buffers' layout under a device mesh in the
-    reference; on one card it changes nothing."""
+    ``ep_hints`` pins the buffers' layout under a device mesh; on one
+    card it changes nothing."""
     b, l, d = x.shape
     t = b * l
     n_e = p["router"].shape[1]
     cap = max(1, int(capacity_factor * t * top_k / n_e))
     out, aux = _grouped_local(p, x.reshape(t, d), top_k=top_k, act=act,
-                              cap=cap, e_lo=0, e_loc=n_e)
+                              cap=cap, e_lo=0, e_loc=n_e,
+                              ep_hints=ep_hints)
     return out.reshape(b, l, d), aux
 
 
@@ -146,9 +155,16 @@ def moe_forward_ep(
     capacity_factor: float = 1.25, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert parallelism over a device mesh's ``model`` axis.  The port
-    runs on one card: with no mesh this is the reference's own fallback,
-    :func:`moe_forward_grouped`; a mesh raises."""
-    if mesh is not None:
+    runs on one card: where the reference falls back to
+    :func:`moe_forward_grouped` (no ambient mesh with a ``model`` axis,
+    or experts that do not divide over it) so does this, and on a
+    ``model`` axis of one device the two compute the same; a mesh given
+    as ``mesh``, or an ambient one that would split the experts, raises."""
+    ambient = ambient_mesh()
+    n_e = p["router"].shape[1]
+    tp = (ambient.shape["model"]
+          if ambient is not None and "model" in ambient.axis_names else 1)
+    if mesh is not None or (tp > 1 and n_e % tp == 0):
         raise ValueError(
             "moe_forward_ep: a device mesh was given, but expert parallelism "
             "across devices is not ported; the port runs on one card")

@@ -33,8 +33,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..kernels.build import resolve_device
 from .attention import attention, attn_init, init_cache
 from .config import ModelConfig
-from .layers import (Params, _dtype, dense, dense_init, embed, embedding_init,
-                     mlp, mlp_init, mlp_pum, rmsnorm, rmsnorm_init, unembed)
+from .layers import (MetaDraws, Params, _dtype, dense, dense_init, embed,
+                     embedding_init, mlp, mlp_init, mlp_pum, rmsnorm,
+                     rmsnorm_init, unembed)
 from .moe import moe_forward, moe_forward_ep, moe_forward_grouped, moe_init
 from .params import layer, tree_leaves, tree_map, unstack
 from .ssm import init_ssm_cache, ssm_forward, ssm_init
@@ -156,10 +157,18 @@ def init_lm(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
             device="cuda") -> Params:
     """Random init on ``device``, drawn from ``generator`` (default: a
     fresh generator on ``device`` seeded with 0): the reference's
-    distributions, shapes and dtypes, not its ``jax.random`` draws."""
-    dev = resolve_device(device)
-    gen = generator if generator is not None else \
-        torch.Generator(dev).manual_seed(0)
+    distributions, shapes and dtypes, not its ``jax.random`` draws.  On
+    ``device="meta"`` (the dry run's shapes, no storage) nothing is
+    drawn and no generator is taken."""
+    dev = resolve_device(device, allow_meta=True)
+    if dev.type == "meta":
+        if generator is not None:
+            raise ValueError("the meta device draws nothing: pass no "
+                             "generator")
+        gen = MetaDraws()
+    else:
+        gen = generator if generator is not None else \
+            torch.Generator(dev).manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"the generator is on {gen.device}, the model on "
                          f"{dev}")
@@ -273,8 +282,8 @@ def lm_forward(
 
 def init_caches(cfg: ModelConfig, b: int, s: int, device="cuda") -> Dict:
     """Stacked per-layer caches (leading layer axis) for decode, on
-    ``device``."""
-    dev = resolve_device(device)
+    ``device`` (``"meta"`` for the dry run's shapes)."""
+    dev = resolve_device(device, allow_meta=True)
     dt = _dtype(cfg.param_dtype)
     one: Dict = {}
     if cfg.family != "ssm":

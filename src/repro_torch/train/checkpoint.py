@@ -19,8 +19,9 @@ Layout:  <dir>/step_<N>/
   writes it on a worker thread, letting the train loop overlap the I/O
   with the next step.
 
-The reference's ``reshard_restore`` places leaves on a device mesh; the
-port runs on one card, so :func:`restore` takes a ``device`` instead.
+:func:`restore` takes a ``device``; :func:`reshard_restore` places each
+leaf by its sharding on a mesh (the elastic remesh; on the port's
+one-device host mesh, every leaf whole on that device).
 """
 
 from __future__ import annotations
@@ -141,3 +142,11 @@ def restore(ckpt_dir: str, step: int, tree_like: Any, verify: bool = True,
             if want != got.result():
                 raise IOError(f"checkpoint leaf_{i} hash mismatch (corrupt)")
     return unflatten(tree_like, out)
+
+
+def reshard_restore(ckpt_dir: str, step: int, tree_like: Any,
+                    shardings: Any) -> Any:
+    """Restore + place each leaf with the given sharding (elastic remesh),
+    see :func:`repro_torch.distributed.sharding.place`."""
+    from ..distributed.sharding import place
+    return place(restore(ckpt_dir, step, tree_like, device="cpu"), shardings)

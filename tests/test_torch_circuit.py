@@ -191,3 +191,21 @@ def test_batch_axis_folds_into_one_circuit_call():
             "subtraction", 8,
             *[bitplane.pack(torch.from_numpy(v), 8) for v in vals])[0]
         np.testing.assert_array_equal(batch[s].numpy(), one.numpy())
+
+
+@pytest.mark.parametrize("op", ALL_OPS)
+def test_elementwise_circuit_ref_equals_reference(op):
+    """``kernels/ref.elementwise_circuit_ref`` (K3's oracle: the port's
+    eager bitplane backend on the CPU) ``==`` the reference's at 8 bits,
+    every output, on lanes that are not a multiple of 32."""
+    from repro.kernels.ref import elementwise_circuit_ref as ref_oracle
+    from repro_torch.kernels.ref import elementwise_circuit_ref
+
+    spec = get_op(op, 8)
+    vals = _operands(spec, 100, seed=len(op))
+    got = _as_tuple(elementwise_circuit_ref(op, 8, *vals))
+    want = _as_tuple(ref_oracle(op, 8, *[jnp.asarray(v) for v in vals]))
+    assert len(got) == len(want) == len(spec.out_bits)
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -1,0 +1,211 @@
+"""The port's dry run on the CPU (``meta`` tensors, no storage).
+
+- The reference's own dry-run cell, internvl2-1b x decode_32k on the
+  2 x 16 x 16 mesh at full width: the per-device argument bytes ``==`` the
+  sum over the reference's specs (params, caches, tokens, positions),
+  computed here, 119,685,856; that is XLA's 119,682,720 in the tracked
+  ``experiments/dryrun/`` artifact (read, never written) plus the
+  3,136 B of ``frontend_proj.w``, which decode never reads and XLA
+  prunes from the arguments.  ``params``, ``active_params``, ``tokens``,
+  ``kind`` and ``n_devices`` ``==`` the reference's.
+- A train, a prefill and a decode cell at ``smoke_config``: the counted
+  FLOPs ``==`` a closed-form count of their matrix products.
+- The command line prints ``ok=1`` with JAX blocked from importing.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.distributed import sharding as ref_shd
+from repro.models import transformer as ref_tf
+from repro_torch.configs import smoke_config
+from repro_torch.launch.dryrun import lower_cell, save_result
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.config import SHAPES_BY_NAME
+
+ROOT = Path(__file__).resolve().parents[1]
+ARTIFACT = ROOT / "experiments" / "dryrun" / "internvl2-1b_decode_32k_2x16x16.json"
+CELL_ARGUMENT_BYTES = 119_685_856
+
+
+def ref_shard_bytes(mesh, sds, spec) -> int:
+    n = math.prod(sds.shape) * jnp.dtype(sds.dtype).itemsize
+    for ax in spec:
+        if ax is not None:
+            n //= math.prod(mesh.shape[a] for a in
+                            ((ax,) if isinstance(ax, str) else ax))
+    return n
+
+
+def ref_tree_bytes(mesh, tree, shardings) -> int:
+    leaves = jax.tree.leaves(tree)
+    shards = jax.tree.leaves(shardings, is_leaf=lambda x: hasattr(x, "spec"))
+    assert len(leaves) == len(shards)
+    return sum(ref_shard_bytes(mesh, l, s.spec) for l, s in zip(leaves, shards))
+
+
+@pytest.fixture(scope="module")
+def cell():
+    return lower_cell("internvl2-1b", "decode_32k", multi_pod=True)
+
+
+def test_cell_argument_bytes_equal_reference_specs(cell):
+    rcfg = ref_get_config("internvl2-1b")
+    shape = SHAPES_BY_NAME["decode_32k"]
+    mesh = ref_shd.abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    caches = jax.eval_shape(lambda: ref_tf.init_caches(
+        rcfg, shape.global_batch, shape.seq_len))
+    vec = jax.ShapeDtypeStruct((shape.global_batch,), jnp.int32)
+    want = (ref_tree_bytes(mesh, params, ref_shd.param_shardings(params, mesh))
+            + ref_tree_bytes(mesh, caches,
+                             ref_shd.cache_shardings(caches, mesh))
+            + 2 * ref_shard_bytes(mesh, vec, ref_shd.vector_sharding(
+                mesh, shape.global_batch).spec))
+    assert want == CELL_ARGUMENT_BYTES
+    assert cell["memory"]["argument_bytes"] == want
+
+    # XLA's number, read from the tracked artifact, plus the pruned
+    # frontend_proj.w shard
+    xla = json.loads(ARTIFACT.read_text())
+    fp = params["frontend_proj"]["w"]
+    fp_spec = ref_shd.param_shardings(params, mesh)["frontend_proj"]["w"].spec
+    pruned = ref_shard_bytes(mesh, fp, fp_spec)
+    assert pruned == 3_136
+    assert cell["memory"]["argument_bytes"] == \
+        xla["memory"]["argument_bytes"] + pruned
+    for key in ("params", "active_params", "tokens", "kind", "n_devices",
+                "arch", "shape", "mesh", "variant"):
+        assert cell[key] == xla[key], key
+    assert cell["params"] == rcfg.param_count()
+    assert set(xla) <= set(cell)
+
+
+def test_cell_fields_not_measured_are_none(cell):
+    assert cell["depth_calibrated"] is False
+    assert cell["flops_per_device_raw"] == cell["flops_per_device"]
+    for key in ("bytes_per_device", "collective_bytes",
+                "collective_bytes_raw"):
+        assert cell[key] is None
+    assert cell["memory"]["temp_bytes"] is None
+    assert cell["memory"]["peak_bytes"] is None
+    assert set(cell["not_measured"]) >= {"bytes_per_device",
+                                         "collective_bytes", "temp_bytes"}
+    # bf16 logits (128 x vocab / 16 model ranks, 4 rows a device) + caches
+    cfg = ref_get_config("internvl2-1b")
+    caches = 24 * 2 * 4 * 32768 * 2 * 4 * 2
+    assert cell["memory"]["output_bytes"] == \
+        caches + 4 * (cfg.vocab_padded // 16) * 2
+
+
+def test_cell_on_the_host_mesh_fits_one_card():
+    res = lower_cell("internvl2-1b", "decode_32k",
+                     mesh=make_host_mesh(device="cpu"))
+    assert res["mesh"] == "1x1" and res["n_devices"] == 1
+    caches = 24 * 2 * 128 * 32768 * 2 * 64 * 2
+    assert caches == 51_539_607_552
+    params = 630_713_216 * 2
+    assert res["memory"]["argument_bytes"] == caches + params + 2 * 128 * 4
+    assert res["memory"]["argument_bytes"] < 80e9
+
+
+def closed_form_flops(cfg, shape) -> int:
+    """Matrix products of a dense model: F, the unbatched weight
+    products (2 x tokens x weights read), and A, attention's two einsums
+    over every (query, key) pair.  A train step is the forward, the
+    backward's two products for each, and the recompute of the
+    attention einsums under ``remat="dots"``: 3F + 4A."""
+    d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    weights = cfg.n_layers * (d * h * hd + 2 * d * g * hd + h * hd * d
+                              + 3 * d * cfg.d_ff) + d * cfg.vocab_padded
+    b, l = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        f = 2 * b * weights
+        a = 4 * b * h * l * hd * cfg.n_layers
+        return f + a
+    f = 2 * b * l * weights
+    a = 4 * b * h * l * l * hd * cfg.n_layers
+    return 3 * f + 4 * a if shape.kind == "train" else f + a
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
+                                        "decode_32k"])
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-3-8b"])
+def test_smoke_flops_equal_closed_form(arch, shape_name):
+    cfg = smoke_config(arch)
+    assert not cfg.tie_embeddings and cfg.act == "swiglu"
+    shape = SHAPES_BY_NAME[shape_name]
+    res = lower_cell(arch, shape_name, cfg_override=cfg)
+    assert res["n_devices"] == 256
+    assert res["flops_per_device"] * 256 == closed_form_flops(cfg, shape)
+
+
+def test_save_result_writes_where_asked(tmp_path):
+    res = lower_cell("yi-6b", "decode_32k", cfg_override=smoke_config("yi-6b"),
+                     variant="smoke")
+    path = save_result(res, str(tmp_path))
+    assert Path(path).name == "yi-6b_decode_32k_16x16_smoke.json"
+    assert json.loads(Path(path).read_text())["flops_per_device"] == \
+        res["flops_per_device"]
+
+
+def test_cli_without_jax(tmp_path):
+    before = ARTIFACT.read_bytes()
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "sys.argv = ['dryrun', '--arch', 'internvl2-1b', '--shape', "
+            f"'decode_32k', '--mesh', 'multi', '--out', {str(tmp_path)!r}]\n"
+            "runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')\n"
+            "print('jax' in sys.modules and sys.modules['jax'] is not None)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "dryrun: ok=1 skip=0 fail=0" in out.stdout
+    assert out.stdout.strip().endswith("False")
+    res = json.loads((tmp_path / "internvl2-1b_decode_32k_2x16x16.json")
+                     .read_text())
+    assert res["memory"]["argument_bytes"] == CELL_ARGUMENT_BYTES
+    assert ARTIFACT.read_bytes() == before
+
+
+def test_meta_only_where_allowed(monkeypatch):
+    """``meta`` passes for the model's and caches' init only; ``cuda``
+    with no card still raises."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitplane
+    from repro_torch.kernels.build import resolve_device
+    from repro_torch.models.transformer import init_caches, init_lm
+
+    cfg = smoke_config("yi-6b")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("meta", allow_meta=True).type == "meta"
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitplane.bbop("addition", 8, np.arange(4), np.arange(4),
+                      device="meta")
+    with pytest.raises(ValueError, match="draws nothing"):
+        init_lm(cfg, generator=torch.Generator(), device="meta")
+    p = init_lm(cfg, device="meta")
+    assert p["embed"]["emb"].device.type == "meta"
+    assert init_caches(cfg, 2, 8, device="meta")["attn"]["k"].shape == \
+        (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.hd)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()

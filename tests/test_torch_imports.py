@@ -66,6 +66,7 @@ def _entry_points():
     from repro_torch.configs import smoke_config
     from repro_torch.distributed import pum
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train
     from repro_torch.models.params import params_from_numpy
     from repro_torch.models.transformer import init_caches, init_lm
@@ -122,6 +123,7 @@ def _entry_points():
             {"embed": {"emb": torch.zeros(4, 4)}}),
         "PumServeOffload": lambda: serve.PumServeOffload(),
         "launch.train.train": lambda: train(steps=1),
+        "make_host_mesh": lambda: make_host_mesh(),
         "checkpoint.restore": lambda: checkpoint.restore(
             "no-such-dir", 1, {"w": torch.zeros(2)}),
     }
