@@ -5,8 +5,9 @@
 
 Run from a checkout; it puts the checkout's ``src/`` and ``experiments/``
 on ``sys.path`` itself, reads ``BENCH_apps.json`` and
-``BENCH_serving.json``, loads ``scripts/check_trace.py`` by path and
-imports only ``repro_torch`` and ``popmma_probe`` (no JAX).  Phase 9c's
+``BENCH_serving.json``, loads ``scripts/check_trace.py`` and the
+``examples_torch/`` files by path and imports only ``repro_torch`` and
+``popmma_probe`` (no JAX).  Phase 9c's
 Chrome trace goes to ``--trace`` (default
 ``build/serving_channel_trace.json``).  Phases, one line each:
 
@@ -140,7 +141,8 @@ Chrome trace goes to ``--trace`` (default
      the PuM MLP (``tests/test_system.py::test_pum_offload_inside_lm``'s
      configuration: the relu a bbop, one K3 launch a layer, each held
      against the plain circuit); (10b) yi-6b at its published width in
-     bf16, initialized on the card (``param_count()`` equal), a
+     bf16, ``LM_LAYERS`` of its 32 layers, initialized on the card
+     (``param_count()`` equal), a
      ``Server`` of 4 slots x 4,096 positions serving a burst of six
      requests with and without ``PumServeOffload`` on a 4-bank x
      2-subarray chip: every request completes, every step's offload
@@ -206,6 +208,24 @@ Chrome trace goes to ``--trace`` (default
      microbatches ``==`` plain accumulation and ``pod_psum_compressed``
      (``x`` itself without a pod axis, ``== compressed_psum`` with pod =
      1).  Phase 13 launches none of K1-K6;
+ 14. the examples (``examples_torch/``), run after phase 13 and before
+     the kernels line: every file in-process on the card at its
+     reference example's sizes (``train_lm.py`` at ``TRAIN_LM_STEPS``
+     steps instead of 300, from ``build/examples``), then its twin run
+     (a repeat in which every launch of K1, K2, K3, K5 and K6 is held
+     against the plain version on host copies of its inputs; not for
+     the two examples that launch none of them), then again with
+     ``--device cpu`` (all but ``train_lm.py``): each example launches the
+     kernels ``EXAMPLE_KERNELS`` names, its twin run as many of each; its
+     returned results and modeled fields ``==`` the CPU run's, the fault example's flip-drawn
+     fields within a Poisson bound of the CPU's (flips injected), the
+     LM examples' logits and greedy tokens under the LM rules (float32
+     within ``LM_TOL``, bf16 within ``LM_BF16_REL`` of each row's
+     max|logit|, tokens under the margin rule) and ``train_lm.py``'s
+     losses finite; the telemetry example's two exports go to
+     ``build/examples`` and pass ``scripts/check_trace.py``; each
+     example's card, twin-run and CPU walls on one line with the card's name and
+     power limit (the ``examples`` path of K1, K2, K3, K5 and K6);
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -220,9 +240,10 @@ Chrome trace goes to ``--trace`` (default
 
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6, each tier of phase 7, each app run of phase 8, each served run
-of phase 9, the PuM forward and the counted burst of phase 10, and the
-PuM train steps of phase 12) and read just after; comparison launches
-come after the read.
+of phase 9, the PuM forward and the counted burst of phase 10, the PuM
+train steps of phase 12 and each example's card run of phase 14) and
+read just after; comparison launches come after the read (phase 14's
+in its twin runs).
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line; each failed check names its
 phase and the values it compared.  No check reads a time, a rate, an
@@ -346,22 +367,25 @@ TRACED_PROFILER_ATTEMPTS = 5
 # the LM (phase 10).  10a: every arch at smoke_config in float32, card
 # against the port's own CPU run of the same weights (cuBLAS against CPU
 # BLAS, no TF32), logits and caches within LM_TOL (rtol and atol), int8
-# cache entries within 1.  10b: yi-6b at its published width in bf16 on
-# LM_SLOTS slots of LM_MAX_LEN positions, serving LM_PROMPTS (lengths;
+# cache entries within 1.  10b: yi-6b at its published width in bf16,
+# LM_LAYERS of its 32 layers (the smoke's one cut of depth, to keep it
+# near 600 s with phase 14's twin runs), on LM_SLOTS slots of LM_MAX_LEN
+# positions, serving LM_PROMPTS (lengths;
 # tokens from default_rng(0)) with LM_MAX_NEW new tokens each, through
 # PumServeOffload on the reference's default offload chip (4 banks x 2
 # subarrays).  10c: make_prefill on one prompt of LM_PREFILL_LEN tokens
 # against the decode logits of the same positions, each position within
-# LM_BF16_REL of its max|logit|: bf16 through 32 layers in two orders of
-# summation reads 1.3-2.7e-2 at every position on an H100 (position 0
+# LM_BF16_REL of its max|logit|: bf16 through all 32 layers in two orders
+# of summation read 1.3-2.7e-2 at every position on an H100 (position 0
 # included; 2.717e-2 at most, the same in five calls); the decode of the
 # first LM_FAULT_LEN positions with one cache write dropped (at
 # LM_FAULT_AT) or every step a position late must read more (0.160 and
-# 1.01 on an H100).  Greedy tokens of two float paths are
+# 1.01 on an H100 at 32 layers, 0.177 and 1.04 at 16).  Greedy tokens of two float paths are
 # compared only where the reference side's top-1/top-2 margin exceeds
 # twice the stated tolerance (random inits give near-ties)
 LM_TOL = 1e-3
 LM_ARCH = "yi-6b"
+LM_LAYERS = 8
 LM_SLOTS = 4
 LM_MAX_LEN = 4096
 LM_PROMPTS = (3, 7, 5, 2, 9, 4)
@@ -427,6 +451,28 @@ PIPE_SEQ = 512
 PIPE_TOL = 1e-3
 
 TRANSPOSE_WIDTHS = (8, 16, 32)
+# the examples (phase 14): every examples_torch/ file at its reference's
+# sizes, with the kernels its path must launch on the card (K1 h2v, K2
+# v2h, K3 circuit, K5 replay, K6 faulty_replay); train_lm.py runs
+# TRAIN_LM_STEPS steps instead of its default 300
+EXAMPLE_KERNELS = {
+    "quickstart": ("h2v", "v2h", "circuit", "replay"),
+    "bank_scaling_quickstart": ("replay",),
+    "fused_dispatch_quickstart": ("h2v", "v2h", "replay"),
+    "compaction_quickstart": ("v2h", "replay"),
+    "simdram_database": ("circuit",),
+    "chip_offload_quickstart": ("v2h", "replay"),
+    "channel_quickstart": ("v2h", "replay"),
+    "rank_overlap_quickstart": ("v2h", "replay"),
+    "fault_tolerance_quickstart": ("replay", "faulty_replay"),
+    "telemetry_quickstart": ("replay", "faulty_replay"),
+    "serving_quickstart": ("replay", "faulty_replay"),
+    "pum_offload_demo": ("circuit",),
+    "serve_llm": (),
+    "train_lm": (),
+}
+EXAMPLE_KERNELS_ALL = ("h2v", "v2h", "circuit", "replay", "faulty_replay")
+TRAIN_LM_STEPS = 4
 MIX_OPS = ("addition", "multiplication", "greater", "and_red")
 FAST_PATH = [(op, 8) for op in (
     "abs", "addition", "and_red", "bitcount", "division", "equal", "greater",
@@ -1080,6 +1126,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("13")
     phase("13")
     distributed_phase(dev, record)
+    release_device_memory("14")
+    phase("14")
+    counts_examples = examples_phase(dev, record, kern)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -1106,11 +1155,13 @@ def run(trace_path: str) -> dict:
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
                 + counts_serve[name] + counts_lm[name] + counts_train[name]
+                + counts_examples[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
                                  + counts_ladder["faulty_replay"]
-                                 + counts_serve["faulty_replay"])
+                                 + counts_serve["faulty_replay"]
+                                 + counts_examples["faulty_replay"])
     meta = {
         "h2v": ("src/repro_torch/csrc/transpose.cu",
                 "src/repro/kernels/transpose_kernel.py:75"),
@@ -1170,6 +1221,7 @@ def run(trace_path: str) -> dict:
     record["launches_serving"] = counts_serve
     record["launches_lm"] = counts_lm
     record["launches_train"] = counts_train
+    record["launches_examples"] = counts_examples
     record["profiler_misses"] = PROFILER_MISSES
     print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
@@ -2225,17 +2277,36 @@ def tpch_oracle(n_rows: int) -> int:
     return int((price * discount)[sel].sum())
 
 
-class _Twins:
-    """Within ``with``: each launch of K1, K2, K3 and K5 made through the
-    port's wrappers is followed by the kernel's plain version on the same
-    inputs.  ``errs[kernel]`` gets the largest absolute difference of each
-    launch; with ``keep_rounds`` every K5 launch's (states, tables,
-    schedule) is kept in ``rounds`` as well."""
+def _host(x):
+    """Tensors, and those in a list, tuple or dict, copied to the host;
+    other values as they are."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    return x
 
-    def __init__(self, keep_rounds: bool = False):
-        self.errs = {"h2v": [], "v2h": [], "circuit": [], "replay": []}
+
+class _Twins:
+    """Within ``with``: each launch of K1, K2, K3, K5 and K6 made through
+    the port's wrappers is followed by the kernel's plain version on the
+    same inputs.  ``errs[kernel]`` gets the largest absolute difference of
+    each launch (K6: of its states and its flip counts); with
+    ``keep_rounds`` every K5 launch's (states, tables, schedule) is kept
+    in ``rounds`` as well.  With ``host`` the plain version runs on host
+    copies of the inputs: at narrow widths its loop over commands is
+    bound by launches on the card, each a few microseconds of host work
+    on the CPU."""
+
+    def __init__(self, keep_rounds: bool = False, host: bool = False):
+        self.errs = {"h2v": [], "v2h": [], "circuit": [], "replay": [],
+                     "faulty_replay": []}
         self.rounds = []
         self.keep_rounds = keep_rounds
+        self.host = host
         self._undo = []
 
     def __enter__(self):
@@ -2248,8 +2319,13 @@ class _Twins:
                 before = build.LAUNCHES[name]
                 out = orig(*args, **kw)
                 if build.LAUNCHES[name] > before:
-                    self.errs[name].append(max_abs_err(out, plain(*args,
-                                                                  **kw)))
+                    got = _host(out) if self.host else out
+                    want = (plain(*_host(args), **_host(kw)) if self.host
+                            else plain(*args, **kw))
+                    pairs = (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)])
+                    self.errs[name].append(max(max_abs_err(o, w)
+                                               for o, w in pairs))
                     if name == "replay" and self.keep_rounds:
                         self.rounds.append(args)
                 return out
@@ -2262,7 +2338,11 @@ class _Twins:
                  bitplane_ops.circuit_plain),
                 ("replay", cu._replay_kernel,
                  lambda states, tables, schedule: cu.replay_plain(
-                     states, tables))):
+                     states, tables)),
+                ("faulty_replay", cu._faulty_replay_kernel,
+                 lambda states, tables, schedule, keys, s0, s1, dead, thr:
+                 cu.faulty_replay_plain(states, tables, keys, s0, s1, dead,
+                                        thr / 2 ** 32))):
             wrapped = twin(name, orig, plain)
             for mod_name, mod in list(sys.modules.items()):
                 if not mod_name.startswith("repro_torch") or mod is None:
@@ -2381,7 +2461,8 @@ def _app_path(fn, backend: str, cfg, total: dict, errs: dict,
 
     with _Twins(keep_rounds) as tw:
         r_t, _, _ = _app_once(fn, backend, cfg, "cuda")
-    for k, e in tw.errs.items():
+    for k in errs:
+        e = tw.errs[k]
         check(len(e) == counts[k], f"{backend}: {len(e)} {k} launches in "
               f"the twin run, {counts[k]} in the counted run")
         check(max(e, default=0) == 0, f"{backend}: {k} disagrees with its "
@@ -3461,7 +3542,7 @@ def lm_phase(dev, record: dict, kern: dict) -> dict:
     # -- 10b: yi-6b at full width, served ------------------------------------
     phase("10b")
     t_b = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).replace(n_layers=LM_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3589,7 +3670,8 @@ def lm_phase(dev, record: dict, kern: dict) -> dict:
         "step_bound_ms": step_bound[0],
         "profiled": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                           "idle_share", "device_ms")}}
-    print(f"[10b] {LM_ARCH} at full width ({n_params:,} parameters == "
+    print(f"[10b] {LM_ARCH} at full width, {cfg.n_layers} of "
+          f"{get_config(LM_ARCH).n_layers} layers ({n_params:,} parameters == "
           f"param_count(), bf16, initialized on the card in {init_s:.2f} s): "
           f"{len(prompts)} requests, {n_tokens} tokens in "
           f"{len(pum_run['step_s'])} steps on {LM_SLOTS} slots of "
@@ -4464,6 +4546,252 @@ def distributed_phase(dev, record: dict) -> None:
     print(f"[13] phase 13 took {out['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the examples (examples_torch/) on the card
+# ---------------------------------------------------------------------------
+
+def _load_example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, argv, card: bool) -> tuple:
+    """``mod.main(argv)`` with its output captured: (dict, output, wall
+    s)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.core.control_unit import TABLE_CACHE
+    # every run starts from an empty command-table cache: the telemetry
+    # example's span tree shows its misses
+    TABLE_CACHE.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, buf.getvalue(), wall
+
+
+def _same_values(a, b) -> bool:
+    """``a == b`` through dicts, lists, tuples and numpy arrays."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_values(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_values(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+    return a == b
+
+
+def _example_decode(name, got, want, rel) -> tuple:
+    """Step by step, the card's logits within ``rel`` of each row's
+    max|logit| of the CPU run's (``rel`` None: within ``LM_TOL``, rtol
+    and atol) and its greedy tokens ``==`` at every row whose CPU margin
+    exceeds twice that.  (largest error over its bound, True if every
+    step's tokens agree; past a token taken at a smaller margin the two
+    decode different prefixes and are compared no further)."""
+    worst = 0.0
+    for s, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        check(g.shape == w.shape, f"{name}: step {s} logits {g.shape} != "
+              f"{w.shape}")
+        err = np.abs(g - w)
+        top = np.abs(w).max(-1, keepdims=True)
+        bnd = rel * top if rel is not None else LM_TOL + LM_TOL * np.abs(w)
+        check(bool((err <= bnd).all()), f"{name}: step {s} logits differ "
+              f"from the CPU run's by {float(err.max()):.3e}, more than "
+              f"{'%g of max|logit|' % rel if rel else 'rtol = atol = %g' % LM_TOL}")
+        worst = max(worst, float((err / bnd).max()))
+        top2 = np.sort(w, -1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        thr = 2 * (rel * top[..., 0] if rel is not None else LM_TOL)
+        differ = np.argmax(g, -1) != np.argmax(w, -1)
+        check(not bool((differ & (margin > thr)).any()),
+              f"{name}: step {s} greedy tokens differ at a CPU margin above "
+              f"twice the tolerance")
+        if differ.any():
+            return worst, False
+    check(len(got) == len(want), f"{name}: {len(got)} decode steps on the "
+          f"card, {len(want)} on the CPU")
+    return worst, True
+
+
+def _fault_drawn(name, card: dict, cpu: dict) -> bool:
+    """A faulty dispatch's flip-drawn fields, card against the CPU run:
+    both exact after vote and retry, the same redispatches, remaps and
+    host fallbacks, injected flips within the Poisson bound |a - b| <=
+    4 sqrt(a + b) + 4, at most 3 retries.  (Philox draws the same bits on
+    both, so they are expected equal; printed, not required.)"""
+    check(card["exact"] and cpu["exact"],
+          f"{name}: a faulty dispatch was not exact after vote and retry")
+    fc, fp = card["faults"], cpu["faults"]
+    check(fc.keys() == fp.keys() and all(
+        fc[k] == fp[k] for k in ("redispatches", "remapped",
+                                 "host_fallbacks")),
+          f"{name}: fault stats {fc} against the CPU's {fp}")
+    a, b = fc["injected"], fp["injected"]
+    check(abs(a - b) <= 4 * np.sqrt(a + b) + 4 and fc["retries"] <= 3,
+          f"{name}: {a} flips injected on the card, {b} on the CPU, or more "
+          f"than 3 retries ({fc['retries']})")
+    return _same_values(card, cpu)
+
+
+def examples_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 14: every ``examples_torch/`` file in-process on the card at
+    the reference example's sizes (``train_lm.py`` at ``TRAIN_LM_STEPS``
+    steps, from a directory under ``build/``), its kernel launches
+    counted; then its twin run (a repeat under ``_Twins``: every launch
+    held against the plain version on host copies of its inputs, one
+    twin per launch of the counted run); then its returned dict held against the same
+    example run with ``--device cpu``.  Returns the launches of every
+    example together."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    work = ROOT / "build" / "examples"
+    if work.exists():
+        import shutil
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", ROOT / "scripts" / "check_trace.py")
+    check_trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_trace)
+
+    total = {k: 0 for k in build.LAUNCHES}
+    errs = {k: [] for k in EXAMPLE_KERNELS_ALL}
+    walls, out = {}, {}
+    cwd = os.getcwd()
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = _load_example(name)
+        argv = ["--device", "cuda"]
+        if name == "train_lm":
+            argv += ["--steps", str(TRAIN_LM_STEPS)]
+        traces = []
+        if name == "telemetry_quickstart":
+            # the example exports to /tmp as its reference does; here its
+            # two files go under build/examples
+            wct, wjl = obs.write_chrome_trace, obs.write_jsonl
+
+            def chrome(path, *a, **k):
+                traces.append(wct(str(work / Path(path).name), *a, **k))
+                return traces[-1]
+
+            obs.write_chrome_trace = chrome
+            obs.write_jsonl = lambda path, *a, **k: wjl(
+                str(work / Path(path).name), *a, **k)
+        try:
+            os.chdir(work)
+            build.reset_launches()
+            got, text, wall = _run_example(mod, argv, card=True)
+            counts = dict(build.LAUNCHES)
+            twin_s = None
+            if any(counts[k] for k in EXAMPLE_KERNELS_ALL):
+                t0 = time.perf_counter()
+                with _Twins(host=True) as tw:
+                    _run_example(mod, argv, card=True)
+                twin_s = time.perf_counter() - t0
+                for k in EXAMPLE_KERNELS_ALL:
+                    check(len(tw.errs[k]) == counts[k],
+                          f"{name}: {len(tw.errs[k])} {k} launches in the "
+                          f"twin run, {counts[k]} in the counted run")
+                    errs[k] += tw.errs[k]
+            want = cpu_text = cpu_wall = None
+            if name != "train_lm":
+                build.reset_launches()
+                want, cpu_text, cpu_wall = _run_example(
+                    mod, ["--device", "cpu"], card=False)
+                check(not any(build.LAUNCHES.values()),
+                      f"{name}: the CPU run launched a kernel")
+        finally:
+            os.chdir(cwd)
+            if name == "telemetry_quickstart":
+                obs.write_chrome_trace, obs.write_jsonl = wct, wjl
+        for k in total:
+            total[k] += counts[k]
+        # every kernel the example runs was launched, and K4 never
+        for k in kernels:
+            check(counts[k] > 0, f"{name}: kernel {k} was not launched on "
+                  f"the card ({counts})")
+        check(counts["popmatmul"] == 0, f"{name}: launched K4 ({counts})")
+        res = {"launches": counts, "card_s": wall, "twin_s": twin_s,
+               "cpu_s": cpu_wall, "output": text}
+        if name in ("serve_llm", "chip_offload_quickstart"):
+            res["logits_err"], agree = _example_decode(
+                name, got["lm"]["logits"], want["lm"]["logits"],
+                LM_BF16_REL)
+            res["tokens_agree"] = agree
+            if agree:
+                check(got["lm"]["tokens"] == want["lm"]["tokens"],
+                      f"{name}: tokens differ though every step agreed")
+            elif name == "chip_offload_quickstart":
+                got["modeled"].pop("offload"), want["modeled"].pop("offload")
+        elif name == "pum_offload_demo":
+            res["logits_err"], _ = _example_decode(
+                name, [got["lm"]["logits"]], [want["lm"]["logits"]], None)
+        elif name == "train_lm":
+            losses = got["lm"]["losses"]
+            check(len(losses) == TRAIN_LM_STEPS and np.isfinite(losses).all(),
+                  f"train_lm: losses {losses}")
+            res["losses"] = losses
+        if name == "fault_tolerance_quickstart":
+            res["drawn_equal"] = all(
+                _fault_drawn(name, got["drawn"][k], want["drawn"][k])
+                for k in ("bank", "chip"))
+        if want is not None:
+            for key in ("results", "modeled"):
+                check(_same_values(got.get(key), want.get(key)),
+                      f"{name}: the card's {key} differ from the CPU run's")
+            res["lines"] = [len(text.splitlines()),
+                            len(cpu_text.splitlines())]
+        if name == "telemetry_quickstart":
+            # one trace each from the card's run, its twin and the CPU's
+            errors = [check_trace.check_trace(t) for t in traces]
+            check(len(traces) == 3 and not any(errors), f"{name}: "
+                  f"{len(traces)} Chrome traces written, check_trace finds "
+                  f"{[e[:5] for e in errors]}")
+        walls[name] = (wall, twin_s, cpu_wall)
+        out[name] = res
+        del got, want
+        print(f"[14] {name}: card {wall:.2f} s"
+              + (f", twin {twin_s:.2f} s" if twin_s is not None else "")
+              + (f", CPU {cpu_wall:.2f} s" if cpu_wall is not None else "")
+              + f"; launches { {k: v for k, v in counts.items() if v} }"
+              + ("".join(f"; {k} {v}" for k, v in res.items()
+                         if k in ("logits_err", "tokens_agree",
+                                  "drawn_equal", "losses"))),
+              flush=True)
+        torch.cuda.empty_cache()
+
+    for k in EXAMPLE_KERNELS_ALL:
+        if not total[k]:
+            continue
+        check(len(errs[k]) == total[k] and max(errs[k]) == 0,
+              f"{k}: the examples' launches disagree with the plain version "
+              f"({len(errs[k])} compared of {total[k]}, largest error "
+              f"{max(errs[k], default=None)})")
+        _agree(kern[k]["agreement"], "examples", total[k], errs[k])
+        print(f"[14] {k}: {total[k]} launches on the examples' path, each "
+              f"twin against the plain version on its inputs: largest "
+              f"error {max(errs[k])}", flush=True)
+    print(f"[14] example walls, card / twin run / CPU s ({record['card']}): "
+          + ", ".join(f"{n} " + " / ".join(
+              "-" if t is None else f"{t:.2f}" for t in ts)
+              for n, ts in walls.items()), flush=True)
+    record["examples"] = out
+    return total
+
+
 def _graphed_step(step, params, caches, dev):
     """``step`` (``make_serve_step``'s function) on one slot captured as a
     CUDA graph after one warm-up call on a side stream: (graph, token and
@@ -4516,7 +4844,9 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     needed = [EXPERIMENTS / "popmma_probe.py", ROOT / "BENCH_apps.json",
-              ROOT / "BENCH_serving.json", ROOT / "scripts" / "check_trace.py"]
+              ROOT / "BENCH_serving.json", ROOT / "scripts" / "check_trace.py",
+              *(ROOT / "examples_torch" / f"{name}.py"
+                for name in EXAMPLE_KERNELS)]
     if not (SRC / "repro_torch").is_dir() or not all(
             f.is_file() for f in needed):
         print(f"chip_smoke: no port package under {SRC}, or one of "

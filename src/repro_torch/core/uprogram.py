@@ -33,6 +33,7 @@ stores in its μProgram memory and replays on a ``bbop`` instruction.
 
 from __future__ import annotations
 
+import bisect
 import functools
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
@@ -310,17 +311,17 @@ def _forward_stores(
     changed = False
     while True:
         acc = _access_lists(cmds)
-        nxt: Dict[Tuple[int, int], int] = {}   # (row, idx) -> list position
-        for row, lst in acc.items():
-            for pos, (i, _k) in enumerate(lst):
-                nxt[(row, i)] = pos
+        # each row's access indices, ascending: a command's place in its
+        # row's list, and whether a row is touched inside a window, are
+        # binary searches
+        at = {row: [i for i, _k in lst] for row, lst in acc.items()}
         applied = False
         for i, c in enumerate(cmds):
             if c.kind != "AAP" or c.src[0] == c.dst[0]:
                 continue
             d, nd = c.dst
             lst = acc.get(d, [])
-            pos = nxt[(d, i)]
+            pos = bisect.bisect_left(at[d], i)
             if pos + 1 >= len(lst):
                 continue
             j, jkind = lst[pos + 1]
@@ -332,9 +333,9 @@ def _forward_stores(
             pol = nd ^ nsj ^ ny
             if pol and y not in DCC_ROWS:
                 continue                       # no negating write port on y
-            ylst = acc.get(y, [])
-            between = [k for k, _ in ylst if i < k < j]
-            if between:
+            yat = at.get(y, [])
+            first = bisect.bisect_right(yat, i)
+            if first < len(yat) and yat[first] < j:
                 continue                       # y is touched before the re-copy
             # d must be dead after j: next access is a fresh write, or none
             if pos + 2 < len(lst):

@@ -355,11 +355,17 @@ def test_zero_lane_instruction_in_mixed_queue():
     assert fused.stats.subarray_programs.sum() == 2
 
 
-def test_round_robin_wraparound_large_queue():
+def round_robin_case(n_instrs: int, seed: int, lanes: int):
+    """A queue of ``n_instrs`` 8-bit addition/subtraction/min (cycled)
+    over a 4-subarray bank: oracle-exact, the reference's results and
+    modeled stats (``_both``), every instruction placed once and no
+    subarray more than two programs ahead.  Also run at
+    ``tests/test_bank_engine.py``'s queue by
+    ``tests/test_torch_bank_engine.py``.  Returns the fused bank."""
     def build(mod):
-        rng = np.random.default_rng(10)
+        rng = np.random.default_rng(seed)
         return [_rand_instr(mod, rng, ("addition", "subtraction", "min")[i % 3],
-                            8, lanes=32) for i in range(23)]
+                            8, lanes=lanes) for i in range(n_instrs)]
 
     fused, _, rf = _both(build, n_subarrays=4)
     for ins, got in zip(build(pt_bank), rf):
@@ -368,8 +374,13 @@ def test_round_robin_wraparound_large_queue():
         np.testing.assert_array_equal(np.asarray(got).astype(np.int64) & 0xFF,
                                       want.astype(np.int64) & 0xFF)
     progs = fused.stats.subarray_programs
-    assert progs.sum() == 23
+    assert progs.sum() == n_instrs
     assert progs.max() - progs.min() <= 2
+    return fused
+
+
+def test_round_robin_wraparound_large_queue():
+    round_robin_case(23, seed=10, lanes=32)
 
 
 def test_ref_validation():

@@ -1092,3 +1092,54 @@ def test_resumed_training_on_card_is_exact(cuda, tmp_path, monkeypatch):
                                                ra["logs"][2:]]
     for x, y in zip(flatten(rb["params"]), flatten(ra["params"])):
         assert torch.equal(x, y)
+
+
+# the examples of examples_torch/ on the card: the launches of each
+# example that launches a kernel (chip_smoke.py phase 14 holds every one
+# against the plain version and each example's results against its CPU
+# run); chip_offload's decode steps set its K5 count, so it is bounded
+EXAMPLE_LAUNCHES = {
+    "quickstart": {"h2v": 2, "v2h": 1, "circuit": 2, "replay": 1},
+    "bank_scaling_quickstart": {"replay": 3},
+    "fused_dispatch_quickstart": {"h2v": 1, "v2h": 4, "replay": 13},
+    "compaction_quickstart": {"v2h": 2, "replay": 18},
+    "simdram_database": {"circuit": 21},
+    "chip_offload_quickstart": {"v2h": 3, "replay": None},
+    "channel_quickstart": {"v2h": 3, "replay": 6},
+    "rank_overlap_quickstart": {"v2h": 3, "replay": 16},
+    "fault_tolerance_quickstart": {"replay": 8, "faulty_replay": 21},
+    "telemetry_quickstart": {"replay": 2, "faulty_replay": 4},
+    "serving_quickstart": {"replay": 3, "faulty_replay": 6},
+    "pum_offload_demo": {"circuit": 4},
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_LAUNCHES))
+def test_example_launches_its_kernels(cuda, name, tmp_path, monkeypatch):
+    import contextlib
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    from repro_torch import obs
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", root / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.chdir(tmp_path)
+    # the telemetry example exports to /tmp; here under tmp_path
+    for fn in ("write_chrome_trace", "write_jsonl"):
+        orig = getattr(obs, fn)
+        monkeypatch.setattr(obs, fn, lambda path, *a, _f=orig, **k: _f(
+            str(tmp_path / Path(path).name), *a, **k))
+    build.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = mod.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in build.LAUNCHES.items() if v}
+    want = EXAMPLE_LAUNCHES[name]
+    assert got.keys() == want.keys(), got
+    assert all(got[k] == n or (n is None and got[k] > 0)
+               for k, n in want.items()), got
+    assert out["launches"] == build.LAUNCHES

@@ -15,7 +15,12 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + _example_files() + sorted(ROOT.glob("scripts/*_torch.py")))
+
+
+def _example_files():
+    return sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -169,3 +174,30 @@ def test_unported_options_raise(kwargs, match):
         return
     with pytest.raises(ValueError, match=match):
         SimdramDevice(device="cpu", **kwargs)
+
+
+def test_every_reference_example_has_a_port():
+    """``examples_torch/`` holds one file for each reference example,
+    under the same name."""
+    want = sorted(p.name for p in (ROOT / "examples").glob("*.py"))
+    assert [p.name for p in _example_files()] == want
+
+
+@pytest.mark.parametrize("path", _example_files(), ids=lambda p: p.name)
+def test_example_without_a_card_raises(path, monkeypatch):
+    """An example run with no ``--device`` wants the card: without one it
+    raises before it prints anything; it never carries on on the CPU."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(f"ex_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    assert buf.getvalue() == ""
