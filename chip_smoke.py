@@ -226,6 +226,27 @@ Chrome trace goes to ``--trace`` (default
      ``build/examples`` and pass ``scripts/check_trace.py``; each
      example's card, twin-run and CPU walls on one line with the card's name and
      power limit (the ``examples`` path of K1, K2, K3, K5 and K6);
+ 15. the ladder split across devices (``distributed/pum.py``), run after
+     phase 14 and before the kernels line: each mesh over the visible
+     cards where there are enough, else over ``cuda:0`` repeated (each
+     position on its own stream; printed).  The chip at full ``DDR4``
+     width over ``data`` = 4 and 16 (phase 7's mix queue at 8 bits and
+     its chain queue), phase 7's 8-chip channel over ``("channel",
+     "data")`` = (2, 4) (a mix queue of one 8-bit instruction a unit),
+     the rank at the reference's subprocess geometry (2 x 2 x 2 x 2
+     subarrays) over (2, 2, 2), and the faulty chip and 2-chip channel
+     split as the chip (4) and the channel, an 8-bit mix queue of one
+     instruction a unit, stuck-only and with phase 7's flips at a quarter
+     of its lanes (``SPLIT_FAULT_MODELS``): results and every modeled
+     field ``==`` the unsplit executor's on the card (the rank's also
+     ``==`` the CPU's), fault runs' flip counts of every attempt and
+     ``FaultStats`` too; K5 launches = rounds x positions, K6 launches
+     = attempts x positions; a twin of each split run holds every slab
+     launch against the plain version on host copies of its inputs,
+     stacked by shape; a repeated split chip dispatch misses the table
+     cache no more than the unsplit repeat.  Split and unsplit walls
+     are printed beside the card (the ``split`` and ``split faults``
+     paths of K5 and K6);
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -241,9 +262,9 @@ Chrome trace goes to ``--trace`` (default
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6, each tier of phase 7, each app run of phase 8, each served run
 of phase 9, the PuM forward and the counted burst of phase 10, the PuM
-train steps of phase 12 and each example's card run of phase 14) and
-read just after; comparison launches come after the read (phase 14's
-in its twin runs).
+train steps of phase 12, each example's card run of phase 14 and each
+split run of phase 15) and read just after; comparison launches come
+after the read (phases 14's and 15's in their twin runs).
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line; each failed check names its
 phase and the values it compared.  No check reads a time, a rate, an
@@ -449,6 +470,28 @@ PIPE_MICRO = 4
 PIPE_BATCH = 8
 PIPE_SEQ = 512
 PIPE_TOL = 1e-3
+
+# the ladder split across devices (phase 15): the chip over "data" =
+# SPLIT_CHIP_POSITIONS, phase 7's 8-chip channel over ("channel", "data")
+# = SPLIT_CHANNEL_MESH, the reference's subprocess rank geometry
+# (tests/test_rank.py) over SPLIT_RANK_MESH, and the fault wrappers (the
+# chip, a channel of SPLIT_FAULT_CHIPS chips) split as the chip's first
+# mesh and the channel's, stuck-only and with phase 7's flips.  The flips
+# run at a quarter of phase 7's lanes: at 32,768 the phase took 38.3 s,
+# 18.3 s of it the plain versions of its twins (PERF.md), against a 30 s
+# budget
+SPLIT_CHIP_POSITIONS = (4, 16)
+SPLIT_CHANNEL_CHIPS = 8
+SPLIT_CHANNEL_MESH = (2, 4)
+SPLIT_RANK = {"n_channels": 2, "n_chips": 2, "n_banks": 2,
+              "n_subarrays": 2}
+SPLIT_RANK_MESH = (2, 2, 2)
+SPLIT_FAULT_CHIPS = 2
+SPLIT_FAULT_MODELS = (
+    ("flips", FAULT_LANES // 4, dict(sigma=0.15, spare_lanes=1, seed=0,
+                                     max_retries=10)),
+    ("stuck", STUCK_LANES, dict(p_flip=0.0, stuck_lane_rate=1e-4,
+                                spare_lanes=2, seed=0)))
 
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
@@ -1129,6 +1172,8 @@ def run(trace_path: str) -> dict:
     release_device_memory("14")
     phase("14")
     counts_examples = examples_phase(dev, record, kern)
+    phase("15")
+    counts_split = split_phase(dev, record, kern)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -1152,16 +1197,19 @@ def run(trace_path: str) -> dict:
           f"K3 or K5 was not launched on the LM path: {counts_lm}")
     check(counts_train["circuit"] > 0,
           f"K3 was not launched on the training path: {counts_train}")
+    check(counts_split["replay"] > 0 and counts_split["faulty_replay"] > 0,
+          f"K5 or K6 was not launched on the split path: {counts_split}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
                 + counts_serve[name] + counts_lm[name] + counts_train[name]
-                + counts_examples[name]
+                + counts_examples[name] + counts_split[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
                                  + counts_ladder["faulty_replay"]
                                  + counts_serve["faulty_replay"]
-                                 + counts_examples["faulty_replay"])
+                                 + counts_examples["faulty_replay"]
+                                 + counts_split["faulty_replay"])
     meta = {
         "h2v": ("src/repro_torch/csrc/transpose.cu",
                 "src/repro/kernels/transpose_kernel.py:75"),
@@ -1205,7 +1253,7 @@ def run(trace_path: str) -> dict:
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
                     "ns_per_real_cmd", "per_width", "ladder", "serving",
-                    "lm", "train"):
+                    "lm", "train", "split"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
@@ -1222,6 +1270,7 @@ def run(trace_path: str) -> dict:
     record["launches_lm"] = counts_lm
     record["launches_train"] = counts_train
     record["launches_examples"] = counts_examples
+    record["launches_split"] = counts_split
     record["profiler_misses"] = PROFILER_MISSES
     print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
@@ -4789,6 +4838,375 @@ def examples_phase(dev, record: dict, kern: dict) -> dict:
               "-" if t is None else f"{t:.2f}" for t in ts)
               for n, ts in walls.items()), flush=True)
     record["examples"] = out
+    return total
+
+
+class _SlabTwins:
+    """Within ``with``: every K5 and K6 launch made through the port's
+    wrappers keeps host copies of its inputs (tables cut at the longest
+    real command count, whose NOPs after it change nothing) and outputs,
+    as :func:`_stacked_plain` members, keyed by state shape (and K6's
+    flip threshold).  The copies are read on the launch's own stream."""
+
+    def __init__(self):
+        self.k5, self.k6 = [], []
+
+    def __enter__(self):
+        from repro_torch.core import control_unit as cu
+        self.cu = cu
+        self.made = k5, k6 = cu._replay_kernel, cu._faulty_replay_kernel
+
+        def cut(states, tables, schedule):
+            per_unit = tables if tables.dim() == 3 else tables.expand(
+                states.shape[0], *tables.shape)
+            return per_unit[:, :int(schedule[0].max())].cpu()
+
+        def replay(states, tables, schedule):
+            out = k5(states, tables, schedule)
+            self.k5.append((tuple(states.shape[1:]),
+                            (states.cpu(), cut(states, tables, schedule)),
+                            (out.cpu(),)))
+            return out
+
+        def faulty(states, tables, schedule, keys, s0, s1, dead, thr):
+            outs = k6(states, tables, schedule, keys, s0, s1, dead, thr)
+            self.k6.append((tuple(states.shape[1:]) + (thr,),
+                            (states.cpu(), cut(states, tables, schedule),
+                             keys.cpu(), s0.cpu(), s1.cpu(), dead.cpu()),
+                            tuple(o.cpu() for o in outs)))
+            return outs
+
+        cu._replay_kernel, cu._faulty_replay_kernel = replay, faulty
+        return self
+
+    def __exit__(self, *exc):
+        self.cu._replay_kernel, self.cu._faulty_replay_kernel = self.made
+
+    def hold(self, dev, label: str) -> tuple:
+        """Every kept launch against the plain version on the card, those
+        of one key in one call: (K5 errors, K6 errors, K5's and K6's
+        plain s)."""
+        from repro_torch.core.control_unit import (faulty_replay_plain,
+                                                   replay_plain)
+        e5, p5 = _stacked_plain(self.k5, lambda key, st, tb: (
+            replay_plain(st.to(dev), tb.to(dev)).cpu(),))
+        e6, p6 = _stacked_plain(self.k6, lambda key, st, tb, *rest: tuple(
+            o.cpu() for o in faulty_replay_plain(
+                st.to(dev), tb.to(dev), *(r.to(dev) for r in rest),
+                key[2] / 2 ** 32)))
+        check(max(e5 + e6, default=0) == 0,
+              f"{label}: a slab launch disagrees with the plain version "
+              f"(K5 {e5}, K6 {e6})")
+        return e5, e6, sum(p5), sum(p6)
+
+
+def _split_mesh(sizes, axes) -> tuple:
+    """A mesh of ``sizes`` over the visible cards where there are enough,
+    else over ``cuda:0`` repeated: (mesh, which)."""
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(sizes))
+    if torch.cuda.device_count() >= n:
+        return (Mesh(sizes, axes, [torch.device("cuda", i)
+                                   for i in range(n)]),
+                f"{n} visible cards")
+    return (Mesh(sizes, axes, [torch.device("cuda", 0)] * n),
+            f"cuda:0 repeated {n} times")
+
+
+def _split_run(make, queue_fn, fault: bool = False) -> dict:
+    """One dispatch on a fresh engine ``make()`` of ``queue_fn()`` (made
+    before the counters are set to 0), counted and timed; the faulty
+    executor's attempts keep their flip counts.  Returns the engine,
+    flattened results, modeled stats, launches, attempts, table-cache
+    misses and host wall."""
+    import torch
+
+    from repro_torch.core.control_unit import TABLE_CACHE
+    from repro_torch.kernels import build
+    eng = make()
+    queue = queue_fn()
+    flips: list = []
+    if fault:
+        run, ex = eng._faulty_executor.run, eng._faulty_executor
+
+        def rec(*args):
+            out = run(*args)
+            flips.append(out[1].cpu().numpy())
+            return out
+
+        eng._faulty_executor = dataclasses.replace(ex, run=rec)
+    misses = TABLE_CACHE.stats()["misses"]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.dispatch(queue)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    stats = eng.stats.as_dict()
+    return {"engine": eng, "results": _flat(res), "wall_s": wall,
+            "launches": counts, "flips": flips,
+            "misses": TABLE_CACHE.stats()["misses"] - misses,
+            "modeled": {k: v for k, v in stats.items()
+                        if k not in MEASURED_STATS}}
+
+
+def _same_run(label: str, got: dict, want: dict, fault: bool = False):
+    check(len(got["results"]) == len(want["results"]) and all(
+        np.array_equal(g, e) for g, e in zip(got["results"],
+                                             want["results"])),
+          f"{label}: results differ from the unsplit run's")
+    check(got["modeled"] == want["modeled"],
+          f"{label}: modeled stats differ from the unsplit run's: "
+          + str({k: (v, want["modeled"].get(k))
+                 for k, v in got["modeled"].items()
+                 if v != want["modeled"].get(k)}))
+    if fault:
+        check(len(got["flips"]) == len(want["flips"]) and all(
+            np.array_equal(g, e) for g, e in zip(got["flips"],
+                                                 want["flips"])),
+              f"{label}: flip counts of an attempt differ from the unsplit "
+              f"run's ({len(got['flips'])} and {len(want['flips'])} "
+              f"attempts)")
+
+
+def split_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 15: the chip, channel and rank split across a device mesh,
+    and the chip's and a channel's fault wrappers split, each against
+    the unsplit executor on the card; twins of the split runs hold every
+    slab launch against the plain version.  Returns the split runs'
+    launches."""
+    import torch
+
+    from repro_torch.core import bank as bank_mod
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.core.fault import FaultModel
+    from repro_torch.core.ops_library import get_op
+    from repro_torch.core.rank import SimdramRank
+    from repro_torch.core.timing import DDR4
+    from repro_torch.kernels import build
+
+    lanes = DDR4.columns_per_subarray
+    banks, subs = DDR4.n_banks, DDR4.subarrays_per_bank
+    total = {k: 0 for k in build.LAUNCHES}
+    rows: dict = {}
+    twins = _SlabTwins()
+    twinned = {"replay": 0, "faulty_replay": 0}
+
+    def counted(label, run, positions, n_rounds, kernel):
+        got = run["launches"]
+        check(got[kernel] == n_rounds * positions
+              and all(v == 0 for k, v in got.items() if k != kernel),
+              f"{label}: launches {got} for {n_rounds} rounds (attempts) "
+              f"on {positions} positions")
+        for k, v in got.items():
+            total[k] += v
+
+    def twin(label, make, queue_fn, n_launches, kernel):
+        """The split run again under ``twins``, which keeps as many slab
+        launches as the counted run's (held against the plain version at
+        the end of the phase, every state shape in one call)."""
+        before = len(twins.k5), len(twins.k6)
+        with twins:
+            again = _split_run(make, queue_fn, fault=kernel != "replay")
+        n5, n6 = len(twins.k5) - before[0], len(twins.k6) - before[1]
+        check((n5, n6) == ((n_launches, 0) if kernel == "replay"
+                           else (0, n_launches)),
+              f"{label}: {n5} K5 and {n6} K6 launches in the twin run, "
+              f"{n_launches} {kernel} launches in the counted run")
+        twinned[kernel] += n_launches
+        return again
+
+    # the chip at full width over data = 4 and 16
+    mix = lambda: mix_queue(bank_mod, get_op, lanes,  # noqa: E731
+                            n_instrs=2 * banks * subs, widths=(8,))
+    chain = lambda: chain_queue(bank_mod, lanes, dev)[0]  # noqa: E731
+
+    def chip_queue():
+        return mix() + chain()
+
+    whole = lambda: SimdramChip(n_banks=banks,  # noqa: E731
+                                n_subarrays=subs, device=dev)
+    _split_run(whole, chip_queue)                  # warm the table cache
+    base = _split_run(whole, chip_queue)
+    n_rounds = base["engine"].stats.rounds
+    chip = {"unsplit_wall_s": base["wall_s"], "rounds": n_rounds,
+            "unsplit_repeat_misses": base["misses"]}
+    for n in SPLIT_CHIP_POSITIONS:
+        mesh, which = _split_mesh((n,), ("data",))
+
+        def make(mesh=mesh):
+            return SimdramChip(n_banks=banks, n_subarrays=subs, device=dev,
+                               mesh=mesh)
+
+        got = _split_run(make, chip_queue)
+        label = f"chip over data = {n}"
+        check(got["engine"].executor.sharded, f"{label}: not split")
+        _same_run(label, got, base)
+        counted(label, got, n, n_rounds, "replay")
+        again = twin(label, make, chip_queue, got["launches"]["replay"],
+                     "replay")
+        _same_run(f"{label}, twin run", again, base)
+        check(again["misses"] <= base["misses"],
+              f"{label}: the repeated split dispatch missed the table cache "
+              f"{again['misses']} times, the unsplit repeat "
+              f"{base['misses']}")
+        chip[f"data={n}"] = {"mesh": which, "wall_s": got["wall_s"],
+                             "twin_wall_s": again["wall_s"],
+                             "repeat_misses": again["misses"],
+                             "launches": got["launches"]["replay"]}
+        print(f"[15] {label} ({which}): {n_rounds} rounds, "
+              f"{got['launches']['replay']} K5 launches, results and "
+              f"modeled stats == the unsplit run; wall {got['wall_s']:.3f} "
+              f"s against unsplit {base['wall_s']:.3f} s; repeat misses "
+              f"{again['misses']} (unsplit {base['misses']})", flush=True)
+    rows["chip"] = chip
+
+    # the channel (phase 7's 8 chips) over (channel, data) = (2, 4)
+    n_chips = SPLIT_CHANNEL_CHIPS
+    units = n_chips * banks * subs
+    ch_queue = lambda: mix_queue(bank_mod, get_op, lanes,  # noqa: E731
+                                 n_instrs=units, widths=(8,))
+    mesh, which = _split_mesh(SPLIT_CHANNEL_MESH, ("channel", "data"))
+    positions = int(np.prod(SPLIT_CHANNEL_MESH))
+
+    def channel(mesh=None, fault=None, chips=n_chips):
+        return lambda: SimdramChannel(
+            n_chips=chips, n_banks=banks, n_subarrays=subs, device=dev,
+            mesh=mesh, use_shard_map=None if mesh else False, fault=fault)
+
+    base = _split_run(channel(), ch_queue)
+    got = _split_run(channel(mesh), ch_queue)
+    label = f"channel of {n_chips} chips over (channel, data) = " \
+        f"{SPLIT_CHANNEL_MESH}"
+    _same_run(label, got, base)
+    n_rounds = base["engine"].stats.super_rounds
+    counted(label, got, positions, n_rounds, "replay")
+    twin(label, channel(mesh), ch_queue, got["launches"]["replay"],
+         "replay")
+    rows["channel"] = {"mesh": which, "rounds": n_rounds,
+                       "wall_s": got["wall_s"],
+                       "unsplit_wall_s": base["wall_s"],
+                       "launches": got["launches"]["replay"]}
+    print(f"[15] {label} ({which}): {n_rounds} super-rounds, "
+          f"{got['launches']['replay']} K5 launches, results and modeled "
+          f"stats == the unsplit run; wall {got['wall_s']:.3f} s against "
+          f"unsplit {base['wall_s']:.3f} s", flush=True)
+
+    # the rank at the reference's subprocess geometry over (2, 2, 2), and
+    # on the CPU
+    rng = np.random.default_rng(0)
+
+    def rank_queue():
+        queue = []
+        for op in ("addition", "multiplication", "greater", "xor_red"):
+            spec = get_op(op, 8)
+            queue.append(bank_mod.BbopInstr(op, tuple(
+                rng.integers(0, 1 << w, 64).astype(np.uint64)
+                for w in spec.operand_bits), 8))
+        queue.append(bank_mod.BbopInstr("relu", (bank_mod.Ref(0),), 8))
+        return queue
+
+    mesh, which = _split_mesh(SPLIT_RANK_MESH, ("rank", "channel", "data"))
+    runs = {}
+    for key, kw in (("split", {"mesh": mesh}),
+                    ("unsplit", {"use_shard_map": False}),
+                    ("cpu", {"device": "cpu", "use_shard_map": False})):
+        rng = np.random.default_rng(0)
+        runs[key] = _split_run(lambda kw=kw: SimdramRank(
+            **{"device": dev, **SPLIT_RANK, **kw}), rank_queue)
+    label = f"rank {SPLIT_RANK} over (rank, channel, data) = " \
+        f"{SPLIT_RANK_MESH}"
+    _same_run(label, runs["split"], runs["unsplit"])
+    _same_run(f"{label} against the CPU", runs["split"], runs["cpu"])
+    n_rounds = runs["unsplit"]["engine"].stats.super_rounds
+    positions = int(np.prod(SPLIT_RANK_MESH))
+    counted(label, runs["split"], positions, n_rounds, "replay")
+    rng = np.random.default_rng(0)
+    twin(label, lambda: SimdramRank(device=dev, mesh=mesh, **SPLIT_RANK),
+         rank_queue, runs["split"]["launches"]["replay"], "replay")
+    rows["rank"] = {"mesh": which, "rounds": n_rounds,
+                    "wall_s": runs["split"]["wall_s"],
+                    "unsplit_wall_s": runs["unsplit"]["wall_s"],
+                    "cpu_wall_s": runs["cpu"]["wall_s"],
+                    "launches": runs["split"]["launches"]["replay"]}
+    print(f"[15] {label} ({which}): {n_rounds} rounds, "
+          f"{runs['split']['launches']['replay']} K5 launches, results and "
+          f"modeled stats == the unsplit run and the CPU's", flush=True)
+
+    # the fault wrappers: the chip over data = 4, a 2-chip channel over
+    # (channel, data) = (2, 4)
+    chip_mesh, chip_which = _split_mesh((SPLIT_CHIP_POSITIONS[0],),
+                                        ("data",))
+    ch_mesh, ch_which = _split_mesh(SPLIT_CHANNEL_MESH, ("channel", "data"))
+    for tier, n_units, mesh, which in (
+            ("chip", banks * subs, chip_mesh, chip_which),
+            ("channel", SPLIT_FAULT_CHIPS * banks * subs, ch_mesh,
+             ch_which)):
+        positions = mesh.size
+        for name, fault_lanes, model in SPLIT_FAULT_MODELS:
+            queue = lambda: mix_queue(  # noqa: E731
+                bank_mod, get_op, fault_lanes, n_instrs=n_units,
+                widths=(8,))
+
+            def make(mesh=None, tier=tier, model=model):
+                if tier == "chip":
+                    return lambda: SimdramChip(
+                        n_banks=banks, n_subarrays=subs, device=dev,
+                        mesh=mesh, use_shard_map=None if mesh else False,
+                        fault=FaultModel(**model))
+                return channel(mesh, FaultModel(**model), SPLIT_FAULT_CHIPS)
+
+            base = _split_run(make(), queue, fault=True)
+            got = _split_run(make(mesh), queue, fault=True)
+            label = f"faulty {tier} ({name}) over {dict(mesh.shape)}"
+            _same_run(label, got, base, fault=True)
+            fs, want = (got["engine"].stats.faults.as_dict(),
+                        base["engine"].stats.faults.as_dict())
+            check(fs == want, f"{label}: FaultStats {fs} against the "
+                  f"unsplit run's {want}")
+            counted(label, got, positions, len(got["flips"]),
+                    "faulty_replay")
+            twin(label, make(mesh), queue,
+                 got["launches"]["faulty_replay"], "faulty_replay")
+            rows[f"faulty_{tier}_{name}"] = {
+                "mesh": which, "attempts": len(got["flips"]),
+                "launches": got["launches"]["faulty_replay"],
+                "wall_s": got["wall_s"], "unsplit_wall_s": base["wall_s"],
+                "faults": fs}
+            print(f"[15] {label} ({which}): {len(got['flips'])} attempts, "
+                  f"{got['launches']['faulty_replay']} K6 launches; "
+                  f"results, modeled stats, flip counts and FaultStats == "
+                  f"the unsplit run {json.dumps(fs)}; wall "
+                  f"{got['wall_s']:.3f} s against unsplit "
+                  f"{base['wall_s']:.3f} s", flush=True)
+
+    e5, e6, plain5, plain6 = twins.hold(dev, "the split runs' twins")
+    check((len(e5), len(e6)) == (twinned["replay"],
+                                 twinned["faulty_replay"]),
+          f"{len(e5)} K5 and {len(e6)} K6 twins held, {twinned} launched")
+    _agree(kern["replay"]["agreement"], "split", total["replay"], e5)
+    _agree(kern["faulty_replay"]["agreement"], "split faults",
+           total["faulty_replay"], e6)
+    kern["replay"]["split"] = {k: v for k, v in rows.items()
+                               if not k.startswith("faulty")}
+    kern["faulty_replay"]["split"] = {k: v for k, v in rows.items()
+                                      if k.startswith("faulty")}
+    walls = {k: (v.get("wall_s", v.get("data=4", {}).get("wall_s")),
+                 v.get("unsplit_wall_s"))
+             for k, v in rows.items()}
+    print(f"[15] split / unsplit walls s ({record['card']}): " + ", ".join(
+        f"{k} " + " / ".join("-" if t is None else f"{t:.3f}" for t in ts)
+        for k, ts in walls.items()) + "; the chip over data = 16 "
+        f"{rows['chip']['data=16']['wall_s']:.3f}", flush=True)
+    print(f"[15] every slab launch of the twin runs equals the plain "
+          f"version: K5 {len(e5)} of {total['replay']}, K6 {len(e6)} of "
+          f"{total['faulty_replay']} (plain K5 {plain5:.2f} s, K6 "
+          f"{plain6:.2f} s, each state shape in one call)", flush=True)
+    rows["plain_s"] = {"replay": plain5, "faulty_replay": plain6}
+    record["split"] = rows
     return total
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # CI gate of the PyTorch port (src/repro_torch), on the CPU: collection,
-# the port's parity tests, the compiler gates, every example with
-# --device cpu, and the card's smoke where nvidia-smi finds a card.
+# the port's parity tests, the ladder split over CPU positions (slow cases
+# included), the compiler gates, every example with --device cpu, and the
+# card's smoke where nvidia-smi finds a card.
 #
 # Run from the repo root:  bash scripts/ci_torch.sh
 #
@@ -27,6 +28,12 @@ python -m pytest --collect-only -q >/dev/null
 
 echo "== the port's parity tests (tests/test_torch_*.py; card cases skip) =="
 python -m pytest -x -q tests/test_torch_*.py
+
+echo "== the ladder split across devices: chip, channel and rank over meshes of CPU positions, the forced-device subprocesses included =="
+# the port's counterpart of ci.sh's forced-host-device steps: a mesh
+# names the CPU 2, 4 or 8 times, and the slow cases run each tier split
+# in a fresh process against the sequential drain
+python -m pytest -x -q -m "" tests/test_torch_pum_sharded.py
 
 echo "== μProgram validation on the port (16 ops, MIG + AIG, DRAM oracle) =="
 python scripts/check_uprograms_torch.py

@@ -56,7 +56,7 @@ import torch
 from ..kernels import ops as kops
 from ..kernels.build import resolve_device
 from . import bitplane
-from .control_unit import (CMD_WIDTH, TABLE_CACHE, CommandTables,
+from .control_unit import (CMD_WIDTH, TABLE_CACHE, CommandTables, SlabRound,
                            batched_interpreter,
                            encode_uprogram, faulty_batched_interpreter,
                            hetero_batched_interpreter, load_state,
@@ -1193,8 +1193,12 @@ def submit_stacked(run, states: np.ndarray, tables):
     the executed states back to pinned host memory right behind the
     launch, and an event that marks its end (the host reads the replay
     after the next one was submitted); on the CPU, the executed states
-    and no event."""
+    and no event.  A round split across a device mesh
+    (:class:`~repro_torch.core.control_unit.SlabRound`) copies each slab
+    back on its own stream, with one event a slab."""
     fut = run(states, tables)
+    if isinstance(fut, SlabRound):
+        return fut.to_host()
     if not fut.is_cuda:
         return fut, None
     fut = fut.to("cpu", non_blocking=True)
@@ -1205,22 +1209,25 @@ def submit_stacked(run, states: np.ndarray, tables):
 
 def wait_stacked(done) -> None:
     """Wait for the copy back of a replay :func:`submit_stacked`
-    enqueued (nothing to wait for on the CPU or a healed fault-injected
-    replay)."""
-    if done is not None:
-        done.synchronize()
+    enqueued, every slab's of a split round (nothing to wait for on the
+    CPU or a healed fault-injected replay)."""
+    for event in done if isinstance(done, list) else (done,):
+        if event is not None:
+            event.synchronize()
 
 
 def drain_stacked(fut, done) -> np.ndarray:
     """The executed host states of a replay :func:`submit_stacked`
-    enqueued (waiting for its copy), or of a healed fault-injected one
-    (already a host array), as uint32.  With a tracer, the device times
-    of the launches that have completed by now go to their ``*.replay``
-    spans."""
+    enqueued (waiting for its copy; a split round's slabs put together in
+    the unit order), or of a healed fault-injected one (already a host
+    array), as uint32.  With a tracer, the device times of the launches
+    that have completed by now go to their ``*.replay`` spans."""
     wait_stacked(done)
     tr = active_tracer()
     if tr is not None:
         tr.resolve_device()
+    if isinstance(fut, SlabRound):
+        fut = fut.assemble()
     if isinstance(fut, torch.Tensor):
         return fut.numpy().view(np.uint32)
     return fut

@@ -14,8 +14,9 @@ crosses ONE shared link priced at ``cfg.channel_bw_gbs``.  Here:
     per-round slabs into one ``(n_chips, n_banks, n_subarrays, n_rows,
     n_words)`` array — one *super-round* replays every chip's round in a
     single K5 launch over all its units
-    (:func:`repro_torch.core.control_unit.channel_replay`); the member
-    chips never submit replays of their own;
+    (:func:`repro_torch.core.control_unit.channel_replay`), or one a
+    slab of a device mesh; the member chips never submit replays of
+    their own;
   - :meth:`SimdramChannel.dispatch` bin-packs Ref-connected chains onto
     chips (chains stay chip-local), longest-processing-time-first; within
     each chip the bank partitioner and wave schedulers take over
@@ -346,7 +347,9 @@ class SimdramChannel:
     one chip round per chip into each super-round and replays it in one
     K5 launch on ``device``.  ``mesh``/``use_shard_map`` select the
     executor (:func:`repro_torch.distributed.pum.make_channel_executor`):
-    one card, no split across devices.
+    a ``("channel", "data")`` mesh splits each super-round into chip ×
+    bank slabs, one launch a slab on its position's device and stream.
+    The member chips stay unsplit (``use_shard_map=False``).
     """
 
     def __init__(self, n_chips: int = 2, n_banks: int = 4,

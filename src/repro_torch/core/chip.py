@@ -13,7 +13,8 @@ compute-enabled subarray per bank in lockstep.  Here:
     replays every bank's fused wave in a single K5 launch over all
     ``n_banks × n_subarrays`` units
     (:func:`repro_torch.core.control_unit.chip_replay`, through
-    :func:`repro_torch.distributed.pum.make_chip_executor`);
+    :func:`repro_torch.distributed.pum.make_chip_executor`), or one
+    launch a bank slab when the round is split across a device mesh;
   - :meth:`SimdramChip.dispatch` is the partitioned front-end: the
     queue's Ref-connected producer→consumer chains are indivisible units
     (operand forwarding stays bank-local — planes never cross banks), and
@@ -215,8 +216,11 @@ class SimdramChip:
     vertical operand forwarding); the chip stacks one wave per bank into
     each round and replays the round in one K5 launch on ``device``.
     ``mesh``/``use_shard_map`` select the executor
-    (:func:`repro_torch.distributed.pum.make_chip_executor`): one card,
-    no split across devices.
+    (:func:`repro_torch.distributed.pum.make_chip_executor`): a
+    ``("data",)`` mesh splits each round into bank slabs, one launch a
+    slab on its position's device and stream; ``device`` stays the home
+    of the round's tables.  Without a mesh the banks split over the
+    visible devices of ``device`` when several fit.
     """
 
     def __init__(self, n_banks: int = 4, n_subarrays: int = 4,

@@ -33,15 +33,19 @@ is the same replay with fault injection, and
 :func:`faulty_batched_interpreter` its entry point.  The ladder's
 replays (:func:`chip_replay`, :func:`channel_replay`, :func:`rank_replay`
 and the faulty chip and channel ones) flatten a stacked round's unit
-axes into one and make one K5 or K6 launch.
+axes into one and make one K5 or K6 launch; :func:`split_tier_interpreter`
+cuts a round into the slabs of a device mesh instead, one launch a slab
+on its position's device and stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import itertools
 import time
 from collections import OrderedDict
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -245,7 +249,7 @@ def _replay_kernel(states: torch.Tensor, tables: torch.Tensor,
     timed = tr.launch_begin(states.device) if tr is not None else None
     build.launch("replay", "replay_launch", states.data_ptr(), out.data_ptr(),
                  tables.data_ptr(), stride, schedule.data_ptr(), n_units,
-                 n_rows, n_words, n_cmds)
+                 n_rows, n_words, n_cmds, device=states.device)
     if tr is not None:
         tr.launch_end(timed)
     build.LAUNCHES["replay"] += 1
@@ -585,7 +589,7 @@ def _faulty_replay_kernel(states, tables, schedule, keys, stuck0, stuck1,
                  out.data_ptr(), tables.data_ptr(), stride,
                  schedule.data_ptr(), keys.data_ptr(), stuck0.data_ptr(),
                  stuck1.data_ptr(), dead.data_ptr(), counts.data_ptr(), thr,
-                 n_units, n_rows, n_words, n_cmds)
+                 n_units, n_rows, n_words, n_cmds, device=states.device)
     if tr is not None:
         tr.launch_end(timed)
     build.LAUNCHES["faulty_replay"] += 1
@@ -724,15 +728,20 @@ def _tier_replay(states: torch.Tensor, tables, n_lead: int) -> torch.Tensor:
     return out.reshape(states.shape)
 
 
+def _check_fault_axes(lead: tuple, keys, stuck0, stuck1, dead) -> None:
+    """The fault operands of a round carry the states' unit axes."""
+    for name, t, tail in (("keys", keys, 1), ("stuck0", stuck0, 1),
+                          ("stuck1", stuck1, 1), ("dead", dead, 0)):
+        if tuple(t.shape[:len(t.shape) - tail]) != lead:
+            raise ValueError(f"{name} {tuple(t.shape)} do not fit the unit "
+                             f"axes {lead} of the states")
+
+
 def _faulty_tier_replay(states, tables, keys, stuck0, stuck1, dead, p_flip,
                         n_lead: int):
     lead, flat = _unit_axes(states, n_lead)
     n_units = flat.shape[0]
-    for name, t, tail in (("keys", keys, 1), ("stuck0", stuck0, 1),
-                          ("stuck1", stuck1, 1), ("dead", dead, 0)):
-        if tuple(t.shape[:t.dim() - tail]) != lead:
-            raise ValueError(f"{name} {tuple(t.shape)} do not fit the unit "
-                             f"axes {lead} of the states")
+    _check_fault_axes(lead, keys, stuck0, stuck1, dead)
     out, counts = faulty_bank_replay(
         flat, _flat_tables(tables, lead, n_units),
         keys.reshape(n_units, 2), stuck0.reshape(n_units, -1),
@@ -770,6 +779,265 @@ faulty_chip_batched_interpreter = functools.partial(tier_interpreter, 2,
                                                     fault=True)
 faulty_channel_batched_interpreter = functools.partial(tier_interpreter, 3,
                                                        fault=True)
+
+
+# ---------------------------------------------------------------------------
+# the ladder split across devices: one launch a slab
+# ---------------------------------------------------------------------------
+#
+# The reference's shard_map cuts a round's leading unit axes into equal
+# slabs, one a mesh position ("data" over banks; "channel" and "data" over
+# chips and banks; "rank", "channel" and "data" over channels, chips and
+# banks), and replays each with the same vmapped interpreter.  Here a
+# split round cuts states and tables (on the fault path keys, stuck masks
+# and dead flags too) into the same slabs.  Each slab gets its own
+# CommandTables, because a schedule orders the units of one launch; it
+# uploads to its position's device and makes one K5 (K6) launch there, on
+# its position's stream, so that positions naming one device run side by
+# side.  Slabs share nothing and K6 keys its Philox counter by each unit's
+# own key, so a split round equals the unsplit one bit for bit.
+
+class Slab(NamedTuple):
+    """One mesh position's share of a round: (start, stop) on each split
+    unit axis, the position's device and its stream (None on the CPU)."""
+    bounds: Tuple[Tuple[int, int], ...]
+    device: torch.device
+    stream: Optional[object]
+
+    @property
+    def index(self) -> tuple:
+        return tuple(slice(a, b) for a, b in self.bounds)
+
+
+def _position_stream(streams: dict, device: torch.device, k: int):
+    """The ``k``-th side stream of a CUDA device, made once into
+    ``streams``; None for the CPU."""
+    if device.type != "cuda":
+        return None
+    s = streams.get((device.index, k))
+    if s is None:
+        s = streams[(device.index, k)] = torch.cuda.Stream(device=device)
+    return s
+
+
+def mesh_slabs(mesh, axes: Sequence[str], lead: Sequence[int],
+               streams: dict) -> List[Slab]:
+    """The slabs of a round whose first unit axes ``lead`` split over the
+    mesh axes ``axes`` (unit axis ``j`` into ``mesh.shape[axes[j]]``
+    equal parts), in row-major order of the parts.  A slab runs on the
+    device at its position (the mesh's other axes at 0); the ``k``-th
+    slab on a device gets that device's ``k``-th stream, kept in
+    ``streams`` (one dict an executor)."""
+    parts = [mesh.shape[a] for a in axes]
+    for a, n, m in zip(axes, lead, parts):
+        if n % m:
+            raise ValueError(f"a unit axis of {n} does not divide over mesh "
+                             f"axis {a!r} of {m}")
+    stride, acc = {}, 1
+    for name in reversed(mesh.axis_names):
+        stride[name] = acc
+        acc *= mesh.shape[name]
+    step = [n // m for n, m in zip(lead, parts)]
+    seen: Dict[torch.device, int] = {}
+    slabs = []
+    for pos in itertools.product(*(range(m) for m in parts)):
+        dev = torch.device(
+            mesh.devices[sum(stride[a] * i for a, i in zip(axes, pos))])
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        k = seen[dev] = seen.get(dev, -1) + 1
+        slabs.append(Slab(tuple((i * s, (i + 1) * s)
+                                for i, s in zip(pos, step)),
+                          dev, _position_stream(streams, dev, k)))
+    return slabs
+
+
+@contextlib.contextmanager
+def _on(slab: Slab, wait: bool = True):
+    """``slab``'s device and stream made current; with ``wait`` the
+    stream first waits for what the device's current stream has queued
+    (the tables and states the slab reads)."""
+    if slab.stream is None:
+        yield
+        return
+    with torch.cuda.device(slab.device):
+        if wait:
+            slab.stream.wait_stream(torch.cuda.current_stream(slab.device))
+        with torch.cuda.stream(slab.stream):
+            yield
+
+
+def _cut_tables(tables, lead: tuple, slabs: List[Slab]) -> List[CommandTables]:
+    """Each slab's tables, flattened to one unit axis, with its schedule,
+    on its device.  A :class:`CommandTables` of the round (flattened, as
+    the tiers cache it) gives each slab its units' real counts, in the
+    order of those counts; bare (*lead, n_cmds, 13) tables are worked
+    out anew."""
+    if isinstance(tables, CommandTables):
+        t = _flat_tables(tables, lead, int(np.prod(lead))).tables
+        counts = tables.schedule[0].reshape(lead)
+    elif tuple(tables.shape[:-2]) == lead:
+        t, counts = tables, None
+    else:
+        raise ValueError(f"tables {tuple(tables.shape)} do not fit the unit "
+                         f"axes {lead} of the states")
+    t = t.reshape(*lead, *t.shape[-2:])
+    out = []
+    for slab in slabs:
+        ts = t[slab.index].reshape(-1, *t.shape[-2:])
+        if counts is None:
+            sched = command_schedule(ts)
+        else:
+            c = counts[slab.index].reshape(-1)
+            sched = torch.stack([c, torch.argsort(
+                c, descending=True, stable=True).to(torch.int32)])
+        out.append(CommandTables(ts.to(slab.device), sched.to(slab.device)))
+    return out
+
+
+def _slab_tables(tables, lead: tuple, slabs: List[Slab]):
+    """:func:`_cut_tables`, kept with the round's tables while the table
+    cache holds them (a repeated round cuts nothing)."""
+    if isinstance(tables, CommandTables):
+        return TABLE_CACHE.slab_tables(
+            tables, (lead, tuple((s.bounds, str(s.device)) for s in slabs)),
+            lambda: _cut_tables(tables, lead, slabs))
+    return _cut_tables(tables, lead, slabs)
+
+
+def _cut(x, slab: Slab, device: torch.device, n_lead: int,
+         dtype=None) -> torch.Tensor:
+    """``x``'s share of ``slab`` (a host array or a tensor) on ``device``,
+    its unit axes flattened into one."""
+    part = x[slab.index]
+    t = (_bool_tensor(part, device) if dtype is torch.bool
+         else _state_tensor(part, device))
+    return t.reshape(-1, *t.shape[n_lead:])
+
+
+def _keep(ct: CommandTables, slab: Slab) -> None:
+    """Tables made on another stream, read on the slab's: the caching
+    allocator must not hand their memory out before that read ends."""
+    if slab.stream is not None:
+        ct.tables.record_stream(slab.stream)
+        ct.schedule.record_stream(slab.stream)
+
+
+def _copy_back(slabs: List[Slab], outs: list):
+    """Queue each slab's outputs (a tuple of tensors a slab) to host
+    memory on the slab's stream: (host tuples, the copies' events, or
+    None where every slab is on the CPU)."""
+    hosts, events = [], []
+    for slab, tensors in zip(slabs, outs):
+        if slab.stream is None:
+            hosts.append(tensors)
+            continue
+        with _on(slab, wait=False):
+            hosts.append(tuple(t.to("cpu", non_blocking=True)
+                               for t in tensors))
+            done = torch.cuda.Event()
+            done.record(slab.stream)
+            events.append(done)
+    return hosts, (events or None)
+
+
+def _assemble(shape: tuple, slabs: List[Slab], parts: list,
+              dtype) -> torch.Tensor:
+    """One host tensor of ``shape`` from each slab's part, in the unit
+    order."""
+    full = torch.empty(shape, dtype=dtype)
+    for slab, part in zip(slabs, parts):
+        dst = full[slab.index]
+        dst.copy_(part.reshape(dst.shape))
+    return full
+
+
+class SlabRound(NamedTuple):
+    """A split round's executed slabs, in slab order: each on its
+    position's device, or in host memory after :meth:`to_host`."""
+    shape: tuple
+    slabs: List[Slab]
+    outs: list                # (states,) a slab
+
+    def to_host(self):
+        """Queue every slab's copy to host memory on its own stream:
+        (the round in host memory, the copies' events or None)."""
+        hosts, events = _copy_back(self.slabs, self.outs)
+        return self._replace(outs=hosts), events
+
+    def assemble(self) -> torch.Tensor:
+        """The round's (*units, n_rows, n_words) int32 host states, in
+        the unit order (after the copies have ended)."""
+        return _assemble(self.shape, self.slabs,
+                         [o[0] for o in self.outs], torch.int32)
+
+
+def _split_round(states, tables, n_lead: int, mesh, axes, home, streams,
+                 fault=None):
+    """Every slab of a round through its launch on its position's device
+    and stream: (the slabs, each slab's outputs).  ``fault`` is ``(keys,
+    stuck0, stuck1, dead, p_flip)`` for K6, None for K5."""
+    if len(states.shape) != n_lead + 2:
+        raise ValueError(f"states must have {n_lead} unit axes and (n_rows, "
+                         f"n_words), got {tuple(states.shape)}")
+    lead = tuple(states.shape[:n_lead])
+    if fault is not None:
+        _check_fault_axes(lead, *fault[:4])
+    slabs = mesh_slabs(mesh, axes, lead, streams)
+    cts = _slab_tables(_table_tensor(tables, home, states.shape[-2]), lead,
+                       slabs)
+    tr = active_tracer()
+    outs = []
+    with tr.launch_group() if tr is not None else contextlib.nullcontext():
+        for slab, ct in zip(slabs, cts):
+            with _on(slab):
+                _keep(ct, slab)
+                st = _cut(states, slab, slab.device, n_lead)
+                if fault is None:
+                    outs.append((replay(st, ct),))
+                    continue
+                keys, stuck0, stuck1, dead, p_flip = fault
+                outs.append(faulty_bank_replay(
+                    st, ct, _cut(keys, slab, slab.device, n_lead),
+                    _cut(stuck0, slab, slab.device, n_lead),
+                    _cut(stuck1, slab, slab.device, n_lead),
+                    _cut(dead, slab, slab.device, n_lead, torch.bool),
+                    p_flip))
+    return slabs, outs
+
+
+def split_tier_interpreter(n_lead: int, mesh, axes: Sequence[str],
+                           device="cuda", fault: bool = False):
+    """The executor body of a tier whose rounds (``n_lead`` unit axes)
+    split over ``mesh``: the first ``len(axes)`` unit axes cut over the
+    mesh axes ``axes``, one K5 launch a slab on its position's device and
+    stream.  ``run(states, tables)`` returns a :class:`SlabRound`
+    (:func:`repro_torch.core.bank.submit_stacked` copies it back slab by
+    slab); with ``fault``, ``run(states, tables, keys, stuck0, stuck1,
+    dead, p)`` makes one K6 launch a slab and returns ``(states, flip
+    counts)`` in host memory, in the unit order.  ``device`` is the
+    home of the round's tables (the tier's device); inputs come as
+    :func:`tier_interpreter` takes them."""
+    home = build.resolve_device(device)
+    axes = tuple(axes)
+    streams: dict = {}
+    if fault:
+        def run(states, tables, keys, stuck0, stuck1, dead, p_flip):
+            slabs, outs = _split_round(
+                states, tables, n_lead, mesh, axes, home, streams,
+                (keys, stuck0, stuck1, dead, p_flip))
+            hosts, events = _copy_back(slabs, outs)
+            for done in events or ():
+                done.synchronize()
+            return (_assemble(tuple(states.shape), slabs,
+                              [h[0] for h in hosts], torch.int32),
+                    _assemble(tuple(states.shape[:n_lead]), slabs,
+                              [h[1] for h in hosts], torch.int64))
+    else:
+        def run(states, tables):
+            return SlabRound(tuple(states.shape), *_split_round(
+                states, tables, n_lead, mesh, axes, home, streams))
+    return run
 
 
 def kernel_counts() -> Dict[str, Dict[str, int]]:
@@ -828,11 +1096,19 @@ class TableCache:
     memory: programs are written once and replayed forever).  Like that
     memory it has finite capacity: a device-byte budget, with the least
     recently replayed compositions evicted past it.
+
+    A round split across a device mesh cuts each entry it replays into
+    the slabs' own tables (:meth:`slab_tables`); the cuts are kept with
+    the entry and leave with it, outside the byte budget (on one device
+    a slab of whole leading units is a view of the entry's tensor).
     """
 
     def __init__(self, max_bytes: int = 128 * 1024 * 1024):
         self.max_bytes = max_bytes
         self._store: "OrderedDict" = OrderedDict()
+        # id of a cached entry's table tensor -> (that tensor, {slab
+        # layout: per-slab CommandTables})
+        self._slabs: Dict[int, tuple] = {}
         self.bytes = 0
         self.hits = 0
         self.misses = 0
@@ -857,9 +1133,11 @@ class TableCache:
                 tr.event("table_cache.miss", cat="cache", tier=key[0],
                          wall_s=time.perf_counter() - t0,
                          bytes=int(host.numel()) * 4)
+            self._slabs[id(t.tables)] = (t.tables, {})
             self.bytes += _nbytes(t)
             while self.bytes > self.max_bytes and len(self._store) > 1:
                 _, old = self._store.popitem(last=False)
+                self._slabs.pop(id(old.tables), None)
                 self.bytes -= _nbytes(old)
                 self.evictions += 1
         else:
@@ -869,6 +1147,18 @@ class TableCache:
                 tr.event("table_cache.hit", cat="cache", tier=key[0])
         return t
 
+    def slab_tables(self, entry: CommandTables, layout, cut):
+        """The per-slab tables of ``entry`` for a slab ``layout``: made
+        by ``cut()`` once while ``entry`` is cached, and anew each call
+        for tables the cache does not hold."""
+        memo = self._slabs.get(id(entry.tables))
+        if memo is None or memo[0] is not entry.tables:
+            return cut()
+        got = memo[1].get(layout)
+        if got is None:
+            got = memo[1][layout] = cut()
+        return got
+
     def stats(self) -> Dict[str, int]:
         return {"entries": len(self._store), "bytes": self.bytes,
                 "hits": self.hits, "misses": self.misses,
@@ -876,6 +1166,7 @@ class TableCache:
 
     def clear(self) -> None:
         self._store.clear()
+        self._slabs.clear()
         self.bytes = 0
         self.hits = 0
         self.misses = 0

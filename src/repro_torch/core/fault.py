@@ -387,7 +387,9 @@ def faulty_execute(model: FaultModel, run: Callable, states: np.ndarray,
         model: the :class:`FaultModel` in force.
         run: the tier's faulty executor —
             ``run(states, tables, keys, stuck0, stuck1, dead, p)`` →
-            ``(out_states, flip_counts)``.
+            ``(out_states, flip_counts)``, in the unit order; a split
+            executor returns them in host memory, put together from its
+            slabs.
         states: the packed host-side state stack; every axis before the
             last two is a unit axis, the last unit axis is subarrays.
         tables: the stacked device-resident command tables with their

@@ -13,7 +13,8 @@ the rank tier follows the discipline of every rung below it:
     their per-round slabs into one ``(n_channels, n_chips, n_banks,
     n_subarrays, n_rows, n_words)`` array — one *rank round* replays
     every channel's super-round in a single K5 launch over all its units
-    (:func:`repro_torch.core.control_unit.rank_replay`);
+    (:func:`repro_torch.core.control_unit.rank_replay`), or one a slab of
+    a device mesh;
   - :meth:`SimdramRank.dispatch` bin-packs Ref-connected chains onto
     channels (chains stay channel-local), then each channel's chip/bank
     partitioners and wave schedulers take over unchanged;
@@ -142,8 +143,10 @@ class SimdramRank:
     stacks one channel super-round per channel into each rank round and
     replays it in one K5 launch on ``device``.  ``mesh``/``use_shard_map``
     select the executor
-    (:func:`repro_torch.distributed.pum.make_rank_executor`): one card, no
-    split across devices.
+    (:func:`repro_torch.distributed.pum.make_rank_executor`): a ``("rank",
+    "channel", "data")`` mesh splits each rank round into channel × chip
+    × bank slabs, one launch a slab on its position's device and stream.
+    The member channels stay unsplit (``use_shard_map=False``).
     """
 
     def __init__(self, n_channels: int = 2, n_chips: int = 2,

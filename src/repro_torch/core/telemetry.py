@@ -24,9 +24,10 @@ each K5/K6 launch inside an open ``*.replay`` span is bracketed by a
 pair of CUDA timing events (:meth:`Tracer.launch_begin` /
 :meth:`Tracer.launch_end`), and when the round is harvested — where the
 host waits for its copy back anyway — :meth:`Tracer.resolve_device`
-adds the pair's elapsed time to the span's ``attrs["device_s"]``.  The
-pair is read only once its end event has completed; nothing waits for
-it.  On the CPU the attribute is absent.
+adds the pair's elapsed time to the span's ``attrs["device_s"]`` (a
+round split across a device mesh adds the longest of its slabs' pairs).
+The pair is read only once its end event has completed; nothing waits
+for it.  On the CPU the attribute is absent.
 
 Discipline (mirrors ``fault.py``): a *disabled* tracer is strictly free.
 ``active_tracer()`` returns ``None`` unless explicitly enabled, and every
@@ -54,6 +55,7 @@ so the tiers cannot drift apart key-by-key.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -173,8 +175,11 @@ class Tracer:
         # structure — left-fold summation reproduces the Stats accumulators'
         # exact FP addition order (bit-for-bit reconciliation).
         self._charges: Dict[str, List[float]] = {}
-        # (span, start, end) CUDA event pairs of launches not yet read
-        self._launches: List[Tuple[Span, Any, Any]] = []
+        # (span, start, end, group) CUDA event pairs of launches not yet
+        # read; ``group`` numbers the launches of one split round
+        self._launches: List[Tuple[Span, Any, Any, Optional[int]]] = []
+        self._group: Optional[int] = None
+        self._groups = 0
 
     # -- span lifecycle ----------------------------------------------------
 
@@ -311,20 +316,46 @@ class Tracer:
         import torch
         end = torch.cuda.Event(enable_timing=True)
         end.record()
-        self._launches.append((token[0], token[1], end))
+        self._launches.append((token[0], token[1], end, self._group))
+
+    @contextlib.contextmanager
+    def launch_group(self):
+        """Within ``with``: the launches of one round split across a
+        device mesh, one a slab, each on its own device's stream.  The
+        group adds the longest of its pairs to ``device_s``: the slabs run
+        at once, and events on different devices cannot be subtracted
+        from one another."""
+        self._groups += 1
+        outer, self._group = self._group, self._groups
+        try:
+            yield
+        finally:
+            self._group = outer
 
     def resolve_device(self) -> None:
         """Add the elapsed time of every completed launch pair to its
         span's ``attrs["device_s"]`` (seconds; the sum over the span's
-        launches).  Pairs still running stay for a later call: this
-        never waits."""
-        waiting = []
-        for sp, start, end in self._launches:
-            if end.query():
+        launches, a split round's group counting as its longest pair,
+        once all of the group's pairs have completed).  Pairs still
+        running stay for a later call: this never waits."""
+        waiting, groups = [], {}
+        for item in self._launches:
+            sp, start, end, group = item
+            if group is not None:
+                groups.setdefault(group, []).append(item)
+            elif end.query():
                 sp.attrs["device_s"] = (sp.attrs.get("device_s", 0.0)
                                         + start.elapsed_time(end) / 1e3)
             else:
-                waiting.append((sp, start, end))
+                waiting.append(item)
+        for items in groups.values():
+            if all(end.query() for _, _, end, _ in items):
+                sp = items[0][0]
+                sp.attrs["device_s"] = sp.attrs.get("device_s", 0.0) + max(
+                    start.elapsed_time(end) for _, start, end, _ in items
+                ) / 1e3
+            else:
+                waiting.extend(items)
         self._launches = waiting
 
     # -- flight recorder ---------------------------------------------------

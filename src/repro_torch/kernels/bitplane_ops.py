@@ -405,7 +405,7 @@ def _launch(prog: SlotProgram, code: torch.Tensor,
                  prog.n_steps, int(prog.loads.shape[0]),
                  int(prog.stores.shape[0]), int(prog.chunks.shape[0]) - 1,
                  prog.chunk_cap, prog.n_slots, prog.warps, int(prog.has_xor),
-                 *ptrs, out.data_ptr(), out.shape[-1])
+                 *ptrs, out.data_ptr(), out.shape[-1], device=out.device)
 
 
 def _circuit_kernel(circ: Circuit, input_ids: Sequence[Sequence[int]],

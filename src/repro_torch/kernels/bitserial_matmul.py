@@ -51,7 +51,7 @@ def _launch(a, w, n_a: int, n_w: int, a_signed: bool,
     if m and n:
         build.launch("popmatmul", "popmatmul_launch", a.data_ptr(),
                      w.data_ptr(), out.data_ptr(), m, n, kw, n_a, n_w,
-                     int(a_signed), int(w_signed))
+                     int(a_signed), int(w_signed), device=a.device)
         build.LAUNCHES["popmatmul"] += 1
     return out
 

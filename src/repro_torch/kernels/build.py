@@ -11,8 +11,11 @@ spills per kernel) is kept beside each library in a ``.log`` file;
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after the launch; the
-wrappers raise on a non-zero code.  There is no fallback: a missing
-``nvcc``, a failed build or a failed launch raises.
+wrappers raise on a non-zero code.  :func:`launch` makes the operands'
+device current and passes that device's current stream, so a launch
+follows its tensors to any card and any ``torch.cuda.stream``.  There
+is no fallback: a missing ``nvcc``, a failed build or a failed launch
+raises.
 
 :data:`LAUNCHES` holds one plain integer per kernel; a wrapper adds one
 where it launches its kernel and nowhere else.  :data:`BUILDS` counts
@@ -172,12 +175,18 @@ def build_log() -> str:
     return "\n".join(parts)
 
 
-def launch(lib_name: str, fn: str, *args) -> None:
-    """Call one C entry point on the current stream; raise on a non-zero
-    ``cudaGetLastError()`` code."""
+def launch(lib_name: str, fn: str, *args, device=None) -> None:
+    """Call one C entry point on ``device`` (that of its operands; None:
+    the current device) and on that device's current stream; raise on a
+    non-zero ``cudaGetLastError()`` code.  The C side sets kernel
+    attributes and launches on the CUDA runtime's current device, so the
+    call runs with ``device`` made current."""
     lib = library(lib_name)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, fn)(*args, stream)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{fn} failed with CUDA error {rc}: {msg}")

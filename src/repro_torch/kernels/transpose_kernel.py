@@ -97,7 +97,8 @@ def h2v_cuda(values: torch.Tensor, n_bits: int = 32) -> torch.Tensor:
                          device=values.device)
     if n:
         build.launch("transpose", "h2v_launch", values.data_ptr(),
-                     planes.data_ptr(), n // 32, n_bits)
+                     planes.data_ptr(), n // 32, n_bits,
+                     device=values.device)
         build.LAUNCHES["h2v"] += 1
     return planes
 
@@ -114,6 +115,7 @@ def v2h_cuda(planes: torch.Tensor, signed: bool = False) -> torch.Tensor:
     values = torch.empty((32 * w,), dtype=torch.int32, device=planes.device)
     if w:
         build.launch("transpose", "v2h_launch", planes.data_ptr(),
-                     values.data_ptr(), w, k, int(signed))
+                     values.data_ptr(), w, k, int(signed),
+                     device=planes.device)
         build.LAUNCHES["v2h"] += 1
     return values

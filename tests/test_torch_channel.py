@@ -5,8 +5,9 @@ seeded queue goes through the reference's ``SimdramChannel``
 (``use_shard_map=False``) and the port's (``device="cpu"``); results
 must be ``==``, bit for bit, and ``==`` the port's
 ``sequential_channel_dispatch``, and every modeled ``ChannelStats``
-field — the transfer model's included — ``==`` the reference's.  The
-shard_map cases become "``use_shard_map=True`` raises".  Then the
+field — the transfer model's included — ``==`` the reference's.  Over
+the one CPU ``use_shard_map=True`` finds no multi-device mesh and raises
+(the split cases are in ``tests/test_torch_pum_sharded.py``).  Then the
 channel's replays (one flattened launch a super-round) and its fault
 wrapper: stuck-only dispatches ``==`` the reference, ``FaultStats``
 included, flips that agree in distribution, and ``(chip, bank, sid)``
@@ -373,9 +374,12 @@ def test_device_channel_backend():
     assert _modeled(dev.channel().stats) == _modeled(ref.channel().stats)
 
 
-# --- the executor: one card ------------------------------------------------
+# --- the executor: one device ----------------------------------------------
 
 def test_single_device_executor_and_shard_map_raises():
+    """Over the one CPU the executor is the unsplit one: the plain and
+    faulty executors both raise on ``use_shard_map=True``, as the
+    reference does on one device."""
     channel = SimdramChannel(n_chips=2, n_banks=2, n_subarrays=2,
                              device="cpu")
     assert not channel.executor.sharded and channel.executor.mesh is None

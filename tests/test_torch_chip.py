@@ -5,9 +5,10 @@ queue goes through the reference's ``SimdramChip`` (its single-device
 path, ``use_shard_map=False``) and the port's (``device="cpu"``), and
 the results must be ``==``, bit for bit, and ``==`` the port's
 ``sequential_dispatch``; every modeled ``ChipStats`` field (all but the
-wall clocks) must be ``==`` the reference's.  The reference's shard_map
-cases become "``use_shard_map=True`` raises": the port runs a tier on
-one card.  Then the chip's replay (one flattened launch a round) and its
+wall clocks) must be ``==`` the reference's.  Over the one CPU no
+multi-device mesh fits, so ``use_shard_map=True`` raises here, as in the
+reference on one device; the split cases are in
+``tests/test_torch_pum_sharded.py``.  Then the chip's replay (one flattened launch a round) and its
 fault wrapper: stuck-only dispatches ``==`` the reference, ``FaultStats``
 included, and flips that agree with the reference in distribution.
 """
@@ -333,11 +334,12 @@ def test_chip_validation():
         SimdramChip(n_banks=2, packing="nope", device="cpu")
 
 
-# --- the executor: one card ------------------------------------------------
+# --- the executor: one device ----------------------------------------------
 
 def test_single_device_executor_and_shard_map_raises():
-    """The port's executor is the reference's single-device path (no
-    mesh, not sharded); asking for shard_map or a mesh raises."""
+    """Over the one CPU the executor is the unsplit one (no mesh, not
+    sharded): ``use_shard_map=True`` finds no multi-device mesh and
+    raises, and a mesh that is not a ``Mesh`` raises."""
     chip = SimdramChip(n_banks=4, n_subarrays=2, device="cpu")
     assert not chip.executor.sharded and chip.executor.mesh is None
     assert chip.executor.describe() == {"sharded": False, "devices": 1,

@@ -617,6 +617,131 @@ def test_faulty_ladder_on_card_equals_cpu(cuda, backend, geo, kw):
     assert runs[0][1:] == runs[1][1:]
 
 
+def _split_tier(backend, geo, dev, mesh=None, **kw):
+    """A ladder tier on ``dev`` at ``geo`` over 512-column subarrays,
+    split over ``mesh`` when one is given."""
+    from repro_torch.core.channel import SimdramChannel
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.core.rank import SimdramRank
+    cls = {"chip": SimdramChip, "channel": SimdramChannel,
+           "rank": SimdramRank}[backend]
+    return cls(cfg=DramConfig(columns_per_subarray=512), device=dev,
+               mesh=mesh, use_shard_map=None if mesh else False, **geo,
+               **kw)
+
+
+SPLITS = [
+    ("chip", {"n_banks": 4, "n_subarrays": 2}, (4,), ("data",)),
+    ("channel", {"n_chips": 2, "n_banks": 2, "n_subarrays": 2}, (2, 2),
+     ("channel", "data")),
+    ("rank", {"n_channels": 2, "n_chips": 2, "n_banks": 2,
+              "n_subarrays": 1}, (2, 2, 2), ("rank", "channel", "data")),
+]
+
+
+@pytest.mark.parametrize("backend,geo,sizes,axes", SPLITS)
+def test_split_ladder_on_card_equals_unsplit(cuda, backend, geo, sizes,
+                                             axes):
+    """A tier split over ``cuda:0`` repeated, each position on its own
+    stream: one K5 launch a slab of every round, results and modeled
+    stats equal the unsplit run's on the card and the CPU run's, and a
+    traced split round's span carries ``device_s``."""
+    from repro_torch import obs
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(sizes))
+    mesh = Mesh(sizes, axes, [torch.device("cuda", 0)] * n)
+    runs = []
+    for dev, m in (("cuda", mesh), ("cuda", None), ("cpu", None)):
+        eng = _split_tier(backend, geo, dev, m)
+        assert eng.executor.sharded == (m is not None)
+        build.reset_launches()
+        res = eng.dispatch(_ladder_queue(dev))
+        torch.cuda.synchronize()
+        rounds = (eng.stats.rounds if backend == "chip"
+                  else eng.stats.super_rounds)
+        if dev == "cuda":
+            assert build.LAUNCHES["replay"] == rounds * (n if m else 1)
+        stats = eng.stats.as_dict()
+        stats.pop("wall_s"), stats.pop("pack_wall_s")
+        runs.append(([x for r in res for x in pt_bank.flatten_result(r)],
+                     stats))
+    for other in runs[1:]:
+        for g, e in zip(runs[0][0], other[0]):
+            np.testing.assert_array_equal(g, e)
+        assert runs[0][1] == other[1]
+    eng = _split_tier(backend, geo, "cuda", mesh)
+    with obs.enabled() as tr:
+        eng.dispatch(_ladder_queue("cuda"))
+    spans = [s for r in tr.roots for s in r.walk()
+             if s.name == f"{backend}.replay"]
+    assert spans and all(s.attrs.get("device_s", 0) > 0 for s in spans)
+
+
+@pytest.mark.parametrize("backend,geo,sizes,axes", SPLITS[:2])
+def test_split_faulty_ladder_on_card_equals_unsplit(cuda, backend, geo,
+                                                    sizes, axes):
+    """The chip and channel fault wrappers split over ``cuda:0`` repeated:
+    one K6 launch a slab of every attempt, and results, ``FaultStats``
+    and every attempt's flip counts equal the unsplit run's (K6 keys
+    its Philox counter by each unit's own key)."""
+    from repro_torch.core.fault import FaultModel
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(sizes))
+    mesh = Mesh(sizes, axes, [torch.device("cuda", 0)] * n)
+    model = dict(p_flip=1e-4, spare_lanes=1, seed=1, max_retries=10)
+    runs = []
+    for m in (mesh, None):
+        eng = _split_tier(backend, geo, "cuda", m,
+                          fault=FaultModel(**model))
+        counts = []
+        run = eng._faulty_executor.run
+        eng._faulty_executor = type(eng._faulty_executor)(
+            lambda *a: (lambda o: (counts.append(o[1].cpu().numpy()),
+                                   o)[1])(run(*a)),
+            eng._faulty_executor.mesh, eng._faulty_executor.sharded)
+        build.reset_launches()
+        res = eng.dispatch(_fault_queue())
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["faulty_replay"] == len(counts) * (
+            n if m else 1) > 0
+        runs.append(([x for r in res for x in pt_bank.flatten_result(r)],
+                     eng.stats.faults.as_dict(), counts))
+    for g, e in zip(runs[0][0], runs[1][0]):
+        np.testing.assert_array_equal(g, e)
+    assert runs[0][1] == runs[1][1] and runs[0][1]["injected"] > 0
+    for g, e in zip(runs[0][2], runs[1][2]):
+        np.testing.assert_array_equal(g, e)
+
+
+def test_launch_follows_the_current_stream(cuda):
+    """K5 launched inside ``torch.cuda.device(0)`` under a side stream
+    runs on that stream: while the default stream sleeps, the replay and
+    a copy queued behind it on the side stream finish, and the copy
+    equals the plain replay."""
+    ops = [("addition", 8), ("multiplication", 16)]
+    tabs = tables_from_numpy([pt_bank.cached_table(op, w)[2]
+                              for op, w in ops] * 2, device="cuda")
+    n_rows = int(tabs.tables[..., 1::2].max()) + 1
+    rng = np.random.default_rng(3)
+    states = torch.from_numpy(rng.integers(
+        0, 2**32, (4, n_rows, 64), dtype=np.uint32).view(np.int32)).cuda()
+    want = replay_plain(states, tabs.tables)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.device(0):
+        torch.cuda._sleep(500_000_000)       # about 0.3 s on the default
+        with torch.cuda.stream(side):
+            before = build.LAUNCHES["replay"]
+            got = replay(states, tabs).clone()
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        assert not torch.cuda.default_stream().query()
+    assert build.LAUNCHES["replay"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
 def _apps():
     """The seven apps at ``tests/test_apps.py``'s ladder sizes."""
     from repro_torch.apps import (bitweaving, brightness, knn, lenet,

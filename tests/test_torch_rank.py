@@ -7,7 +7,8 @@ be ``==``, bit for bit, and ``==`` the port's
 ``sequential_rank_dispatch``, and every modeled ``RankStats`` field
 ``==`` the reference's.  The reference's retrace count becomes the
 table cache's and the kernel builds' (nothing rebuilt on a repeat), and
-its shard_map cases become "``use_shard_map=True`` raises".
+over the one CPU ``use_shard_map=True`` finds no multi-device mesh and
+raises (the split cases are in ``tests/test_torch_pum_sharded.py``).
 """
 
 from dataclasses import replace
@@ -331,9 +332,12 @@ def test_rank_repeat_dispatch_builds_nothing(monkeypatch):
     assert cu.TABLE_CACHE.stats()["misses"] == misses
 
 
-# --- the executor: one card ------------------------------------------------
+# --- the executor: one device ----------------------------------------------
 
 def test_rank_single_device_executor_and_shard_map_raises():
+    """Over the one CPU the executor is the unsplit one:
+    ``use_shard_map=True`` finds no multi-device mesh and raises, and a
+    mesh that is not a ``Mesh`` raises."""
     rank = SimdramRank(device="cpu")
     assert not rank.executor.sharded and rank.executor.mesh is None
     with pytest.raises(ValueError, match="shard_map requested"):
