@@ -247,6 +247,28 @@ Chrome trace goes to ``--trace`` (default
      cache no more than the unsplit repeat.  Split and unsplit walls
      are printed beside the card (the ``split`` and ``split faults``
      paths of K5 and K6);
+ 16. the LM side over a device mesh (``distributed/sharding.py``,
+     ``models/moe.py``, ``distributed/pipeline.py``), run after phase 15
+     and before the kernels line, each mesh over the visible cards where
+     there are enough, else over ``cuda:0`` repeated (each position on
+     its own stream): (16a) granite-moe-1b-a400m at its published widths
+     in bf16 (``MESH_LM_LAYERS`` of its 24 layers), a ``Server`` of 4
+     slots serving 4 requests greedily with ``moe_impl="ep"`` under a
+     (1, 4) ``("data", "model")`` mesh through ``PumServeOffload``, and
+     in lockstep the grouped decode (no mesh) of the same tokens: every
+     step's logits within ``MOE_EP_REL`` of each row's max|logit|,
+     greedy tokens under the margin rule, rank 3's partial dropped
+     before the psum must read more; one K5 launch a chip round, each
+     held against the plain replay; (16b) the elastic drill of
+     ``tests/test_elastic.py`` (smoke yi-6b in float32, deterministic
+     algorithms): 4 ``sharded_step`` steps on (4, 2), checkpoints,
+     ``recovery_plan(4, 2, 8)``, ``reshard_restore`` onto (2, 2), 4 more:
+     the 8 losses ``==`` the unsharded run's, every shard ``==`` its
+     slice of the gathered leaf on its position's device; (16c)
+     ``gpipe`` over 4 positions of ``pod`` (``GPIPE_LAYERS`` of
+     internvl2-1b's blocks at full width, float32), each stage on its
+     position's stream, output and the grads of sum(h**2) within
+     ``PIPE_TOL`` of the sequential blocks (the ``mesh lm`` path of K5);
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -262,8 +284,9 @@ Chrome trace goes to ``--trace`` (default
 The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6, each tier of phase 7, each app run of phase 8, each served run
 of phase 9, the PuM forward and the counted burst of phase 10, the PuM
-train steps of phase 12, each example's card run of phase 14 and each
-split run of phase 15) and read just after; comparison launches come
+train steps of phase 12, each example's card run of phase 14, each
+split run of phase 15 and the served ep run of phase 16) and read just
+after; comparison launches come
 after the read (phases 14's and 15's in their twin runs).
 Any mismatch, a missing card, a failed build or a kernel with no launch
 exits non-zero without the result line; each failed check names its
@@ -493,6 +516,30 @@ SPLIT_FAULT_MODELS = (
     ("stuck", STUCK_LANES, dict(p_flip=0.0, stuck_lane_rate=1e-4,
                                 spare_lanes=2, seed=0)))
 
+# phase 16: the LM side over a device mesh (positions of cuda:0 repeated
+# on one card).  16a serves granite-moe-1b-a400m at its published widths
+# (MESH_LM_LAYERS of its 24 layers) with moe_impl="ep" over MESH_LM_MESH
+# through PumServeOffload, the grouped decode of the same tokens beside
+# it; its logits within MOE_EP_REL of each row's max|logit|, set between
+# experiments/moe_ep_tolerance.py's readings on the H100 over 6 seeds
+# under deterministic algorithms: sound at most 7.855e-2, a model rank's
+# partial dropped at least 0.2089.
+MESH_LM_ARCH = "granite-moe-1b-a400m"
+MESH_LM_LAYERS = 24
+MESH_LM_MESH = (1, 4)
+MESH_LM_PROMPTS = (3, 5, 2, 4)
+MESH_LM_MAX_NEW = 4
+MESH_LM_MAX_LEN = 64
+MESH_LM_SEED = 17
+MOE_EP_REL = 0.12
+MESH_LM_DROP_RANK = 3
+# 16b: the elastic drill of tests/test_elastic.py, smoke yi-6b in float32
+DRILL_MESHES = ((4, 2), (2, 2))
+DRILL_DATA = (32, 8, 0)          # seq_len, global_batch, seed
+DRILL_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=2, total_steps=40)
+# 16c: gpipe over DIST_STAGES positions of pod, GPIPE_LAYERS of
+# internvl2-1b's blocks at full width in float32
+GPIPE_LAYERS = 8
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1174,6 +1221,9 @@ def run(trace_path: str) -> dict:
     counts_examples = examples_phase(dev, record, kern)
     phase("15")
     counts_split = split_phase(dev, record, kern)
+    release_device_memory("16")
+    phase("16")
+    counts_mesh = mesh_lm_phase(dev, record, kern)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -1199,10 +1249,13 @@ def run(trace_path: str) -> dict:
           f"K3 was not launched on the training path: {counts_train}")
     check(counts_split["replay"] > 0 and counts_split["faulty_replay"] > 0,
           f"K5 or K6 was not launched on the split path: {counts_split}")
+    check(counts_mesh["replay"] > 0,
+          f"K5 was not launched on the mesh LM path: {counts_mesh}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
                 + counts_serve[name] + counts_lm[name] + counts_train[name]
                 + counts_examples[name] + counts_split[name]
+                + counts_mesh[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
@@ -1253,7 +1306,7 @@ def run(trace_path: str) -> dict:
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
                     "ns_per_real_cmd", "per_width", "ladder", "serving",
-                    "lm", "train", "split"):
+                    "lm", "train", "split", "mesh_lm"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
@@ -1271,6 +1324,7 @@ def run(trace_path: str) -> dict:
     record["launches_train"] = counts_train
     record["launches_examples"] = counts_examples
     record["launches_split"] = counts_split
+    record["launches_mesh_lm"] = counts_mesh
     record["profiler_misses"] = PROFILER_MISSES
     print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
@@ -4361,14 +4415,14 @@ def decode_bound_bytes(cfg, params, caches, pos) -> dict:
             "full_cache_bytes": sum(nbytes(t) for t in tree_leaves(caches))}
 
 
-def _pipe_err(got, want, what: str) -> float:
+def _pipe_err(got, want, what: str, label: str = "13c") -> float:
     """``got`` within PIPE_TOL of ``want``: |got - want| <= PIPE_TOL
     (|want| + max|want|) elementwise; the largest error over max|want|."""
     g, w = got.detach().float(), want.detach().float()
     scale = w.abs().max()
     err = (g - w).abs()
     bad = err > PIPE_TOL * (w.abs() + scale)
-    check(not bool(bad.any()), f"13c: {what}: {int(bad.sum())} of "
+    check(not bool(bad.any()), f"{label}: {what}: {int(bad.sum())} of "
           f"{w.numel()} entries off by more than {PIPE_TOL} (|want| + "
           f"max|want|); largest {float(err.max()):.3e}, max|want| "
           f"{float(scale):.3e}")
@@ -5208,6 +5262,367 @@ def split_phase(dev, record: dict, kern: dict) -> dict:
     rows["plain_s"] = {"replay": plain5, "faulty_replay": plain6}
     record["split"] = rows
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the LM side over a device mesh
+# ---------------------------------------------------------------------------
+
+def moe_ep_served(dev, cfg, params, mesh, prompts, offload=None,
+                  drop_rank=None) -> dict:
+    """``prompts`` served greedily by a ``Server`` of ``cfg`` with
+    ``moe_impl="ep"`` under ``mesh`` (through ``offload``), and in
+    lockstep the grouped decode (``moe_impl="grouped"``, no mesh) of the
+    same tokens on caches of its own, both under deterministic
+    algorithms (the scatter-adds of the dispatch then sum each slot's
+    contributions in float32, in a fixed order, so a reading repeats).
+    Returns per step the active rows' logits of both (float32, host),
+    the tokens and the server's steps.  ``drop_rank`` plants a fault:
+    that ``model`` rank's partial output is dropped before the psum."""
+    import contextvars
+
+    import torch
+    import torch.utils.deterministic as deterministic
+
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.train.serve import Request, Server, make_serve_step
+
+    slots = len(prompts)
+    server = Server(cfg.replace(moe_impl="ep"), params, batch_slots=slots,
+                    max_len=MESH_LM_MAX_LEN, pum_offload=offload, device=dev)
+    grouped = cfg.replace(moe_impl="grouped")
+    g_step = make_serve_step(grouped)
+    g_caches = init_caches(grouped, slots, MESH_LM_MAX_LEN, dev)
+    ep_step, ep_rows, g_rows, ms = server.step_fn, [], [], []
+
+    def lockstep(p, caches, token, pos):
+        t0 = time.perf_counter()
+        logits, caches = ep_step(p, caches, token, pos)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # the grouped twin in a fresh context, where no mesh is ambient
+        g_logits, _ = contextvars.Context().run(g_step, p, g_caches, token,
+                                                pos)
+        torch.cuda.synchronize()
+        ms.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        act = [i for i, r in enumerate(server.slots) if r is not None]
+        ep_rows.append(logits[act].float().cpu())
+        g_rows.append(g_logits[act].float().cpu())
+        return logits, caches
+
+    server.step_fn = lockstep
+    local = moe._grouped_local
+    if drop_rank is not None:
+        def dropped(p, xt, *, e_lo, e_loc, **kw):
+            out, aux = local(p, xt, e_lo=e_lo, e_loc=e_loc, **kw)
+            if e_loc < cfg.n_experts and e_lo == drop_rank * e_loc:
+                out = torch.zeros_like(out)
+            return out, aux
+        moe._grouped_local = dropped
+    reqs = [Request(prompt=list(p), max_new=MESH_LM_MAX_NEW)
+            for p in prompts]
+    for r in reqs:
+        server.submit(r)
+    t0 = time.perf_counter()
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        with mesh:
+            server.run(max_steps=64)
+        torch.cuda.synchronize()
+    finally:
+        moe._grouped_local = local
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    check(all(r.done for r in reqs), f"16a: {sum(not r.done for r in reqs)} "
+          f"of {len(reqs)} requests did not complete in 64 steps")
+    return {"ep": ep_rows, "grouped": g_rows, "tokens": [r.out for r in reqs],
+            "steps": len(ep_rows), "wall_s": time.perf_counter() - t0,
+            "step_ms": ms}
+
+
+def moe_ep_rel(run) -> np.ndarray:
+    """Each served row's max|ep - grouped| over its grouped max|logit|,
+    every step's rows in order."""
+    return np.concatenate([((e - g).abs().amax(-1) / g.abs().amax(-1))
+                           .numpy() for e, g in zip(run["ep"],
+                                                    run["grouped"])])
+
+
+def mesh_lm_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 16: the LM side over a device mesh, one program a position in
+    one process.  16a granite-moe-1b-a400m at full width served with
+    ``moe_impl="ep"`` over a (1, 4) mesh through PumServeOffload (K5),
+    against the grouped decode; 16b the elastic drill, sharded steps on
+    (4, 2), ``reshard_restore`` onto (2, 2), against the unsharded run;
+    16c ``gpipe`` with one stage a position, each on its own stream.
+    Returns 16a's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.pipeline import gpipe, split_stages
+    from repro_torch.kernels import build
+    from repro_torch.models.params import flatten, tree_leaves, tree_map, unstack
+    from repro_torch.models.transformer import block_forward, init_lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.fault_tolerance import recovery_plan
+    from repro_torch.train.serve import PumServeOffload
+    from repro_torch.train.train_loop import make_train_step
+
+    card = record["card"]
+    out = record["mesh_lm"] = {}
+    t_phase = time.perf_counter()
+
+    # -- 16a: granite-moe-1b-a400m at full width, experts over (1, 4) -------
+    phase("16a")
+    cfg = get_config(MESH_LM_ARCH).replace(n_layers=MESH_LM_LAYERS)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+        MESH_LM_SEED), device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # param_count() counts the published vocabulary, the init its padding
+    pad = (cfg.vocab_padded - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    check(n_params == cfg.param_count() + pad, f"16a: {n_params} "
+          f"parameters, param_count() {cfg.param_count()} + {pad} of the "
+          f"padded vocabulary")
+    mesh, where = _split_mesh(MESH_LM_MESH, ("data", "model"))
+    rng = np.random.default_rng(MESH_LM_SEED)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
+               for n in MESH_LM_PROMPTS]
+    chip = SimdramChip(n_banks=4, n_subarrays=2, device=dev)
+    offload = PumServeOffload(chip=chip)
+    rounds = []
+    executor = chip.executor
+    # a warm-up run builds the chip's tables and the model's kernels; the
+    # counted run records its rounds for the twins
+    moe_ep_served(dev, cfg, params, mesh, prompts[:1], offload)
+    chip.executor = _recording(executor, rounds)
+    r0 = chip.stats.rounds
+    build.reset_launches()
+    run = moe_ep_served(dev, cfg, params, mesh, prompts, offload)
+    counts = dict(build.LAUNCHES)
+    n_rounds = chip.stats.rounds - r0
+    chip.executor = executor
+    check(counts["replay"] == n_rounds > 0 and all(
+        v == 0 for k, v in counts.items() if k != "replay"),
+        f"16a: launches {counts} for {n_rounds} chip rounds, expected one K5 "
+        f"launch a round and nothing else")
+    check(len(rounds) == counts["replay"], f"16a: {len(rounds)} recorded "
+          f"rounds, {counts['replay']} K5 launches")
+    errs_k5, plain_s = _k5_stacked(dev, rounds)
+    del rounds
+    _agree(kern["replay"]["agreement"], "mesh lm", counts["replay"], errs_k5)
+    rel = moe_ep_rel(run)
+    check(bool(np.isfinite(rel).all()) and float(rel.max()) <= MOE_EP_REL,
+          f"16a: the ep run's logits off the grouped run's by "
+          f"{float(rel.max()):.4e} of max|logit| (tolerance {MOE_EP_REL})")
+    held = _lm_tokens(torch.cat(run["ep"]), torch.cat(run["grouped"]),
+                      MOE_EP_REL, "16a ep against grouped", relative=True)
+    fault = moe_ep_served(dev, cfg, params, mesh, prompts[:2], offload,
+                          drop_rank=MESH_LM_DROP_RANK)
+    rel_fault = moe_ep_rel(fault)
+    check(float(rel_fault.max()) > MOE_EP_REL,
+          f"16a: rank {MESH_LM_DROP_RANK}'s partial dropped reads "
+          f"{float(rel_fault.max()):.4e} of max|logit| at most, within the "
+          f"tolerance {MOE_EP_REL}")
+    out["16a"] = {
+        "arch": MESH_LM_ARCH, "layers": cfg.n_layers, "params": n_params,
+        "mesh": list(MESH_LM_MESH), "devices": where, "steps": run["steps"],
+        "tokens": run["tokens"], "rel_max": float(rel.max()),
+        "rel_median": float(np.median(rel)), "tokens_held": held,
+        "fault_rel_max": float(rel_fault.max()),
+        "fault_rows_over": int((rel_fault > MOE_EP_REL).sum()),
+        "fault_rows": int(rel_fault.size), "k5_launches": counts["replay"],
+        "k5_plain_s": plain_s, "wall_s": run["wall_s"],
+        "ep_step_ms": [e for e, _ in run["step_ms"]],
+        "grouped_step_ms": [g for _, g in run["step_ms"]],
+        "tolerance": f"{MOE_EP_REL} of each row's max|logit|; greedy tokens "
+                     f"== where the grouped margin > {2 * MOE_EP_REL} of it"}
+    print(f"[16a] {MESH_LM_ARCH} at full width ({cfg.n_layers} of "
+          f"{get_config(MESH_LM_ARCH).n_layers} layers, {n_params:,} "
+          f"parameters with the vocabulary padded to {cfg.vocab_padded}, "
+          f"bf16), moe_impl=\"ep\" over a {MESH_LM_MESH} "
+          f"(data, model) mesh of {where}, {cfg.n_experts // MESH_LM_MESH[1]}"
+          f" experts a position: {len(prompts)} requests served in "
+          f"{run['steps']} steps through PumServeOffload "
+          f"({counts['replay']} K5 launches = chip rounds, each equal to the "
+          f"plain replay); against the grouped decode of the same tokens "
+          f"largest difference {float(rel.max()):.4e} of max|logit| (median "
+          f"{float(np.median(rel)):.4e}; tolerance {MOE_EP_REL}), greedy "
+          f"tokens equal at {held[0]} of {held[1]} rows; rank "
+          f"{MESH_LM_DROP_RANK}'s partial dropped reads "
+          f"{float(rel_fault.max()):.4e} ({out['16a']['fault_rows_over']} of "
+          f"{rel_fault.size} rows over); served wall {run['wall_s']:.2f} s "
+          f"with the lockstep twin, model step median "
+          f"{float(np.median(out['16a']['ep_step_ms'])):.1f} ms ep, "
+          f"{float(np.median(out['16a']['grouped_step_ms'])):.1f} ms grouped "
+          f"(host clock, synchronized); {card}", flush=True)
+    del params, run, fault
+    release_device_memory("16b")
+
+    # -- 16b: the elastic drill, (4, 2) -> (2, 2) ----------------------------
+    phase("16b")
+    t_b = time.perf_counter()
+    scfg = smoke_config("yi-6b").replace(param_dtype="float32")
+    p0 = init_lm(scfg, generator=torch.Generator(dev).manual_seed(18),
+                 device=dev)
+    dc = DataConfig(*DRILL_DATA)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in synth_batch(scfg, dc, s).items()}
+               for s in range(8)]
+    step = make_train_step(scfg, opt.AdamWConfig(**DRILL_OPT))
+
+    def make(m):
+        ps = shd.param_shardings(p0, m)
+        os_ = shd.opt_shardings(opt.init(p0), p0, m)
+        bs = shd.batch_shardings(batches[0], m)
+        return ps, os_, shd.sharded_step(step, (ps, os_, bs), (ps, os_, None))
+
+    def shards_equal(tree, m) -> int:
+        n = 0
+        for leaf in flatten(tree):
+            check(isinstance(leaf, shd.Sharded) and leaf.sharding.mesh is m,
+                  f"16b: a leaf is not sharded over {m}: {leaf!r}")
+            whole = leaf.gather(dev)
+            for k, (idx, part) in enumerate(zip(
+                    leaf.sharding.indices(leaf.shape), leaf.shards)):
+                check(part.device == torch.device(m.devices[k]) and
+                      torch.equal(part, whole[idx]),
+                      f"16b: shard {k} of {leaf!r} is not its slice of the "
+                      f"gathered leaf on its position's device")
+                n += 1
+        return n
+
+    ckpt_dir = tempfile.mkdtemp(prefix="elastic_", dir=str(ROOT / "build"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        params, state, straight = p0, opt.init(p0), []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            straight.append(float(m["loss"]))
+        mesh8, where8 = _split_mesh(DRILL_MESHES[0], ("data", "model"))
+        ps, os_, step8 = make(mesh8)
+        params, state = shd.place(p0, ps), shd.place(opt.init(p0), os_)
+        losses = []
+        for b in batches[:4]:
+            params, state, m = step8(params, state, b)
+            losses.append(float(m["loss"]))
+        n_shards = shards_equal(params, mesh8) + shards_equal(state, mesh8)
+        ckpt.save(ckpt_dir + "/p", 4, params)
+        ckpt.save(ckpt_dir + "/o", 4, state)
+        plan = recovery_plan(n_alive_chips=4, model_parallel=2,
+                             chips_per_pod=8)
+        check(tuple(plan["mesh_shape"][1:]) == DRILL_MESHES[1],
+              f"16b: recovery_plan(4, 2, 8) gives {plan['mesh_shape']}")
+        mesh4, where4 = _split_mesh(DRILL_MESHES[1], ("data", "model"))
+        ps4, os4, step4 = make(mesh4)
+        params = ckpt.reshard_restore(ckpt_dir + "/p", 4, p0, ps4)
+        state = ckpt.reshard_restore(ckpt_dir + "/o", 4, opt.init(p0), os4)
+        n_shards += shards_equal(params, mesh4) + shards_equal(state, mesh4)
+        for b in batches[4:]:
+            params, state, m = step4(params, state, b)
+            losses.append(float(m["loss"]))
+        n_shards += shards_equal(params, mesh4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(losses == straight, f"16b: the drill's losses {losses} != the "
+          f"unsharded run's {straight}")
+    check(all(np.isfinite(losses)), f"16b: losses {losses}")
+    out["16b"] = {"losses": losses, "meshes": [list(m) for m in DRILL_MESHES],
+                  "devices": [where8, where4], "plan": plan["mesh_shape"],
+                  "shards_checked": n_shards,
+                  "seconds": time.perf_counter() - t_b}
+    print(f"[16b] the elastic drill (smoke yi-6b, float32, deterministic "
+          f"algorithms): 4 sharded steps on {DRILL_MESHES[0]} ({where8}), "
+          f"save, recovery_plan(4, 2, 8) -> {plan['mesh_shape']}, "
+          f"reshard_restore onto {DRILL_MESHES[1]} ({where4}), 4 more: the 8 "
+          f"losses == the unsharded run's ({', '.join(f'{v:.4f}' for v in losses)}); "
+          f"{n_shards} shards == their slices of the gathered leaves, each "
+          f"on its position's device; {card}", flush=True)
+    del p0, params, state, batches
+
+    # -- 16c: gpipe, one stage a position, each on its own stream -----------
+    phase("16c")
+    t_c = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "16c: TF32 matmuls are on")
+    pcfg = get_config(DIST_ARCH).replace(n_layers=GPIPE_LAYERS,
+                                          param_dtype="float32")
+    gen = torch.Generator(dev).manual_seed(19)
+    blocks = init_lm(pcfg, generator=gen, device=dev)["blocks"]
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, pcfg.d_model), generator=gen,
+                    device=dev)
+    positions = torch.arange(PIPE_SEQ, dtype=torch.int32, device=dev)
+    pmesh, pwhere = _split_mesh((DIST_STAGES,), ("pod",))
+    seen = []
+
+    def stage_fn(stage, h):
+        seen.append((h.device, torch.cuda.current_stream(h.device)))
+        p = positions.to(h.device)[None].expand(h.shape[0], PIPE_SEQ)
+        for lp in unstack(stage):
+            h = block_forward(lp, h, p, pcfg)[0]
+        return h
+
+    live = tree_map(lambda t: t.detach().requires_grad_(), blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_pipe = gpipe(stage_fn, split_stages(live, DIST_STAGES), x, mesh=pmesh,
+                   n_micro=PIPE_MICRO)
+    g_pipe = torch.autograd.grad((h_pipe ** 2).sum(), flatten(live))
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    h_pipe = h_pipe.detach()
+    want_streams = [pmesh.stream_at(k, pmesh.device_at(k, dev))
+                    for k in range(DIST_STAGES)]
+    ticks = PIPE_MICRO + DIST_STAGES - 1
+    check(len(seen) == ticks * DIST_STAGES and all(
+        st == want_streams[i % DIST_STAGES] for i, (_, st) in enumerate(seen))
+        and len(set(want_streams)) == DIST_STAGES
+        and torch.cuda.default_stream(dev) not in want_streams,
+        "16c: the stages did not each run on their own position's stream")
+    seen.clear()
+    t0 = time.perf_counter()
+    h_seq = stage_fn(live, x)
+    g_seq = torch.autograd.grad((h_seq ** 2).sum(), flatten(live))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    err_h = _pipe_err(h_pipe, h_seq, "the pipeline's output", "16c")
+    names = flatten(shd.tree_map_with_path(lambda k, _: ".".join(k), blocks))
+    err_g = max(_pipe_err(a, w, f"grad of blocks.{name}", "16c")
+                for a, w, name in zip(g_pipe, g_seq, names))
+    out["16c"] = {"stages": DIST_STAGES, "devices": pwhere,
+                  "layers": GPIPE_LAYERS, "n_micro": PIPE_MICRO,
+                  "err_out": err_h, "err_grads": err_g, "tolerance": PIPE_TOL,
+                  "pipe_s": pipe_s, "seq_s": seq_s}
+    print(f"[16c] gpipe over {DIST_STAGES} positions of pod ({pwhere}), one "
+          f"stage of {GPIPE_LAYERS // DIST_STAGES} {DIST_ARCH} blocks (full "
+          f"width, float32) a position, each on its own stream "
+          f"({ticks} ticks): output and grads of sum(h**2) within {PIPE_TOL} "
+          f"(|want| + max|want|) of the sequential blocks (largest error / "
+          f"max|want|: output {err_h:.3e}, grads {err_g:.3e}); "
+          f"forward+backward {pipe_s:.2f} s piped, {seq_s:.2f} s "
+          f"sequential; {card}", flush=True)
+    del blocks, live, h_pipe, h_seq, g_pipe, g_seq, x
+    kern["replay"]["mesh_lm"] = {"launches": counts["replay"],
+                                 "round_plain_s": plain_s}
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    out["part_seconds"] = {"16a": t_b - t_phase, "16b": t_c - t_b,
+                           "16c": t_end - t_c}
+    print(f"[16] mesh LM path: launches {counts}; phase 16 took "
+          f"{out['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in out['part_seconds'].items()})}); {card}",
+          flush=True)
+    return counts
 
 
 def _graphed_step(step, params, caches, dev):

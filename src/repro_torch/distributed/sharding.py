@@ -23,16 +23,26 @@ port's trees (nested dicts under the reference's key paths, an
 :class:`~repro_torch.train.optimizer.OptState`), so the same tree serves
 params, grads and both Adam moments; caches/batches have their own rule
 sets.  A :class:`Sharding` gives a leaf's per-device shard shape and
-bytes, which the dry run (:mod:`repro_torch.launch.dryrun`) sums.  The
-port runs on one card: :func:`place` puts every leaf whole on the one
-device of a host mesh and refuses a mesh of more.
+bytes, which the dry run (:mod:`repro_torch.launch.dryrun`) sums, and
+``Sharding.indices`` the slices each mesh position holds (the
+reference's ``devices_indices_map``).
+
+:func:`place` lays a tree out on a mesh with devices, in one process:
+on a mesh of one device every leaf goes whole onto it; on a mesh of
+more each leaf becomes a :class:`Sharded`, one shard a position on that
+position's device (positions may repeat a device: ``cpu`` repeated in
+the tests, ``cuda:0`` repeated on one card).  :func:`gather` gives the
+whole tensors back, and :func:`sharded_step` is the counterpart of
+``jax.jit`` with ``in_shardings``/``out_shardings``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping, Sequence, Tuple, Union
+from typing import (Any, Callable, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -123,6 +133,30 @@ class Sharding:
     def shard_bytes(self, leaf: torch.Tensor) -> int:
         """Bytes of one device's shard of ``leaf``."""
         return math.prod(self.shard_shape(leaf.shape)) * leaf.element_size()
+
+    def indices(self, shape: Sequence[int]) -> List[Tuple[slice, ...]]:
+        """The slices of a tensor of ``shape`` that each mesh position
+        holds, one tuple a position in row-major order (the order of
+        ``mesh.devices``): the reference's ``devices_indices_map``.  A
+        dim split over a tuple of axes numbers its parts with the first
+        axis major; positions that differ only along axes the spec does
+        not name hold the same slices."""
+        sub = self.shard_shape(shape)
+        names = self.mesh.axis_names
+        out = []
+        for coords in itertools.product(*(range(self.mesh.shape[a])
+                                          for a in names)):
+            at = dict(zip(names, coords))
+            idx = []
+            for i, n in enumerate(shape):
+                ax = self.spec[i] if i < len(self.spec) else None
+                part = 0
+                for a in (() if ax is None else
+                          (ax,) if isinstance(ax, str) else ax):
+                    part = part * self.mesh.shape[a] + at[a]
+                idx.append(slice(part * sub[i], (part + 1) * sub[i]))
+            out.append(tuple(idx))
+        return out
 
 
 def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
@@ -361,20 +395,133 @@ def replicated(mesh: Mesh) -> Sharding:
     return Sharding(mesh, P())
 
 
+class Sharded:
+    """A tensor laid out by ``sharding`` over a mesh with devices (what
+    ``jax.device_put(x, NamedSharding)`` gives): ``shards[k]`` is the
+    slice ``sharding.indices(shape)[k]`` of the whole, on the device of
+    mesh position ``k``, a tensor of its own (replicated axes hold
+    copies).  :meth:`gather` gives the whole tensor back."""
+
+    def __init__(self, shape: Sequence[int], dtype: torch.dtype,
+                 sharding: Sharding, shards: Sequence[torch.Tensor]):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.shards = tuple(shards)
+        if len(self.shards) != sharding.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{sharding.mesh.size}")
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole tensor on ``device``, each distinct slice copied
+        once."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        seen = set()
+        for idx, part in zip(self.sharding.indices(self.shape), self.shards):
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in seen:
+                seen.add(key)
+                out[idx].copy_(part)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
+                f"{self.sharding.spec!r} on {self.sharding.mesh!r})")
+
+
+def shard(x: torch.Tensor, sharding: Sharding) -> Sharded:
+    """``x`` cut by ``sharding``: each position's slice copied onto its
+    device (the inverse of :meth:`Sharded.gather`)."""
+    mesh = sharding.mesh
+    if mesh.abstract:
+        raise ValueError(f"cannot shard onto {mesh!r}: it has no devices")
+    return Sharded(x.shape, x.dtype, sharding, [
+        x[idx].to(device=torch.device(dev), copy=True,
+                  memory_format=torch.contiguous_format)
+        for idx, dev in zip(sharding.indices(x.shape), mesh.devices)])
+
+
+def _sharding_at(shardings, path) -> Optional[Sharding]:
+    s = shardings
+    for k in path:
+        if s is None:
+            break
+        s = s[k] if isinstance(s, Mapping) else getattr(s, k)
+    return s
+
+
 def place(tree: Any, shardings: Any) -> Any:
-    """Each leaf laid out by its sharding.  The port runs on one card: on
-    a mesh of one device every leaf goes whole onto it; an abstract mesh,
-    or one of more devices, raises."""
+    """Each leaf laid out by its sharding (a leaf whose sharding is None
+    stays as it is).  On a mesh of one device the leaf goes whole onto
+    it; on a mesh of more it becomes a :class:`Sharded` (a
+    :class:`Sharded` leaf is gathered and cut anew: the elastic
+    remesh); an abstract mesh raises."""
 
     def one(path, leaf):
-        s = shardings
-        for k in path:
-            s = s[k] if isinstance(s, Mapping) else getattr(s, k)
+        s = _sharding_at(shardings, path)
+        if s is None:
+            return leaf
         mesh = s.mesh
-        if mesh.abstract or mesh.size != 1:
+        if mesh.abstract:
             raise ValueError(
-                f"cannot place {'.'.join(map(str, path))} on {mesh!r}: the "
-                "port places tensors on a mesh of one device")
-        return leaf.to(mesh.devices[0])
+                f"cannot place {'.'.join(map(str, path))} on {mesh!r}: it "
+                "has no devices")
+        home = torch.device(mesh.devices[0])
+        whole = leaf.gather(home) if isinstance(leaf, Sharded) else leaf
+        if mesh.size == 1:
+            return whole.to(home)
+        return shard(whole, s)
 
     return tree_map_with_path(one, tree)
+
+
+def gather(tree: Any, device) -> Any:
+    """Every leaf whole on ``device``: :class:`Sharded` leaves gathered,
+    tensors moved."""
+    dev = torch.device(device)
+    return tree_map_with_path(
+        lambda _, leaf: leaf.gather(dev) if isinstance(leaf, Sharded)
+        else leaf.to(dev), tree)
+
+
+def _first_sharding(tree) -> Optional[Sharding]:
+    if isinstance(tree, Sharding):
+        return tree
+    if isinstance(tree, Mapping):
+        tree = tuple(tree.values())
+    if isinstance(tree, tuple):
+        for t in tree:
+            s = _first_sharding(t)
+            if s is not None:
+                return s
+    return None
+
+
+def sharded_step(fn: Callable, in_shardings: tuple,
+                 out_shardings: tuple) -> Callable:
+    """``fn`` over a mesh with devices, as ``jax.jit(fn,
+    in_shardings=..., out_shardings=...)`` runs it: each call takes the
+    arguments laid out by ``in_shardings`` (:class:`Sharded` leaves, or
+    whole tensors) and returns the outputs laid out by
+    ``out_shardings`` (an entry of None leaves that output whole).
+
+    This shards storage, not compute: the arguments are gathered onto
+    the first device of the mesh, ``fn`` runs there once, and its
+    outputs are cut onto the mesh by :func:`place`.  So a sharded step
+    gives exactly what ``fn`` gives on that device.  Tensor- and
+    data-parallel compute over several cards is not ported (the card's
+    machine has one H100)."""
+    s = _first_sharding(tuple(in_shardings))
+    if s is None or s.mesh.abstract:
+        raise ValueError("sharded_step needs a Sharding over a mesh with "
+                         "devices among its in_shardings")
+    home = torch.device(s.mesh.devices[0])
+
+    def run(*args):
+        if len(args) != len(in_shardings):
+            raise ValueError(f"{len(args)} arguments for "
+                             f"{len(in_shardings)} in_shardings")
+        out = fn(*(gather(a, home) for a in args))
+        return tuple(place(o, sh) for o, sh in zip(out, out_shardings))
+
+    return run

@@ -4,11 +4,19 @@ A :class:`Mesh` is ordered axis names with their sizes and, for a real
 mesh, the devices it spans.  The production meshes (a 16 x 16 pod, two
 of them) are abstract: the card's machine has one H100, so they carry
 shapes only, which is what the sharding rules and the dry run read.
-``with mesh:`` makes a mesh ambient for :mod:`repro_torch.distributed.hints`.
+``with mesh:`` makes a mesh ambient for :mod:`repro_torch.distributed.hints`
+and :func:`repro_torch.models.moe.moe_forward_ep`.
+
+A mesh with devices runs one program per position in one process, as
+the reference's ``shard_map`` does: position ``k`` computes on
+``device_at(k)`` and, on a CUDA device, on its own stream
+(``stream_at(k)``, entered with :func:`on_stream`).  Positions may name
+one device several times (``cuda:0`` repeated on one card).
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -41,10 +49,44 @@ class Mesh:
                              f"{self.size}")
         self.hints: list = []
         self._tokens: list = []
+        self._streams: dict = {}
 
     @property
     def abstract(self) -> bool:
         return self.devices is None
+
+    def position(self, **coords: int) -> int:
+        """The row-major index of the position at ``coords`` (an axis not
+        named is at 0): its place in ``devices``."""
+        k = 0
+        for a in self.axis_names:
+            k = k * self.shape[a] + int(coords.get(a, 0))
+        return k
+
+    def device_at(self, k: int, home) -> torch.device:
+        """Position ``k``'s device; ``home`` on an abstract mesh.  A CUDA
+        device this process does not see raises."""
+        if self.abstract:
+            return torch.device(home)
+        d = torch.device(self.devices[k])
+        if d.type == "cuda":
+            if not torch.cuda.is_available() or \
+                    (d.index or 0) >= torch.cuda.device_count():
+                raise ValueError(f"{self!r} names {d} at position {k}, "
+                                 f"which does not exist here")
+            if d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    def stream_at(self, k: int, device: torch.device):
+        """Position ``k``'s own stream on its CUDA ``device``, made once;
+        None on any other device and on an abstract mesh."""
+        if self.abstract or device.type != "cuda":
+            return None
+        s = self._streams.get(k)
+        if s is None:
+            s = self._streams[k] = torch.cuda.Stream(device=device)
+        return s
 
     def __enter__(self) -> "Mesh":
         self._tokens.append(_AMBIENT.set(self))
@@ -56,6 +98,45 @@ class Mesh:
     def __repr__(self) -> str:
         kind = "abstract" if self.abstract else f"over {len(self.devices)}"
         return f"Mesh({self.shape}, {kind})"
+
+
+@contextlib.contextmanager
+def on_stream(device: torch.device, stream):
+    """``stream`` made current on ``device``, after it waits for what
+    the device's current stream has queued; nothing where ``stream`` is
+    None (the CPU, meta, an abstract mesh)."""
+    if stream is None:
+        yield
+        return
+    with torch.cuda.device(device):
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            yield
+
+
+def read_on(t: torch.Tensor, stream) -> torch.Tensor:
+    """``t``, marked as read on ``stream`` (where not None), so that the
+    caching allocator does not hand its memory out before that read
+    ends."""
+    if stream is not None and t.device == stream.device:
+        t.record_stream(stream)
+    return t
+
+
+def mark(stream):
+    """An event recorded on ``stream``: what was queued there so far
+    (None where ``stream`` is None)."""
+    if stream is None:
+        return None
+    done = torch.cuda.Event()
+    done.record(stream)
+    return done
+
+
+def wait_for(stream, done) -> None:
+    """``stream`` waits for the event ``done`` (where both exist)."""
+    if stream is not None and done is not None:
+        stream.wait_event(done)
 
 
 def ambient_mesh() -> Optional[Mesh]:

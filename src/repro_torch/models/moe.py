@@ -7,6 +7,11 @@ the dense dispatch (every expert sees every token, masked-combined);
 scatter-adds are ``index_add_``.  Aux load-balancing loss follows
 Switch/GShard: E·Σ_e f_e·p_e.
 
+``moe_forward_ep`` is the expert-parallel form over a device mesh's
+``model`` axis: one program a mesh position in one process, as the
+reference's ``shard_map`` runs it (see its docstring for what it
+computes under a ``data`` axis).
+
 ``torch.topk`` returns the values in descending order, as
 ``jax.lax.top_k`` does; the two may break exact ties differently.
 """
@@ -14,14 +19,16 @@ Switch/GShard: E·Σ_e f_e·p_e.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Mapping, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed.hints import hint
-from ..launch.mesh import ambient_mesh
+from ..distributed.sharding import Sharded, data_axes
+from ..launch.mesh import ambient_mesh, mark, on_stream, read_on, wait_for
 from .layers import Params, gelu, normal
+from .params import tree_leaves, tree_map
 from .quantized import effective_weight
 
 
@@ -150,23 +157,115 @@ def moe_forward_grouped(
     return out.reshape(b, l, d), aux
 
 
+def _at_position(w, k: int, dev: torch.device, lo: int = 0,
+                hi: int = None):
+    """Rows ``[lo, hi)`` of ``w`` (all of them where ``hi`` is None) for
+    mesh position ``k``, on ``dev``: ``w`` a tensor, a :class:`Sharded`
+    (whose shard at ``k``, where it is exactly those rows whole, is used
+    as it is; else the rows are cut from the gathered tensor) or a
+    quantized dict of them (``w_q`` and its scale both cut by row, as
+    the reference's ``spec_like`` splits them)."""
+    if isinstance(w, Mapping):
+        return {name: _at_position(v, k, dev, lo, hi)
+                for name, v in w.items()}
+    hi = w.shape[0] if hi is None else hi
+    if isinstance(w, Sharded):
+        idx = w.sharding.indices(w.shape)[k]
+        whole = [(s.start, s.stop) for s in idx]
+        if whole == [(lo, hi)] + [(0, n) for n in w.shape[1:]]:
+            return w.shards[k].to(dev)
+        w = w.gather(dev)
+    return w[lo:hi].to(dev)
+
+
+def _shard_coords(mesh, axes, i: int) -> dict:
+    """The coordinates along ``axes`` (the first major) of part ``i`` of
+    a dim split over them."""
+    coords = {}
+    for a in reversed(axes):
+        i, coords[a] = divmod(i, mesh.shape[a])
+    return coords
+
+
 def moe_forward_ep(
     p: Params, x: torch.Tensor, *, top_k: int, act: str,
     capacity_factor: float = 1.25, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert parallelism over a device mesh's ``model`` axis.  The port
-    runs on one card: where the reference falls back to
-    :func:`moe_forward_grouped` (no ambient mesh with a ``model`` axis,
-    or experts that do not divide over it) so does this, and on a
-    ``model`` axis of one device the two compute the same; a mesh given
-    as ``mesh``, or an ambient one that would split the experts, raises."""
-    ambient = ambient_mesh()
+    """Expert parallelism over ``mesh`` (default: the ambient one), as
+    the reference's ``shard_map`` over ``model`` computes it.
+
+    Each ``model`` rank ``r`` dispatches the same tokens to its own
+    ``E/tp`` experts ``[r·E/tp, (r+1)·E/tp)`` (:func:`_grouped_local`
+    with those experts' weights) and the ranks' partial outputs add up
+    (the psum).  The batch splits over the DATA axes where it divides,
+    and each data shard dispatches alone, its capacity from its own
+    tokens: under a ``data`` axis of more than one position this is not
+    :func:`moe_forward_grouped` over the whole batch.  The aux loss is
+    the mean over ``model`` of data shard 0's (the reference's
+    ``out_specs=P()`` without a replication check returns the first
+    shard's).  Falls back to :func:`moe_forward_grouped` where the
+    reference does: no mesh, no ``model`` axis, or experts that do not
+    divide over it.
+
+    Data shard ``i`` at rank ``r`` runs at mesh position ``(i, r)``, on
+    its device and stream (``x``'s device on an abstract mesh, where
+    nothing else runs: the dry run traces it on ``meta``).  The ranks'
+    partials add in rank order at the shard's first position, and the
+    shards are concatenated on ``x``'s device.  Weights may be tensors,
+    quantized dicts or :class:`Sharded` leaves (a position's own shard
+    is used where it holds exactly its experts)."""
+    mesh = mesh if mesh is not None else ambient_mesh()
     n_e = p["router"].shape[1]
-    tp = (ambient.shape["model"]
-          if ambient is not None and "model" in ambient.axis_names else 1)
-    if mesh is not None or (tp > 1 and n_e % tp == 0):
-        raise ValueError(
-            "moe_forward_ep: a device mesh was given, but expert parallelism "
-            "across devices is not ported; the port runs on one card")
-    return moe_forward_grouped(p, x, top_k=top_k, act=act,
-                               capacity_factor=capacity_factor)
+    if (mesh is None or "model" not in mesh.axis_names
+            or n_e % mesh.shape["model"]):
+        whole = tree_map(lambda t: t.gather(x.device)
+                         if isinstance(t, Sharded) else t, p)
+        return moe_forward_grouped(whole, x, top_k=top_k, act=act,
+                                   capacity_factor=capacity_factor)
+    b, l, d = x.shape
+    tp = mesh.shape["model"]
+    data = data_axes(mesh)
+    n_data = math.prod(mesh.shape[a] for a in data)
+    n_shards = n_data if b % n_data == 0 else 1
+    b_loc, e_loc = b // n_shards, n_e // tp
+    cap = max(1, int(capacity_factor * b_loc * l * top_k / n_e))
+    home = x.device
+    names = [k for k in ("up", "gate", "down") if k in p]
+    sums = []
+    for i in range(n_shards):
+        coords = _shard_coords(mesh, data, i) if n_shards > 1 else {}
+        parts = []
+        for r in range(tp):
+            k = mesh.position(**coords, model=r)
+            dev = mesh.device_at(k, home)
+            stream = mesh.stream_at(k, dev)
+            with on_stream(dev, stream):
+                xs = read_on(x[i * b_loc:(i + 1) * b_loc], stream).to(dev)
+                p_loc = {"router": _at_position(p["router"], k, dev)}
+                for name in names:
+                    p_loc[name] = _at_position(p[name], k, dev, r * e_loc,
+                                               (r + 1) * e_loc)
+                for t in tree_leaves(p_loc):
+                    read_on(t, stream)
+                out, aux = _grouped_local(
+                    p_loc, xs.reshape(b_loc * l, d), top_k=top_k, act=act,
+                    cap=cap, e_lo=r * e_loc, e_loc=e_loc)
+                parts.append((out, aux, mark(stream)))
+        # the psum over model, in rank order, at the shard's first position
+        k0 = mesh.position(**coords)
+        dev0 = mesh.device_at(k0, home)
+        stream0 = mesh.stream_at(k0, dev0)
+        with on_stream(dev0, stream0):
+            out, aux = parts[0][0], parts[0][1]
+            for o, a, done in parts[1:]:
+                wait_for(stream0, done)
+                out = out + read_on(o, stream0).to(dev0)
+                aux = aux + read_on(a, stream0).to(dev0)
+            sums.append((out.reshape(b_loc, l, d), aux / tp, mark(stream0)))
+    cur = torch.cuda.current_stream(home) if home.type == "cuda" else None
+    for o, a, done in sums:
+        wait_for(cur, done)
+        read_on(o, cur)
+        read_on(a, cur)
+    return (torch.cat([o.to(home) for o, _, _ in sums]),
+            sums[0][1].to(home))

@@ -19,9 +19,11 @@ Layout:  <dir>/step_<N>/
   writes it on a worker thread, letting the train loop overlap the I/O
   with the next step.
 
-:func:`restore` takes a ``device``; :func:`reshard_restore` places each
-leaf by its sharding on a mesh (the elastic remesh; on the port's
-one-device host mesh, every leaf whole on that device).
+:func:`save` and :func:`save_async` gather sharded leaves
+(:class:`~repro_torch.distributed.sharding.Sharded`) whole onto the
+host; :func:`restore` takes a ``device``; :func:`reshard_restore`
+places each leaf by its sharding on a mesh, which may differ from the
+one the checkpoint was saved from (the elastic remesh).
 """
 
 from __future__ import annotations
@@ -37,13 +39,21 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import Sharded, place
 from ..kernels.build import resolve_device
 from ..models.params import flatten, unflatten
 
 
+def _whole(x) -> torch.Tensor:
+    """A leaf as one tensor (a sharded leaf gathered into host memory)."""
+    if isinstance(x, Sharded):
+        return x.gather("cpu")
+    return torch.as_tensor(x).detach()
+
+
 def _to_numpy_storable(x) -> Tuple[np.ndarray, str]:
     """npz can't store bfloat16 — persist as a uint16 view + dtype tag."""
-    t = torch.as_tensor(x).detach().cpu()
+    t = _whole(x).cpu()
     dtype_name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), dtype_name
@@ -96,8 +106,8 @@ _pending: Dict[str, threading.Thread] = {}
 
 
 def save_async(ckpt_dir: str, step: int, tree: Any, meta=None) -> None:
-    host_tree = unflatten(tree, [torch.as_tensor(x).detach().to(
-        "cpu", copy=True) for x in flatten(tree)])      # sync device_get
+    host_tree = unflatten(tree, [_whole(x).to("cpu", copy=True)
+                                 for x in flatten(tree)])   # sync device_get
     t = threading.Thread(target=save, args=(ckpt_dir, step, host_tree, meta))
     t.start()
     _pending[ckpt_dir] = t
@@ -146,7 +156,8 @@ def restore(ckpt_dir: str, step: int, tree_like: Any, verify: bool = True,
 
 def reshard_restore(ckpt_dir: str, step: int, tree_like: Any,
                     shardings: Any) -> Any:
-    """Restore + place each leaf with the given sharding (elastic remesh),
-    see :func:`repro_torch.distributed.sharding.place`."""
-    from ..distributed.sharding import place
+    """Restore + place each leaf with the given sharding (elastic
+    remesh): on a mesh of several devices each leaf becomes a
+    :class:`~repro_torch.distributed.sharding.Sharded`, see
+    :func:`repro_torch.distributed.sharding.place`."""
     return place(restore(ckpt_dir, step, tree_like, device="cpu"), shardings)

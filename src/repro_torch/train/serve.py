@@ -262,7 +262,9 @@ class Server:
     the offload (on the host, as float32) and writes its result back into
     the logits in their own dtype, as the reference writes them into its
     host copy; greedy sampling takes the first maximum, as ``jnp.argmax``
-    does."""
+    does.  A step sees the mesh ambient where it runs: under ``with
+    mesh:`` a config with ``moe_impl="ep"`` splits its experts over the
+    mesh's positions, as the reference's step under ``with mesh:``."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
                  max_len: int = 256, eos_id: int = 1,

@@ -135,6 +135,11 @@ def test_decode_hints_under_a_mesh():
 
 
 def test_moe_ep_hints_and_mesh_refusal():
+    """Under an abstract (2, 2) mesh the grouped dispatch records its two
+    expert-buffer hints and keeps its values; ``moe_forward_ep`` runs
+    every position on ``x``'s device, each data shard dispatching alone
+    (its capacity from its own tokens), with data shard 0's aux, and
+    records no hint."""
     from repro_torch.models.moe import moe_forward_ep, moe_forward_grouped
     cfg = smoke_config("granite-moe-1b-a400m").replace(param_dtype="float32")
     params = init_lm(cfg, generator=torch.Generator().manual_seed(1),
@@ -146,10 +151,14 @@ def test_moe_ep_hints_and_mesh_refusal():
     mesh = shd.abstract_mesh((2, 2), ("data", "model"))
     with mesh:
         got = moe_forward_grouped(p, x, top_k=2, act=cfg.act)
-        with pytest.raises(ValueError, match="mesh"):
-            moe_forward_ep(p, x, top_k=2, act=cfg.act)
+        ep_out, ep_aux = moe_forward_ep(p, x, top_k=2, act=cfg.act)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [s for _, s in mesh.hints] == [shd.P("model", None, None)] * 2
+    shards = [moe_forward_grouped(p, x[i:i + 1], top_k=2, act=cfg.act)
+              for i in range(2)]
+    torch.testing.assert_close(ep_out, torch.cat([o for o, _ in shards]),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ep_aux, shards[0][1], rtol=1e-6, atol=0)
     with Mesh((1, 1), ("data", "model")):
         one = moe_forward_ep(p, x, top_k=2, act=cfg.act)
     assert all(torch.equal(a, b) for a, b in zip(one, want))

@@ -1268,3 +1268,180 @@ def test_example_launches_its_kernels(cuda, name, tmp_path, monkeypatch):
     assert all(got[k] == n or (n is None and got[k] > 0)
                for k, n in want.items()), got
     assert out["launches"] == build.LAUNCHES
+
+
+# -- the LM side over a mesh of cuda:0 positions (chip_smoke.py phase 16) ----
+
+def _card_mesh(sizes, axes):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(sizes, axes, [torch.device("cuda", 0)] * int(np.prod(sizes)))
+
+
+def _smoke_moe():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_lm
+    cfg = smoke_config("granite-moe-1b-a400m").replace(param_dtype="float32")
+    gen = torch.Generator().manual_seed(21)
+    p = {k: v[0] for k, v in init_lm(cfg, generator=gen, device="cpu")
+         ["blocks"]["moe"].items()}
+    return cfg, p, torch.randn((4, 8, cfg.d_model), generator=gen)
+
+
+@pytest.mark.parametrize("sizes", [(1, 4), (2, 4), (4, 2)])
+def test_moe_ep_on_card_positions_equals_cpu_positions(cuda, sizes):
+    """moe_forward_ep over cuda:0 repeated (a stream a position) against
+    the same mesh of CPU positions, within rtol = atol = 1e-4 (float32,
+    no TF32); the positions' streams are the mesh's own."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.moe import moe_forward_ep
+    cfg, p, x = _smoke_moe()
+    n = int(np.prod(sizes))
+    kw = dict(top_k=cfg.experts_per_token, act=cfg.act)
+    want = moe_forward_ep(p, x, mesh=Mesh(sizes, ("data", "model"),
+                                          [torch.device("cpu")] * n), **kw)
+    mesh = _card_mesh(sizes, ("data", "model"))
+    got = moe_forward_ep({k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+                         mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
+    assert len(mesh._streams) == n
+    assert torch.cuda.default_stream(cuda) not in mesh._streams.values()
+
+
+def test_server_serves_moe_ep_on_card_positions(cuda):
+    """Smoke granite-moe-1b-a400m with moe_impl="ep" served on the card
+    under a (1, 4) mesh of cuda:0 through PumServeOffload on a card chip:
+    K5 launched once a chip round; every step's logits within rtol =
+    atol = 1e-4 of the grouped server's on the card, tokens equal."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.chip import SimdramChip
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.serve import PumServeOffload, Request, Server
+    cfg = smoke_config("granite-moe-1b-a400m").replace(param_dtype="float32")
+    from repro_torch.models.params import tree_map
+    params = tree_map(lambda t: t.to(cuda), init_lm(
+        cfg, generator=torch.Generator().manual_seed(22), device="cpu"))
+
+    def serve(c, mesh):
+        off = PumServeOffload(chip=SimdramChip(n_banks=4, n_subarrays=2,
+                                               device=cuda))
+        server = Server(c, params, batch_slots=4, max_len=32,
+                        pum_offload=off, device=cuda)
+        step, logits = server.step_fn, []
+
+        def kept(*args):
+            out = step(*args)
+            logits.append(out[0].cpu())
+            return out
+
+        server.step_fn = kept
+        reqs = [Request(prompt=p, max_new=4)
+                for p in ([5, 6, 7], [9, 3], [11, 12, 13, 14], [2])]
+        for r in reqs:
+            server.submit(r)
+        before = build.LAUNCHES["replay"]
+        with mesh if mesh is not None else contextlib.nullcontext():
+            server.run()
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["replay"] - before == off.chip.stats.rounds > 0
+        return [r.out for r in reqs], torch.stack(logits)
+
+    ep = serve(cfg.replace(moe_impl="ep"), _card_mesh((1, 4),
+                                                       ("data", "model")))
+    grouped = serve(cfg, None)
+    torch.testing.assert_close(ep[1], grouped[1], rtol=1e-4, atol=1e-4)
+    assert ep[0] == grouped[0]
+
+
+def test_elastic_drill_on_card_positions(cuda, tmp_path, monkeypatch):
+    """The elastic drill on cuda:0 positions under deterministic
+    algorithms: 4 sharded steps on (4, 2), checkpoint, reshard_restore
+    onto (2, 2), 4 more; the 8 losses == the unsharded card run's."""
+    import torch.utils.deterministic as deterministic
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.train_loop import make_train_step
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = smoke_config("yi-6b").replace(param_dtype="float32")
+    p0 = init_lm(cfg, generator=torch.Generator(cuda).manual_seed(23),
+                 device=cuda)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(
+        cfg, DataConfig(seq_len=32, global_batch=8, seed=0), s).items()}
+        for s in range(8)]
+    step = make_train_step(cfg, opt.AdamWConfig(lr=1e-3, eps=1e-3,
+                                                warmup_steps=2,
+                                                total_steps=40))
+
+    def sharded(sizes):
+        m = _card_mesh(sizes, ("data", "model"))
+        ps = shd.param_shardings(p0, m)
+        os_ = shd.opt_shardings(opt.init(p0), p0, m)
+        return ps, os_, shd.sharded_step(
+            step, (ps, os_, shd.batch_shardings(batches[0], m)),
+            (ps, os_, None))
+
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        params, state, straight = p0, opt.init(p0), []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            straight.append(float(m["loss"]))
+        ps, os_, step8 = sharded((4, 2))
+        params, state = shd.place(p0, ps), shd.place(opt.init(p0), os_)
+        losses = []
+        for b in batches[:4]:
+            params, state, m = step8(params, state, b)
+            losses.append(float(m["loss"]))
+        ckpt.save(str(tmp_path / "p"), 4, params)
+        ckpt.save(str(tmp_path / "o"), 4, state)
+        ps4, os4, step4 = sharded((2, 2))
+        params = ckpt.reshard_restore(str(tmp_path / "p"), 4, p0, ps4)
+        state = ckpt.reshard_restore(str(tmp_path / "o"), 4, opt.init(p0),
+                                     os4)
+        for b in batches[4:]:
+            params, state, m = step4(params, state, b)
+            losses.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    assert losses == straight
+    assert all(s.is_cuda for s in params["embed"]["emb"].shards)
+
+
+def test_gpipe_on_card_positions_uses_their_streams(cuda):
+    """gpipe over 4 positions of cuda:0: each stage computes on its
+    position's own stream; the output within 2e-5 of the sequential
+    blocks and the gradients within rtol 5e-4, atol 5e-5."""
+    from repro_torch.distributed.pipeline import gpipe, split_stages
+    rng = np.random.default_rng(0)
+    ws = torch.from_numpy((rng.normal(size=(8, 16, 16)) * 0.3).astype(
+        np.float32)).to(cuda).requires_grad_()
+    x = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).to(cuda)
+    mesh = _card_mesh((4,), ("pod",))
+    seen = []
+
+    def stage_fn(stage_ws, h):
+        seen.append(torch.cuda.current_stream(h.device))
+        for w in stage_ws:
+            h = torch.tanh(h @ w)
+        return h
+
+    out = gpipe(stage_fn, split_stages(ws, 4), x, mesh=mesh, n_micro=4)
+    streams = [mesh._streams[k] for k in range(4)]
+    assert seen == streams * 7
+    assert torch.cuda.default_stream(cuda) not in streams
+    seq = x
+    for i in range(8):
+        seq = torch.tanh(seq @ ws[i])
+    torch.testing.assert_close(out, seq, rtol=2e-5, atol=2e-5)
+    g_pipe, = torch.autograd.grad((out ** 2).sum(), ws)
+    g_seq, = torch.autograd.grad((seq ** 2).sum(), ws)
+    torch.testing.assert_close(g_pipe, g_seq, rtol=5e-4, atol=5e-5)

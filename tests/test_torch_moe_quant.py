@@ -18,7 +18,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import smoke_config as ref_smoke_config
@@ -27,6 +26,7 @@ from repro.models import moe as ref_moe
 from repro.models import quantized as ref_quant
 from repro.models import transformer as ref_tf
 from repro_torch.core.isa import SimdramDevice
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import (moe_forward, moe_forward_ep,
                                     moe_forward_grouped)
@@ -62,7 +62,9 @@ def inputs(seed, shape, scale=1.0):
 def test_grouped_matches_dense_dispatch():
     """With capacity ≥ T·K/E·E (no drops), grouped == dense-masked MoE,
     and both equal the reference's; ``moe_forward_ep`` with no mesh is
-    the grouped dispatch, and a mesh raises."""
+    the grouped dispatch, and over a (1, 4) mesh of CPU positions (one
+    expert a position, no data split) it computes the same within
+    rtol 1e-5 (its partials add in another order)."""
     d, ff, n_e, top_k = 16, 32, 4, 2
     rp, p = moe_pair(0, d, ff, n_e)
     rx, x = inputs(1, (2, 8, d), 0.5)
@@ -87,8 +89,13 @@ def test_grouped_matches_dense_dispatch():
     close(out_e, r_e)
     close(aux_d, r_aux_d)
     close(aux_g, r_aux_g)
-    with pytest.raises(ValueError, match="mesh"):
-        moe_forward_ep(p, x, top_k=top_k, act="swiglu", mesh=object())
+    mesh = Mesh((1, n_e), ("data", "model"), [torch.device(CPU)] * n_e)
+    with torch.no_grad():
+        out_m, aux_m = moe_forward_ep(p, x, top_k=top_k, act="swiglu",
+                                      capacity_factor=float(n_e), mesh=mesh)
+    np.testing.assert_allclose(np32(out_m), np32(out_g), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(aux_m), float(aux_g), rtol=1e-6)
 
 
 def test_grouped_capacity_drops_are_weighted_zero():

@@ -27,6 +27,7 @@ from repro_torch.configs import ARCHS, cell_is_supported, get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.dryrun import input_specs
 from repro_torch.models.config import SHAPES_BY_NAME
+from repro_torch.models.params import flatten
 from repro_torch.models.transformer import init_caches, init_lm
 from repro_torch.train import optimizer as opt
 
@@ -230,11 +231,23 @@ def test_place_on_host_mesh_and_refusals():
         device="cpu")
     placed = shd.place(params, shd.param_shardings(params, mesh, "serve"))
     assert torch.equal(placed["embed"]["emb"], params["embed"]["emb"])
-    with pytest.raises(ValueError, match="mesh of one device"):
+    with pytest.raises(ValueError, match="has no devices"):
         shd.place(params, shd.param_shardings(params, port_mesh("16x16")))
+    # a mesh of two CPU positions: a shard a position, its own copy, that
+    # gathers back to the leaf
     two = Mesh((2, 1), ("data", "model"),
                [torch.device("cpu"), torch.device("cpu")])
-    with pytest.raises(ValueError, match="mesh of one device"):
-        shd.place(params, shd.param_shardings(params, two))
+    sh = shd.param_shardings(params, two)
+    split = shd.place(params, sh)
+    emb = split["embed"]["emb"]
+    assert isinstance(emb, shd.Sharded) and emb.sharding == sh["embed"]["emb"]
+    whole = shd.gather(split, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(flatten(whole),
+                                                 flatten(params)))
+    q = split["blocks"]["attn"]["q"]["w"]    # (1, 32, 32) on (None, "data", "model")
+    want = params["blocks"]["attn"]["q"]["w"]
+    assert [tuple(s.shape) for s in q.shards] == [(1, 16, 32)] * 2
+    assert torch.equal(q.shards[1], want[:, 16:])
+    assert q.shards[0].data_ptr() != want.data_ptr()
     with pytest.raises(ValueError, match="does not divide"):
         make_host_mesh(model_parallel=2, device="cpu")
