@@ -269,6 +269,27 @@ Chrome trace goes to ``--trace`` (default
      internvl2-1b's blocks at full width, float32), each stage on its
      position's stream, output and the grads of sum(h**2) within
      ``PIPE_TOL`` of the sequential blocks (the ``mesh lm`` path of K5);
+ 17. the LM's serving steps partitioned over a device mesh
+     (``distributed/partition.py``: each position computes on its own
+     shards, with explicit collectives), run after phase 16 and before
+     the kernels line, under deterministic algorithms, each mesh over the
+     visible cards where there are enough, else over ``cuda:0`` repeated:
+     (17a) yi-6b at its published width in bf16 (``PARTITION_LAYERS`` of
+     its 32 layers) over (2, 2): a ``make_prefill`` of 4 x 512 tokens and
+     8 decode steps (caches of 1,024 positions filled with seeded
+     normals, each step fed the unpartitioned step's greedy token)
+     against the unpartitioned steps on the card: every step's logits
+     within ``PARTITION_REL`` of each row's max|logit|, the cache slots
+     each position wrote within it of their slice of the unpartitioned
+     cache and nothing else in its shards changed, and model rank 1's
+     partial dropped from layer 3's MLP all-reduce must read more; (17b)
+     internvl2-1b (all 24 layers), 2 decode steps of 16 rows against
+     32,768 cache positions over (2, 2) (its heads split) and (1, 4) (14
+     query and 2 kv heads over 4 ranks: ``head_dim`` split), held the
+     same way; (17c) the dry run of internvl2-1b x decode_32k x 2x16x16,
+     its four compiler fields counted from position 0's partitioned
+     program, beside the reference's recorded values.  Phase 17 launches
+     none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -300,6 +321,7 @@ tolerance.  The last line is the device JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -540,6 +562,41 @@ DRILL_OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=2, total_steps=40)
 # 16c: gpipe over DIST_STAGES positions of pod, GPIPE_LAYERS of
 # internvl2-1b's blocks at full width in float32
 GPIPE_LAYERS = 8
+# phase 17: the LM's serving steps partitioned over a device mesh, each
+# position computing on its own shards with explicit collectives
+# (distributed/partition.py), positions of cuda:0 repeated on one card.
+# 17a: yi-6b at its published width, bf16, PARTITION_LAYERS of its 32
+# layers, over PARTITION_MESH: a prefill of PARTITION_ROWS x
+# PARTITION_PREFILL tokens, then PARTITION_STEPS decode steps from
+# caches of PARTITION_CACHE positions; 17b: internvl2-1b, all 24 layers,
+# PARTITION_VLM_STEPS decode steps of PARTITION_VLM_ROWS rows against
+# PARTITION_VLM_CACHE positions over PARTITION_MESH and, its heads split
+# unevenly (the cache on head_dim), PARTITION_UNEVEN_MESH.  Logits and
+# the written cache slots within PARTITION_REL of each row's (shard's)
+# max|value| of the unpartitioned step on the card, set between
+# experiments/partition_tolerance.py's readings on the H100 over 6 seeds
+# under deterministic algorithms: sound at most 3.977e-2, the planted
+# faults at least 0.4656 (model rank 1's partial dropped from the
+# all-reduce PARTITION_DROP, layer 3's MLP output, which must read
+# more here too) and 1.419 (positions 1 and 2 on each other's cache
+# shards).
+PARTITION_ARCH = "yi-6b"
+PARTITION_LAYERS = 8
+PARTITION_MESH = (2, 2)
+PARTITION_UNEVEN_MESH = (1, 4)
+PARTITION_ROWS = 4
+PARTITION_PREFILL = 512
+PARTITION_STEPS = 8
+PARTITION_CACHE = 1024
+PARTITION_VLM = "internvl2-1b"
+PARTITION_VLM_ROWS = 16
+PARTITION_VLM_CACHE = 32768
+PARTITION_VLM_STEPS = 2
+PARTITION_SEED = 23
+PARTITION_REL = 0.1
+PARTITION_DROP = ("mlp", 3)
+DRYRUN_ARTIFACT = ROOT / "experiments" / "dryrun" / \
+    "internvl2-1b_decode_32k_2x16x16.json"
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1224,6 +1281,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("16")
     phase("16")
     counts_mesh = mesh_lm_phase(dev, record, kern)
+    release_device_memory("17")
+    phase("17")
+    partition_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -5625,6 +5685,347 @@ def mesh_lm_phase(dev, record: dict, kern: dict) -> dict:
     return counts
 
 
+def _drop_call(cfg, tp: int, where: tuple) -> int:
+    """The number (from 1), among a partitioned step's all-reduces over
+    ``model``, of the all-reduce ``where`` = (``"attn"`` or ``"mlp"``,
+    layer): the embedding's comes first, then in each layer attention's
+    output (after its partial scores' where ``head_dim`` splits) and the
+    MLP's."""
+    from repro_torch.distributed.partition import _attention_mode
+    kind, layer = where
+    hd = _attention_mode(cfg, tp) == "hd"
+    return 1 + (3 if hd else 2) * layer + (1 if kind == "attn" else 2) + hd
+
+
+@contextlib.contextmanager
+def dropped_partial(call: int, rank: int = 1):
+    """A planted fault: model rank ``rank``'s partial dropped from the
+    ``call``-th all-reduce over ``model`` of the partitioned program."""
+    import torch
+
+    from repro_torch.distributed import partition
+    real, n = partition.all_reduce, [0]
+
+    def dropped(pos, vals, axes):
+        if tuple(axes) == ("model",):
+            n[0] += 1
+            if n[0] == call:
+                vals = [torch.zeros_like(v) if pos.part(k, axes) == rank
+                        else v for k, v in zip(pos.ks, vals)]
+        return real(pos, vals, axes)
+
+    partition.all_reduce = dropped
+    try:
+        yield n
+    finally:
+        partition.all_reduce = real
+
+
+def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
+                    steps: int, seed: int, prefill_len: int = 0,
+                    faults=("drop",)) -> dict:
+    """``cfg``'s serving steps partitioned over ``mesh`` against the
+    unpartitioned steps on the card, on the same weights (``params``,
+    placed by ``param_shardings``) and inputs made from ``seed``: a
+    ``make_prefill`` of ``rows`` x ``prefill_len`` tokens where
+    ``prefill_len``, then ``steps`` decode steps from caches of
+    ``cache_len`` positions filled with seeded normals (from the
+    prefill's greedy token at position ``prefill_len``, else from drawn
+    tokens at drawn positions), each step fed the unpartitioned step's
+    greedy token.  Returns per step each row's max|partitioned -
+    unpartitioned| over the row's max|logit| (``rel``), the same over
+    the slots each position wrote into its cache shards against their
+    slice of the unpartitioned caches (``cache_rel``, and whether
+    nothing else in the shards differs), the first step's collective
+    bytes, host-clock ms of both (synchronized), and each fault of
+    ``faults`` planted into the first step: ``drop`` (model rank 1's
+    partial dropped from the all-reduce ``PARTITION_DROP``) and
+    ``swap`` (positions 1 and 2 computing on each
+    other's cache shards)."""
+    import torch
+
+    from repro_torch.distributed import partition
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.train.serve import make_prefill, make_serve_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    tp = mesh.shape["model"]
+    ps = shd.param_shardings(params, mesh)
+    placed = shd.place(params, ps)
+    vec = shd.vector_sharding(mesh, rows)
+    lsh = shd.logits_sharding(mesh, rows)
+    caches = init_caches(cfg, rows, cache_len, device=dev)
+    for t in tree_leaves(caches):
+        t.normal_(generator=gen)
+    cs = shd.cache_shardings(caches, mesh)
+    first = shd.place(caches, cs)
+    res = {"mode": partition._attention_mode(cfg, tp), "rel": [], "ms": [],
+           "plain_ms": [], "faults": {}}
+    if prefill_len:
+        tokens = torch.randint(cfg.vocab_size, (rows, prefill_len),
+                               generator=gen, device=dev)
+        bs = shd.batch_shardings({"tokens": tokens}, mesh)
+        pre = partition.partitioned_step(make_prefill(cfg),
+                                         (ps, bs["tokens"]), lsh)
+        cut = shd.place(tokens, bs["tokens"])
+        got, res["prefill_ms"] = timed(lambda: pre(placed, cut))
+        want, res["prefill_plain_ms"] = timed(
+            lambda: make_prefill(cfg)(params, tokens))
+        res["prefill_rel"] = _rel_rows(got.gather(dev), want)
+        tok = want.argmax(-1)
+        pos = torch.full((rows,), prefill_len, dtype=torch.int32,
+                         device=dev)
+    else:
+        tok = torch.randint(cfg.vocab_size, (rows,), generator=gen,
+                            device=dev)
+        pos = torch.randint(cache_len // 2, cache_len - steps, (rows,),
+                            generator=gen, device=dev, dtype=torch.int32)
+    start = (tok, pos)
+    dec = partition.partitioned_step(make_serve_step(cfg),
+                                     (ps, cs, vec, vec), (lsh, cs))
+    plain = make_serve_step(cfg)
+    pcaches, want_first = first, None
+    for i in range(steps):
+        args = (placed, pcaches, shd.place(tok, vec), shd.place(pos, vec))
+        with partition.CollectiveLedger() as ledger:
+            (logits, pcaches), ms = timed(lambda: dec(*args))
+        (want, caches), plain_ms = timed(
+            lambda: plain(params, caches, tok, pos))
+        if i == 0:
+            res["ledger"], want_first = ledger.totals(), want
+        res["rel"].append(_rel_rows(logits.gather(dev), want))
+        res["ms"].append(ms)
+        res["plain_ms"].append(plain_ms)
+        tok, pos = want.argmax(-1), pos + 1
+    written = start[1][:, None].long() + torch.arange(steps, device=dev)
+    res["cache_rel"], res["cache_outside_equal"] = 0.0, True
+    for name in ("k", "v"):
+        leaf, whole = pcaches["attn"][name], caches["attn"][name]
+        for idx, part in zip(leaf.sharding.indices(leaf.shape), leaf.shards):
+            want_part = whole[idx]
+            slots = written[idx[1]]
+            ar = torch.arange(slots.shape[0], device=dev)[:, None]
+            g, w = part[:, ar, slots], want_part[:, ar, slots]
+            diff = float((g - w).abs().max())
+            res["cache_rel"] = max(res["cache_rel"], float(
+                (g.float() - w.float()).abs().max() / w.float().abs().max()))
+            res["cache_outside_equal"] &= float(
+                (part - want_part).abs().max()) == diff
+    args = (placed, first, shd.place(start[0], vec), shd.place(start[1], vec))
+    if "drop" in faults:
+        res["drop_call"] = _drop_call(cfg, tp, PARTITION_DROP)
+        with dropped_partial(res["drop_call"]) as n:
+            logits, _ = dec(*args)
+        res["faults"]["drop"] = _rel_rows(logits.gather(dev), want_first)
+        res["drop_calls"] = n[0]
+    if "swap" in faults:
+        swapped = {"attn": {}}
+        for name, leaf in first["attn"].items():
+            sh = list(leaf.shards)
+            sh[1], sh[2] = sh[2], sh[1]
+            swapped["attn"][name] = shd.Sharded(leaf.shape, leaf.dtype,
+                                                leaf.sharding, sh)
+        logits, _ = dec(placed, swapped, *args[2:])
+        res["faults"]["swap"] = _rel_rows(logits.gather(dev), want_first)
+    rel = np.concatenate(res["rel"] + ([res["prefill_rel"]]
+                                       if prefill_len else []))
+    res["rel_max"] = float(rel.max())
+    res["finite"] = bool(np.isfinite(rel).all())
+    return res
+
+
+def _held(label: str, run: dict) -> None:
+    check(run["finite"] and run["rel_max"] <= PARTITION_REL,
+          f"{label}: the partitioned logits are off the unpartitioned "
+          f"step's by {run['rel_max']:.4e} of max|logit| (tolerance "
+          f"{PARTITION_REL})")
+    check(run["cache_rel"] <= PARTITION_REL, f"{label}: the cache slots the "
+          f"positions wrote are off the unpartitioned cache's by "
+          f"{run['cache_rel']:.4e} of max|value| (tolerance {PARTITION_REL})")
+    check(run["cache_outside_equal"], f"{label}: a cache shard differs from "
+          f"its slice of the unpartitioned cache outside the written slots")
+    check(run.get("drop_calls", 0) >= run.get("drop_call", 0),
+          f"{label}: the step made {run.get('drop_calls')} all-reduces over "
+          f"model, the planted fault is at the {run.get('drop_call')}th")
+    for name, rel in run["faults"].items():
+        check(float(rel.max()) > PARTITION_REL, f"{label}: the planted "
+              f"fault {name} reads {float(rel.max()):.4e} of max|logit| at "
+              f"most, within the tolerance {PARTITION_REL}")
+
+
+def _kinds(ledger: dict) -> str:
+    return ", ".join(f"{k} {int(v):,}" for k, v in ledger.items()
+                     if v and k != "total") + f" (total {int(ledger['total']):,} B)"
+
+
+def partition_dryrun() -> dict:
+    """17c: the dry run of internvl2-1b x decode_32k x 2x16x16 on meta,
+    its four fields counted from position 0's partitioned program,
+    printed beside the reference's recorded XLA values."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    res = lower_cell(DIST_ARCH, DIST_SHAPE, multi_pod=True)
+    ref = json.loads(DRYRUN_ARTIFACT.read_text())
+    mem = res["memory"]
+    check(None not in (res["bytes_per_device"], res["collective_bytes"],
+                       mem["temp_bytes"], mem["peak_bytes"]),
+          f"17c: a partitioned field of the dry run is None: "
+          f"{res['not_measured']}")
+    check(mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"],
+          f"17c: argument and output bytes exceed the peak {mem}")
+    pairs = {"bytes_per_device": (res["bytes_per_device"],
+                                  ref["bytes_per_device"]),
+             "temp_bytes": (mem["temp_bytes"], ref["memory"]["temp_bytes"]),
+             "peak_bytes": (mem["peak_bytes"], ref["memory"]["peak_bytes"])}
+    for kind in res["collective_bytes"]:
+        pairs[f"collective {kind}"] = (res["collective_bytes"][kind],
+                                       ref["collective_bytes"][kind])
+
+    def one(k, a, b):
+        if b is None:
+            return f"{k} {a:,.0f} / none"
+        return f"{k} {a:,.0f} / {b:,.0f}" + (f" ({a / b:.4g}x)" if b else "")
+
+    print("[17c] the dry run of internvl2-1b x decode_32k x 2x16x16 on meta, "
+          "position 0's partitioned program (port / the reference's "
+          "recorded XLA value): " + "; ".join(
+              one(k, a, b) for k, (a, b) in pairs.items()), flush=True)
+    return {k: {"port": a, "reference": b} for k, (a, b) in pairs.items()}
+
+
+def partition_phase(dev, record: dict) -> None:
+    """Phase 17: the LM's prefill and decode steps partitioned over a
+    device mesh of ``cuda:0`` positions (``partitioned_step``), each
+    position computing on its own shards with explicit collectives,
+    against the unpartitioned steps on the card under deterministic
+    algorithms: 17a yi-6b, 17b internvl2-1b (its heads split evenly over
+    (2, 2) and unevenly over (1, 4)), 17c the dry run's fields counted
+    from position 0's program.  Launches none of K1-K6."""
+    import gc
+
+    import torch
+    import torch.utils.deterministic as deterministic
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import init_lm
+
+    card = record["card"]
+    out = record["partition"] = {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        # -- 17a: yi-6b, prefill and decode over (2, 2) ---------------------
+        phase("17a")
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(PARTITION_ARCH).replace(n_layers=PARTITION_LAYERS)
+        params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+            PARTITION_SEED), device=dev)
+        mesh, where = _split_mesh(PARTITION_MESH, ("data", "model"))
+        run = partition_steps(dev, cfg, params, mesh, rows=PARTITION_ROWS,
+                              cache_len=PARTITION_CACHE,
+                              steps=PARTITION_STEPS, seed=PARTITION_SEED,
+                              prefill_len=PARTITION_PREFILL)
+        _held("17a", run)
+        peak = torch.cuda.max_memory_allocated()
+        out["17a"] = {k: v for k, v in run.items()
+                      if k not in ("rel", "prefill_rel", "faults")}
+        out["17a"].update(
+            arch=PARTITION_ARCH, layers=PARTITION_LAYERS,
+            mesh=list(PARTITION_MESH), devices=where,
+            fault_drop=float(run["faults"]["drop"].max()),
+            max_memory_allocated=peak, tolerance=PARTITION_REL)
+        print(f"[17a] {PARTITION_ARCH} at its published width ("
+              f"{PARTITION_LAYERS} of {get_config(PARTITION_ARCH).n_layers} "
+              f"layers, bf16) partitioned over a {PARTITION_MESH} (data, "
+              f"model) mesh of {where} ({run['mode']} split): prefill of "
+              f"{PARTITION_ROWS} x {PARTITION_PREFILL} tokens and "
+              f"{PARTITION_STEPS} decode steps against the unpartitioned "
+              f"steps, largest difference {run['rel_max']:.4e} of "
+              f"max|logit|, written cache slots {run['cache_rel']:.4e} "
+              f"(tolerance {PARTITION_REL}); model rank 1's partial dropped "
+              f"from layer {PARTITION_DROP[1]}'s {PARTITION_DROP[0]} "
+              f"all-reduce reads {out['17a']['fault_drop']:.4e}; prefill "
+              f"{run['prefill_ms']:.1f} ms partitioned, "
+              f"{run['prefill_plain_ms']:.1f} ms unpartitioned; decode step "
+              f"median {float(np.median(run['ms'])):.1f} ms partitioned, "
+              f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned "
+              f"(host clock, synchronized); one decode step's collectives "
+              f"a position: {_kinds(run['ledger'])}; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB; {card}", flush=True)
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 17b: internvl2-1b, decode at 16 x 32,768 over (2, 2) and (1, 4) -
+        phase("17b")
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(PARTITION_VLM)
+        params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+            PARTITION_SEED + 1), device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        out["17b"] = {}
+        for sizes in (PARTITION_MESH, PARTITION_UNEVEN_MESH):
+            mesh, where = _split_mesh(sizes, ("data", "model"))
+            run = partition_steps(dev, cfg, params, mesh,
+                                  rows=PARTITION_VLM_ROWS,
+                                  cache_len=PARTITION_VLM_CACHE,
+                                  steps=PARTITION_VLM_STEPS,
+                                  seed=PARTITION_SEED + 1)
+            _held("17b", run)
+            tag = "x".join(map(str, sizes))
+            out["17b"][tag] = {k: v for k, v in run.items()
+                               if k not in ("rel", "faults")}
+            out["17b"][tag].update(
+                devices=where, fault_drop=float(run["faults"]["drop"].max()))
+            print(f"[17b] {PARTITION_VLM} at its published width (all "
+                  f"{cfg.n_layers} layers, {n_params:,} parameters, bf16), "
+                  f"{PARTITION_VLM_STEPS} decode steps of "
+                  f"{PARTITION_VLM_ROWS} rows against "
+                  f"{PARTITION_VLM_CACHE:,} cache positions partitioned "
+                  f"over {sizes} ({where}; {cfg.n_heads} query and "
+                  f"{cfg.n_kv_heads} kv heads over {sizes[1]} model ranks: "
+                  f"{run['mode']} split): largest difference "
+                  f"{run['rel_max']:.4e} of max|logit|, written cache slots "
+                  f"{run['cache_rel']:.4e} (tolerance {PARTITION_REL}); "
+                  f"dropped partial {out['17b'][tag]['fault_drop']:.4e}; "
+                  f"step median {float(np.median(run['ms'])):.1f} ms "
+                  f"partitioned, {float(np.median(run['plain_ms'])):.1f} ms "
+                  f"unpartitioned; one step's collectives a position: "
+                  f"{_kinds(run['ledger'])}; {card}", flush=True)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["17b"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del params
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    counts = dict(build.LAUNCHES)
+    check(not any(counts.values()), f"17: the partitioned LM launched "
+          f"{counts}, none of K1-K6 expected")
+
+    # -- 17c: the dry run's fields from position 0's program ----------------
+    phase("17c")
+    out["17c"] = partition_dryrun()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[17] partitioned LM path: launches {counts}; phase 17 took "
+          f"{out['seconds']:.1f} s; {card}", flush=True)
+
+
 def _graphed_step(step, params, caches, dev):
     """``step`` (``make_serve_step``'s function) on one slot captured as a
     CUDA graph after one warm-up call on a side stream: (graph, token and
@@ -5677,6 +6078,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     needed = [EXPERIMENTS / "popmma_probe.py", ROOT / "BENCH_apps.json",
+              DRYRUN_ARTIFACT,
               ROOT / "BENCH_serving.json", ROOT / "scripts" / "check_trace.py",
               *(ROOT / "examples_torch" / f"{name}.py"
                 for name in EXAMPLE_KERNELS)]

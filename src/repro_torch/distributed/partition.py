@@ -1,0 +1,944 @@
+"""Partitioned serving steps over a device mesh: each position computes
+its share of the step on its own shards, with explicit collectives.
+
+This module has no file-for-file counterpart in the reference: it is the
+port's stand-in for what GSPMD does under ``jax.jit(step,
+in_shardings=..., out_shardings=...)`` for the LM's serving steps.
+:func:`partitioned_step` takes a step built by
+:func:`~repro_torch.train.serve.make_prefill` or
+:func:`~repro_torch.train.serve.make_serve_step` and the shardings the
+reference passes to ``jax.jit``; the result takes and returns
+:class:`~repro_torch.distributed.sharding.Sharded` leaves, as
+:func:`~repro_torch.distributed.sharding.sharded_step` does, but never
+gathers a whole argument: one program a mesh position in one process,
+as :func:`~repro_torch.models.moe.moe_forward_ep` runs it (position
+``k`` on ``mesh.device_at(k)`` and, on a card, ``mesh.stream_at(k)``).
+
+The program follows :func:`~repro_torch.distributed.sharding.param_spec`:
+
+- the batch splits over the DATA axes (the tokens' layout for prefill,
+  the caches' for decode) and every position holds the whole
+  ``d_model`` of its rows;
+- column-parallel weights ``(DATA, model)`` are all-gathered over DATA
+  (the FSDP gather) and multiply locally, giving ``model``-split
+  outputs; row-parallel ones ``(model, DATA)`` likewise, their partial
+  outputs all-reduced over ``model``;
+- the embedding is vocab-parallel (a masked local lookup, then an
+  all-reduce), the readout gives logits laid out by
+  :func:`~repro_torch.distributed.sharding.logits_sharding`, norms are
+  replicated;
+- attention splits query and kv heads over ``model`` where the kv heads
+  divide, else ``head_dim`` (the caches' layout from
+  :func:`~repro_torch.distributed.sharding.cache_shardings`, which
+  decode never reshards): each position's ``q·k`` is then a partial
+  score over its ``head_dim`` slice, all-reduced in float32 before the
+  softmax, and ``p·v`` gives its slice of every head.  Its slice of
+  RoPE needs the rotation's partner dims, which it computes from the
+  gathered weights.  Prefill, with no cache to keep, splits the query
+  heads instead where they divide (each position projects the kv heads
+  its query heads read), since partial scores grow with the square of
+  the sequence;
+- row-parallel partials are computed and all-reduced in float32 and
+  rounded once, as the whole product rounds once;
+- any other layout (a shard that does not hold whole heads, a dim that
+  ``_fit`` left whole) is all-gathered over its axis before use;
+- a MoE block calls :func:`~repro_torch.models.moe.moe_forward_ep` over
+  each ``model`` group of positions (with ``moe_impl="ep"`` each data
+  shard dispatches alone, as the reference's ``shard_map`` does; else
+  the rows are all-gathered first, so that the dispatch is the grouped
+  one over the whole batch).
+
+Decode returns new caches (the arguments are left as they are, as
+``jax.jit`` without donation leaves them), written where the position's
+own rows and heads are.
+
+The collectives (:func:`all_gather`, :func:`all_reduce`,
+:func:`reduce_scatter`, :func:`all_to_all`, :func:`permute`) run over
+one or more mesh axes on the positions' devices and streams; sums run
+in rank order.  Each charges the :class:`CollectiveLedger` objects
+active in a ``with`` block, by the reference dry run's ring accounting
+(``repro.launch.dryrun.collective_bytes``): an all-gather its output
+bytes, an all-reduce twice its input bytes, the others their input
+bytes, per position.  :meth:`PartitionedStep.run_position` runs one
+position's program alone on ``meta`` (its peers' parts stand in by
+shape), which is what the dry run traces.
+
+Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1): the SSM
+and hybrid mixers, encoder-decoder models, int8 weights or caches,
+sliding windows, padded kv heads, the PuM MLP and ``moe_impl="dense"``.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import functools
+import inspect
+import itertools
+import math
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..launch.mesh import Mesh, mark, on_stream, read_on, wait_for
+from ..models import moe
+from ..models.attention import NEG_INF, _scale, attention_heads
+from ..models.layers import dense, mlp_hidden, rmsnorm, rope_angles, unembed
+from ..models.params import tree_leaves, tree_map
+from ..train.serve import make_prefill, make_serve_step
+from . import sharding as shd
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+QUEUE = ("ROADMAP Queue 1: the partitioned train step and SSM / enc-dec / "
+         "int8 are next")
+
+_LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_collective_ledgers", default=())
+
+
+class CollectiveLedger:
+    """Per-position bytes the collectives moved while this ledger was
+    active (``with ledger:``), by kind, in the reference's ring
+    accounting; ``calls`` counts the collectives of each kind."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self.calls = dict.fromkeys(KINDS, 0)
+        self._tokens: list = []
+
+    def charge(self, kind: str, in_bytes: int, out_bytes: int) -> None:
+        self.bytes[kind] += (out_bytes if kind == "all-gather" else
+                             2 * in_bytes if kind == "all-reduce" else
+                             in_bytes)
+        self.calls[kind] += 1
+
+    def totals(self) -> dict:
+        """Bytes by kind and their ``total``, as floats (the reference's
+        ``collective_bytes`` record)."""
+        out = {k: float(v) for k, v in self.bytes.items()}
+        out["total"] = float(sum(self.bytes.values()))
+        return out
+
+    def __enter__(self) -> "CollectiveLedger":
+        self._tokens.append(_LEDGERS.set(_LEDGERS.get() + (self,)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _LEDGERS.reset(self._tokens.pop())
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# positions and collectives
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> Tuple[str, ...]:
+    """A spec entry as a tuple of axis names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class Positions:
+    """The positions of ``mesh`` a program runs: every one (a run, each
+    on its own device and stream), or the one of ``ks`` on ``meta`` (a
+    trace of that position alone)."""
+
+    def __init__(self, mesh: Mesh, ks: Sequence[int], meta: bool = False):
+        self.mesh = mesh
+        self.ks = tuple(ks)
+        self.meta = meta
+        if meta:
+            self.devs = [torch.device("meta")] * len(self.ks)
+            self.streams = [None] * len(self.ks)
+        else:
+            if mesh.abstract:
+                raise ValueError(f"{mesh!r} has no devices to run on")
+            self.devs = [mesh.device_at(k, None) for k in self.ks]
+            self.streams = [mesh.stream_at(k, d)
+                            for k, d in zip(self.ks, self.devs)]
+        self._index = {k: i for i, k in enumerate(self.ks)}
+        self._coords = {k: self._coords_of(k) for k in self.ks}
+
+    def _coords_of(self, k: int) -> dict:
+        out = {}
+        for a in reversed(self.mesh.axis_names):
+            k, out[a] = divmod(k, self.mesh.shape[a])
+        return out
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def part(self, k: int, axes: Sequence[str]) -> int:
+        """Which part of a dim split over ``axes`` (the first major)
+        position ``k`` holds."""
+        part = 0
+        for a in axes:
+            part = part * self.mesh.shape[a] + self._coords[k][a]
+        return part
+
+    def group(self, k: int, axes: Sequence[str]) -> List[int]:
+        """The positions that differ from ``k`` only along ``axes``, in
+        part order."""
+        at = self._coords[k]
+        return [self.mesh.position(**{**at, **dict(zip(axes, c))})
+                for c in itertools.product(*(range(self.mesh.shape[a])
+                                             for a in axes))]
+
+    def map(self, fn: Callable, *args: list) -> list:
+        """``fn`` at each position on its device and stream, over the
+        positions' entries of ``args`` (lists in ``ks`` order)."""
+        out = []
+        for i in range(len(self.ks)):
+            with on_stream(self.devs[i], self.streams[i]):
+                out.append(fn(*(a[i] for a in args)))
+        return out
+
+    def same(self, x) -> list:
+        return [x] * len(self.ks)
+
+    def join(self, vals: list) -> None:
+        """The current stream of each position's device waits for what
+        its stream queued, and reads ``vals`` (one tensor a position)
+        there."""
+        for v, dev, s in zip(vals, self.devs, self.streams):
+            if s is not None:
+                cur = torch.cuda.current_stream(dev)
+                wait_for(cur, mark(s))
+                read_on(v, cur)
+
+
+def _exchange(pos: Positions, vals: list, axes: Sequence[str], kind: str,
+              combine: Callable) -> list:
+    """Each position's ``combine(parts, i)`` over the parts of its group
+    along ``axes`` (``i`` its own place among them), computed on its
+    device and stream after the peers' streams reach their parts; a
+    trace of one position stands its own part in for its peers'.  A
+    group of one moves nothing and is not charged."""
+    axes = tuple(axes)
+    if pos.size(axes) == 1:
+        return list(vals)
+    done = [mark(s) for s in pos.streams]
+    out = []
+    for i, k in enumerate(pos.ks):
+        members = pos.group(k, axes)
+        with on_stream(pos.devs[i], pos.streams[i]):
+            parts = []
+            for m in members:
+                j = pos._index.get(m)
+                if j is None:
+                    parts.append(vals[i])
+                    continue
+                wait_for(pos.streams[i], done[j])
+                parts.append(read_on(vals[j], pos.streams[i]).to(
+                    pos.devs[i]))
+            out.append(combine(parts, members.index(k)))
+    for ledger in _LEDGERS.get():
+        ledger.charge(kind, _nbytes(vals[0]), _nbytes(out[0]))
+    return out
+
+
+def _sum(parts: list) -> torch.Tensor:
+    return functools.reduce(torch.add, parts)
+
+
+def all_gather(pos: Positions, vals: list, axes: Sequence[str],
+               dim: int) -> list:
+    """Every position gets its group's parts concatenated along ``dim``
+    in part order."""
+    return _exchange(pos, vals, axes, "all-gather",
+                     lambda parts, _: torch.cat(parts, dim))
+
+
+def all_reduce(pos: Positions, vals: list, axes: Sequence[str]) -> list:
+    """Every position gets its group's sum, added in rank order."""
+    return _exchange(pos, vals, axes, "all-reduce",
+                     lambda parts, _: _sum(parts))
+
+
+def reduce_scatter(pos: Positions, vals: list, axes: Sequence[str],
+                   dim: int) -> list:
+    """The group's rank-order sum, cut along ``dim``: part ``i`` to the
+    group's ``i``-th position."""
+    n = pos.size(axes)
+    return _exchange(pos, vals, axes, "reduce-scatter",
+                     lambda parts, i: _sum(parts).chunk(n, dim)[i]
+                     .contiguous())
+
+
+def all_to_all(pos: Positions, vals: list, axes: Sequence[str],
+               split_dim: int, concat_dim: int) -> list:
+    """Each part cut into the group's size along ``split_dim``; position
+    ``i`` gets every member's ``i``-th piece, concatenated along
+    ``concat_dim`` in part order."""
+    n = pos.size(axes)
+    return _exchange(pos, vals, axes, "all-to-all", lambda parts, i: torch.cat(
+        [p.chunk(n, split_dim)[i] for p in parts], concat_dim))
+
+
+def permute(pos: Positions, vals: list, axes: Sequence[str],
+            shift: int = 1) -> list:
+    """A ring shift: the group's ``i``-th position gets the part of its
+    ``(i - shift)``-th."""
+    n = pos.size(axes)
+    return _exchange(pos, vals, axes, "collective-permute",
+                     lambda parts, i: parts[(i - shift) % n].clone())
+
+
+# ---------------------------------------------------------------------------
+# laid-out tensors
+# ---------------------------------------------------------------------------
+
+class Dist(NamedTuple):
+    """A tensor of ``shape`` laid out by ``spec`` (one entry a dim): the
+    pieces the program's positions hold, in ``Positions.ks`` order."""
+
+    shape: torch.Size
+    spec: tuple
+    vals: list
+
+    def layer(self, i: int) -> "Dist":
+        """Layer ``i`` of a stacked leaf (its leading dim whole)."""
+        return Dist(self.shape[1:], self.spec[1:], [v[i] for v in self.vals])
+
+
+def _spec(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def relayout(pos: Positions, d: Dist, *want) -> list:
+    """``d``'s pieces laid out by ``want`` instead: each dim whose axes
+    change is all-gathered over its old axes (the DATA gathers first),
+    then cut locally by the new ones."""
+    want = _spec(want, len(d.shape))
+    data = set(shd.data_axes(pos.mesh))
+    vals = d.vals
+    moved = [i for i in range(len(d.shape))
+             if _axes(d.spec[i]) and _axes(d.spec[i]) != _axes(want[i])]
+    for i in sorted(moved, key=lambda i: not set(_axes(d.spec[i])) <= data):
+        vals = all_gather(pos, vals, _axes(d.spec[i]), i)
+    for i, w in enumerate(want):
+        w = _axes(w)
+        if not w or w == _axes(d.spec[i]):
+            continue
+        n = pos.size(w)
+        if d.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(d.shape)} does not divide "
+                             f"over {w} ({n})")
+        size = d.shape[i] // n
+        vals = [v.narrow(i, pos.part(k, w) * size, size)
+                for k, v in zip(pos.ks, vals)]
+    return vals
+
+
+def _has_int8(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(k == "w_q" or _has_int8(v) for k, v in tree.items())
+    return False
+
+
+# ---------------------------------------------------------------------------
+# the program
+# ---------------------------------------------------------------------------
+
+class _Program:
+    """One partitioned prefill or decode of ``cfg`` over ``pos``."""
+
+    def __init__(self, cfg, pos: Positions):
+        self.cfg, self.pos = cfg, pos
+        mesh = pos.mesh
+        self.M = "model" if "model" in mesh.axis_names else None
+        self.tp = mesh.shape["model"] if self.M else 1
+        self.bax: Tuple[str, ...] = ()
+        self.mode = "heads"
+
+    # -- helpers ------------------------------------------------------------
+
+    def map(self, fn, *args):
+        return self.pos.map(fn, *args)
+
+    def fetch(self, d: Dist, *want) -> list:
+        return relayout(self.pos, d, *want)
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of ``n`` splits over ``model``."""
+        return self.tp > 1 and n % self.tp == 0
+
+    def model_sum(self, vals: list) -> list:
+        return all_reduce(self.pos, vals, _axes(self.M))
+
+    def rank(self, k: int) -> int:
+        return self.pos.part(k, _axes(self.M))
+
+    def local(self, p: dict, *want) -> list:
+        """Each position's dense ``p`` laid out by ``want`` (the weight's
+        spec; the bias follows its output dim), as ``{"w", "b"}`` dicts."""
+        ws = self.fetch(p["w"], *want)
+        if "b" not in p:
+            return [{"w": w} for w in ws]
+        return [{"w": w, "b": b}
+                for w, b in zip(ws, self.fetch(p["b"], want[-1]))]
+
+    def dense(self, p: dict, x: list, *want) -> list:
+        return self.map(dense, self.local(p, *want), x)
+
+    def row(self, p: dict, x: list, w: list) -> list:
+        """A row-parallel dense of ``x`` (its input dim on ``model``) by
+        the pieces ``w`` of ``p["w"]``: each position's partial in
+        float32, added over ``model`` and rounded once to ``x``'s dtype,
+        as the whole product rounds once; ``p["b"]`` added after."""
+        out = self.map(lambda h, w: (h.to(torch.float32)
+                                     @ w.to(torch.float32)), x, w)
+        out = self.map(lambda o, h: o.to(h.dtype), self.model_sum(out), x)
+        if "b" in p:
+            out = self.map(torch.add, out, self.fetch(p["b"], None))
+        return out
+
+    # -- layers --------------------------------------------------------------
+
+    def embed(self, emb: Dist, ids: list) -> list:
+        v = emb.shape[0]
+        if not self.splits(v):
+            return self.map(lambda w, i: w[i], self.fetch(emb, None, None),
+                            ids)
+        n = v // self.tp
+
+        def look(w, i, k):
+            lo = self.rank(k) * n
+            hit = (i >= lo) & (i < lo + n)
+            return torch.where(hit[..., None], w[(i - lo).clamp(0, n - 1)],
+                               0)
+
+        local = self.map(look, self.fetch(emb, self.M, None), ids,
+                         list(self.pos.ks))
+        return self.model_sum(local)
+
+    def norm(self, p: dict, x: list) -> list:
+        eps = self.cfg.norm_eps
+        return self.map(lambda g, h: rmsnorm({"g": g}, h, eps),
+                        self.fetch(p["g"], None), x)
+
+    def mlp(self, p: dict, h: list) -> list:
+        split = self.splits(p["up"]["w"].shape[1])
+        ax = self.M if split else None
+        names = [n for n in ("up", "gate") if n in p]
+        act = self.cfg.act
+        hidden = self.map(lambda h, *ps: mlp_hidden(dict(zip(names, ps)), h,
+                                                     act),
+                          h, *(self.local(p[n], None, ax) for n in names))
+        if not split:
+            return self.dense(p["down"], hidden, None, None)
+        return self.row(p["down"], hidden,
+                        self.fetch(p["down"]["w"], self.M, None))
+
+    def attention(self, p: dict, h: list, positions: list, cache: list,
+                  idx: list) -> list:
+        if self.mode == "hd":
+            return self._attention_hd(p, h, positions, cache, idx)
+        cfg = self.cfg
+        split = self.mode != "full" and self.tp > 1
+        n = self.tp if split else 1
+        ax = self.M if split else None
+        q = self.local(p["q"], None, ax)
+        if self.mode == "qheads":
+            # each rank's query heads against the kv heads they read, as
+            # columns of the gathered k and v weights (one a query head)
+            kv = [self.map(self._kv_columns, self.local(p[name], None, None),
+                           list(self.pos.ks)) for name in ("k", "v")]
+            n_kv = cfg.n_heads // n
+        else:
+            kv = [self.local(p[name], None, ax) for name in ("k", "v")]
+            n_kv = cfg.n_kv_heads // n
+
+        def one(h, t, c, i, pq, pk, pv):
+            return attention_heads(
+                {"q": pq, "k": pk, "v": pv}, h, t, n_heads=cfg.n_heads // n,
+                n_kv=n_kv, hd=cfg.hd, rope_theta=cfg.rope_theta, cache=c,
+                cache_index=i)[0]
+
+        out = self.map(one, h, positions, cache, idx, q, *kv)
+        if not split:
+            return self.dense(p["o"], out, None, None)
+        return self.row(p["o"], out, self.fetch(p["o"]["w"], self.M, None))
+
+    def _kv_columns(self, pw: dict, k: int) -> dict:
+        """The columns of a whole k or v projection that the query heads
+        of ``k``'s model rank read: their kv head's, once a query head."""
+        cfg = self.cfg
+        n = cfg.n_heads // self.tp
+        heads = torch.arange(self.rank(k) * n, (self.rank(k) + 1) * n,
+                             device=pw["w"].device)
+        group = heads // (cfg.n_heads // cfg.n_kv_heads)
+        at = (group[:, None] * cfg.hd + torch.arange(
+            cfg.hd, device=group.device)).reshape(-1)
+        return {name: w[..., at] for name, w in pw.items()}
+
+    def _attention_hd(self, p, h, positions, cache, idx) -> list:
+        """Attention with ``head_dim`` split over ``model``: position of
+        model rank ``r`` computes dims ``[r·d, (r+1)·d)`` of every head
+        (``d = hd / tp``), its RoPE from the partner dims, a partial
+        ``q·k`` over its dims (all-reduced in float32), and ``p·v`` and
+        the output projection's partial over its dims (all-reduced)."""
+        cfg = self.cfg
+        hd, nh, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        d, half = hd // self.tp, hd // 2
+        full = [self.local(p[name], None, None) for name in ("q", "k", "v")]
+        wo = self.fetch(p["o"]["w"], None, None)
+        scale = _scale(hd)
+
+        def cols(n_heads, dims):
+            return (torch.arange(n_heads, device=dims.device)[:, None] * hd
+                    + dims[None, :]).reshape(-1)
+
+        def first(hx, t, c, i, k, pq, pk, pv):
+            b, l, _ = hx.shape
+            own = torch.arange(self.rank(k) * d, (self.rank(k) + 1) * d,
+                               device=hx.device)
+            partner = (own + half) % hd
+
+            def project(pw, n_heads, dims):
+                at = cols(n_heads, dims)
+                pw = {name: w[..., at] for name, w in pw.items()}
+                return dense(pw, hx).reshape(b, l, n_heads, -1)
+
+            cos, sin = rope_angles(t, hd, cfg.rope_theta)
+            cos = cos[..., own % half][..., None, :]
+            sin = sin[..., own % half][..., None, :]
+            sign = torch.where(own < half, -1.0, 1.0)
+
+            def rope(pw, n_heads):
+                x = project(pw, n_heads, torch.cat([own, partner]))
+                xa, xb = x[..., :d], x[..., d:]
+                dt = xa.dtype
+                return xa * cos.to(dt) + (xb * sin.to(dt)) * sign.to(dt)
+
+            q = rope(pq, nh)
+            kk = rope(pk, g)
+            v = project(pv, g, own)
+            if c is None:
+                kc, vc = kk, v
+                qpos, kpos = t[:, :, None], t[:, None, :]
+                mask = kpos <= qpos
+            else:
+                rows = torch.arange(b, device=hx.device)
+                slot = i[:, 0]
+                c["k"][rows, slot] = kk[:, 0].to(c["k"].dtype)
+                c["v"][rows, slot] = v[:, 0].to(c["v"].dtype)
+                kc, vc = c["k"], c["v"]
+                s = kc.shape[1]
+                valid = torch.arange(s, device=hx.device)[None, :] <= \
+                    t[:, 0][:, None]
+                mask = valid[:, None, :].expand(b, l, s)
+            qg = q.reshape(b, l, g, nh // g, d)
+            part = torch.einsum("blgrh,bsgh->bgrls", qg.to(torch.float32),
+                                kc.to(torch.float32))
+            return part, (mask, vc, q.dtype, own)
+
+        def second(score, rest):
+            mask, vc, dt, own = rest
+            b, gg, rep, l, _ = score.shape
+            logits = score.to(dt).to(torch.float32) * scale
+            logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(vc.dtype)
+            out = torch.einsum("bgrls,bsgh->blgrh", probs, vc)
+            return out.reshape(b, l, nh * d)
+
+        firsts = self.map(first, h, positions, cache, idx, list(self.pos.ks),
+                          *full)
+        scores = self.model_sum([s for s, _ in firsts])
+        out = self.map(second, scores, [r for _, r in firsts])
+        rows = self.map(lambda w, rest: w[cols(nh, rest[3])], wo,
+                        [r for _, r in firsts])
+        return self.row(p["o"], out, rows)
+
+    def moe(self, p: dict, h: list) -> list:
+        """The MoE FFN: ``moe_forward_ep`` over each ``model`` group, its
+        experts on ``model`` (a trace of one position runs what that
+        position runs there: its experts' dispatch, then the psum)."""
+        cfg, pos = self.cfg, self.pos
+        n_e = p["router"].shape[1]
+        split = self.splits(n_e)
+        whole = cfg.moe_impl != "ep"
+        x = all_gather(pos, h, self.bax, 0) if whole else h
+        ax = self.M if split else None
+        w = {name: self.fetch(p[name], ax, None, None)
+             for name in ("up", "gate", "down") if name in p}
+        w["router"] = self.fetch(p["router"], None, None)
+        if pos.meta:
+            out = self.map(functools.partial(self._moe_rank, n_e, split,
+                                             list(w)),
+                           x, list(pos.ks), *w.values())
+            if split:
+                out = self.model_sum(out)
+        else:
+            out = self._moe_ep(x, w, {name: p[name].shape for name in w},
+                               split)
+        if whole and self.bax:
+            n = pos.size(self.bax)
+            out = [o.narrow(0, pos.part(k, self.bax) * (o.shape[0] // n),
+                            o.shape[0] // n) for k, o in zip(pos.ks, out)]
+        return out
+
+    def _moe_rank(self, n_e, split, names, x, k, *ws):
+        """What ``moe_forward_ep`` runs at model rank ``k``'s position on
+        one data shard: the dispatch to its own experts."""
+        b, l, d = x.shape
+        top_k = self.cfg.experts_per_token
+        e_loc = n_e // self.tp if split else n_e
+        e_lo = self.rank(k) * e_loc if split else 0
+        cap = max(1, int(1.25 * b * l * top_k / n_e))
+        out, _ = moe._grouped_local(
+            dict(zip(names, ws)), x.reshape(b * l, d), top_k=top_k,
+            act=self.cfg.act, cap=cap, e_lo=e_lo, e_loc=e_loc)
+        return out.reshape(b, l, d)
+
+    def _moe_ep(self, x: list, w: dict, shapes: dict, split: bool) -> list:
+        """``moe_forward_ep`` once a ``model`` group, over a mesh of the
+        group's positions (their devices and streams), its weights the
+        positions' pieces; the sum it returns at the group's first
+        position is copied to the others (the psum's result on every
+        rank)."""
+        pos, cfg = self.pos, self.cfg
+        out: list = [None] * len(pos.ks)
+        for k in pos.ks:
+            members = pos.group(k, _axes(self.M))
+            if members[0] != k:
+                continue
+            at = [pos._index[m] for m in members]
+            sub = Mesh((1, len(at)), ("data", "model"),
+                       [pos.devs[i] for i in at])
+            sub._streams = {j: pos.streams[i] for j, i in enumerate(at)
+                            if pos.streams[i] is not None}
+            if split:
+                p_sub = {name: shd.Sharded(shapes[name], t[at[0]].dtype,
+                                           shd.Sharding(sub, shd.P(
+                                               None if name == "router"
+                                               else "model")),
+                                           [t[i] for i in at])
+                         for name, t in w.items()}
+            else:
+                p_sub = {name: t[at[0]] for name, t in w.items()}
+            i0 = at[0]
+            with on_stream(pos.devs[i0], pos.streams[i0]):
+                y, _ = moe.moe_forward_ep(p_sub, x[i0],
+                                          top_k=cfg.experts_per_token,
+                                          act=cfg.act, mesh=sub)
+                done = mark(pos.streams[i0])
+            out[i0] = y
+            for i in at[1:]:
+                with on_stream(pos.devs[i], pos.streams[i]):
+                    wait_for(pos.streams[i], done)
+                    out[i] = read_on(y, pos.streams[i]).to(pos.devs[i],
+                                                           copy=True)
+            if split:
+                for ledger in _LEDGERS.get():
+                    ledger.charge("all-reduce", _nbytes(y), _nbytes(y))
+        return out
+
+    def block(self, p: dict, x: list, positions: list, cache: list,
+              idx: list) -> list:
+        h = self.norm(p["ln1"], x)
+        x = self.map(torch.add, x, self.attention(p["attn"], h, positions,
+                                                  cache, idx))
+        h2 = self.norm(p["ln2"], x)
+        ff = self.moe(p["moe"], h2) if "moe" in p else None
+        if "mlp" in p:
+            m = self.mlp(p["mlp"], h2)
+            ff = m if ff is None else self.map(torch.add, ff, m)
+        return self.map(torch.add, x, ff)
+
+    def readout(self, params: dict, x: list) -> Tuple[list, tuple]:
+        """Logits of ``x`` and their layout: vocab on ``model`` where it
+        splits."""
+        if self.cfg.tie_embeddings:
+            emb = params["embed"]["emb"]
+            ax = self.M if self.splits(emb.shape[0]) else None
+            out = self.map(lambda w, h: unembed({"emb": w}, h),
+                           self.fetch(emb, ax, None), x)
+        else:
+            ax = self.M if self.splits(params["out"]["w"].shape[1]) else None
+            out = self.dense(params["out"], x, None, ax)
+        return out, (self.bax, ax)
+
+    # -- the steps -------------------------------------------------------------
+
+    def blocks(self, params: dict, x: list, positions: list, caches, idx):
+        blocks = params["blocks"]
+        n_layers = next(tree_leaves(blocks)).shape[0]
+        for i in range(n_layers):
+            lp = tree_map(lambda d: d.layer(i), blocks)
+            lc = self.pos.same(None) if caches is None else [
+                {name: t[i] for name, t in c.items()} for c in caches]
+            x = self.block(lp, x, positions, lc, idx)
+        return self.norm(params["ln_f"], x)
+
+    def prefill(self, params: dict, tokens: Dist,
+                vision: Optional[Dist]) -> Tuple[list, tuple]:
+        data = shd.data_axes(self.pos.mesh)
+        self.bax = _axes(tokens.spec[0])
+        if not set(self.bax) <= set(data):
+            self.bax = _axes(shd._fit(self.pos.mesh, tokens.shape[0], data))
+        cfg = self.cfg
+        self.mode = _attention_mode(cfg, self.tp)
+        if self.mode != "heads" and cfg.n_heads % self.tp == 0:
+            # no cache to keep in its layout: split the query heads, not
+            # head_dim, whose partial scores grow with the square of the
+            # sequence
+            self.mode = "qheads"
+        ids = self.fetch(tokens, self.bax, None)
+        x = self.embed(params["embed"]["emb"], ids)
+        positions = self.map(lambda i: torch.arange(
+            i.shape[1], dtype=torch.int32, device=i.device)[None].expand(
+                *i.shape), ids)
+        if vision is not None:
+            ve = self.fetch(vision, self.bax, None, None)
+            fp = params["frontend_proj"]
+            split = self.splits(fp["w"].shape[1])
+            ve = self.dense(fp, ve, None, self.M if split else None)
+            if split:
+                ve = all_gather(self.pos, ve, _axes(self.M), 2)
+            x = self.map(lambda v, h: torch.cat([v.to(h.dtype), h], dim=1),
+                         ve, x)
+            vp = vision.shape[1]
+            positions = self.map(lambda t: torch.cat([torch.arange(
+                vp, dtype=torch.int32, device=t.device)[None].expand(
+                    t.shape[0], vp), t + vp], dim=1), positions)
+        x = self.blocks(params, x, positions, None, self.pos.same(None))
+        logits, spec = self.readout(params, self.map(
+            lambda h: h[:, -1:, :], x))
+        return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2)
+
+    def decode(self, params: dict, caches: dict, token: Dist,
+               pos_: Dist) -> Tuple[list, tuple, dict]:
+        k = caches["attn"]["k"]
+        for name, d in caches["attn"].items():
+            if d.spec != k.spec:
+                raise NotImplementedError(
+                    f"cache {name} laid out as {d.spec}, k as {k.spec}")
+        ax = [_axes(a) for a in k.spec]
+        data = set(shd.data_axes(self.pos.mesh))
+        if ax[0] or ax[2] or not set(ax[1]) <= data or any(
+                a not in ((), _axes(self.M)) for a in ax[3:]) or (
+                ax[3] and ax[4]):
+            raise NotImplementedError(
+                f"a cache laid out as {k.spec}: decode partitions the "
+                f"layouts of cache_shardings ({QUEUE})")
+        self.bax = ax[1]
+        self.mode = "heads" if ax[3] or self.tp == 1 else \
+            "hd" if ax[4] else "full"
+        ids = self.fetch(token, self.bax)
+        at = self.fetch(pos_, self.bax)
+        x = self.map(lambda i: i[:, None], self.embed(
+            params["embed"]["emb"], ids))
+        positions = self.map(lambda t: t[:, None], at)
+        new = [dict(zip(caches["attn"], ts)) for ts in zip(*(
+            self.map(torch.clone, d.vals) for d in caches["attn"].values()))]
+        x = self.blocks(params, x, positions, new, positions)
+        logits, spec = self.readout(params, x)
+        return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2), new
+
+
+def _attention_mode(cfg, tp: int) -> str:
+    """How attention splits over ``model`` (cache_shardings' choice):
+    by heads where the kv heads divide, else by ``head_dim``, else not."""
+    if tp == 1 or cfg.n_kv_heads % tp == 0:
+        return "heads"
+    return "hd" if cfg.hd % tp == 0 else "full"
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+_PREFILL = make_prefill(None).__wrapped__.__code__
+_DECODE = make_serve_step(None).__wrapped__.__code__
+
+
+def _recognise(step) -> Tuple[str, Any]:
+    fn = getattr(step, "__wrapped__", None)
+    code = getattr(fn, "__code__", None)
+    if code is not _PREFILL and code is not _DECODE:
+        raise ValueError(f"partitioned_step takes a step of make_prefill or "
+                         f"make_serve_step, not {step!r}")
+    cells = dict(zip(code.co_freevars,
+                     (c.cell_contents for c in fn.__closure__)))
+    return ("prefill" if code is _PREFILL else "decode"), cells["cfg"]
+
+
+def _unsupported(cfg) -> Optional[str]:
+    if cfg.family in ("ssm", "hybrid") or cfg.parallel_ssm:
+        return f"the {cfg.family} mixer of {cfg.name}"
+    if cfg.is_encdec:
+        return f"the encoder-decoder {cfg.name}"
+    if cfg.kv_cache_dtype == "int8":
+        return "an int8 KV cache"
+    if cfg.sliding_window:
+        return "a sliding window"
+    if cfg.kv_head_pad > cfg.n_kv_heads:
+        return "padded kv heads"
+    if cfg.pum != "off" and cfg.act == "relu":
+        return "the PuM MLP"
+    if cfg.n_experts and cfg.moe_impl == "dense":
+        return "moe_impl='dense'"
+    return None
+
+
+class PartitionedStep:
+    """A prefill or decode step partitioned over the mesh of its
+    shardings (see :func:`partitioned_step`)."""
+
+    def __init__(self, step, in_shardings, out_shardings):
+        self.kind, self.cfg = _recognise(step)
+        what = _unsupported(self.cfg)
+        if what is not None:
+            raise NotImplementedError(f"partitioned_step does not partition "
+                                      f"{what} ({QUEUE})")
+        self.names = list(inspect.signature(step).parameters)
+        self.in_shardings = tuple(in_shardings)
+        if len(self.in_shardings) > len(self.names):
+            raise ValueError(f"{len(self.in_shardings)} in_shardings for "
+                             f"the {len(self.names)} arguments of the step")
+        self.out_shardings = out_shardings
+        first = shd._first_sharding(self.in_shardings)
+        if first is None:
+            raise ValueError("partitioned_step needs a Sharding among its "
+                             "in_shardings")
+        self.mesh = first.mesh
+
+    def _bind(self, args, kwargs) -> dict:
+        bound = dict(zip(self.names, args))
+        bound.update(kwargs)
+        unknown = set(bound) - set(self.names)
+        if unknown:
+            raise TypeError(f"unexpected arguments {sorted(unknown)}")
+        if _has_int8(bound["params"]):
+            raise NotImplementedError(f"partitioned_step does not partition "
+                                      f"int8 weights ({QUEUE})")
+        for name in ("encoder_feats", "memory"):
+            if bound.get(name) is not None:
+                raise NotImplementedError(f"partitioned_step does not "
+                                          f"partition {name} ({QUEUE})")
+        return bound
+
+    def _dists(self, bound: dict, make: Callable) -> dict:
+        """Each argument's leaves as :class:`Dist`, ``make(leaf,
+        sharding)`` (a sharding of None: replicated)."""
+        out = {}
+        for name, value in bound.items():
+            i = self.names.index(name)
+            sh = self.in_shardings[i] if i < len(self.in_shardings) else None
+            out[name] = None if value is None else shd.tree_map_with_path(
+                lambda path, leaf: make(leaf, shd._sharding_at(sh, path)
+                                        or shd.replicated(self.mesh)),
+                value)
+        return out
+
+    def _run(self, pos: Positions, dists: dict):
+        """(logits, their spec, new caches or None) at ``pos``."""
+        prog = _Program(self.cfg, pos)
+        with torch.no_grad():
+            if self.kind == "prefill":
+                return prog.prefill(dists["params"], dists["tokens"],
+                                    dists.get("vision_embeds")) + (None,)
+            return prog.decode(dists["params"], dists["caches"],
+                               dists["token"], dists["pos"])
+
+    def _out_sharding(self, i: int):
+        o = self.out_shardings
+        if isinstance(o, (tuple, list)):
+            return o[i] if i < len(o) else None
+        return o if i == 0 else None
+
+    def __call__(self, *args, **kwargs):
+        """The step over the mesh: arguments laid out by ``in_shardings``
+        (:class:`Sharded` leaves, or whole tensors, which are cut first),
+        outputs laid out by ``out_shardings`` (an entry of None gives a
+        whole tensor on the first position's device)."""
+        mesh = self.mesh
+        pos = Positions(mesh, range(mesh.size))
+
+        def make(leaf, sh):
+            if sh.mesh is not mesh:
+                raise ValueError(f"a sharding over {sh.mesh!r}, not the "
+                                 f"step's {mesh!r}")
+            if not (isinstance(leaf, shd.Sharded) and leaf.sharding == sh):
+                leaf = shd.place(leaf if isinstance(leaf, shd.Sharded)
+                                 else torch.as_tensor(leaf), sh)
+            vals = list(leaf.shards) if isinstance(leaf, shd.Sharded) \
+                else [leaf]
+            return Dist(leaf.shape, _spec(sh.spec, len(leaf.shape)), vals)
+
+        dists = self._dists(self._bind(args, kwargs), make)
+        logits, spec, new = self._run(pos, dists)
+        out = self._out(pos, Dist(_shape(logits, spec, pos), spec, logits),
+                        self._out_sharding(0))
+        if new is None:
+            return out
+        cs = self._out_sharding(1)
+        return out, {"attn": {
+            name: self._out(pos, Dist(d.shape, d.spec, [c[name] for c in new]),
+                            None if cs is None
+                            else shd._sharding_at(cs, ("attn", name)))
+            for name, d in dists["caches"]["attn"].items()}}
+
+    def _out(self, pos: Positions, d: Dist, sh):
+        target = sh if sh is not None else shd.replicated(self.mesh)
+        vals = relayout(pos, d, *_spec(target.spec, len(d.shape)))
+        pos.join(vals)
+        if self.mesh.size == 1:
+            return vals[0]
+        out = shd.Sharded(d.shape, vals[0].dtype, target, vals)
+        return out if sh is not None else out.gather(pos.devs[0])
+
+    # -- one position on meta -------------------------------------------------
+
+    def local_arguments(self, *args, **kwargs) -> dict:
+        """A position's pieces of whole ``meta`` arguments: empty ``meta``
+        tensors of its shard shapes (every position's are the same)."""
+
+        def make(leaf, sh):
+            spec = _spec(sh.spec, leaf.dim())
+            return Dist(leaf.shape, spec, [torch.empty(
+                shd.Sharding(self.mesh, spec).shard_shape(leaf.shape),
+                dtype=leaf.dtype, device="meta")])
+
+        return self._dists(self._bind(args, kwargs), make)
+
+    def run_position(self, local: dict, position: int = 0):
+        """Position ``position``'s program alone on ``meta``, over the
+        pieces :meth:`local_arguments` gave: its logits and (decode) its
+        new caches, as that position holds them."""
+        pos = Positions(self.mesh, [position], meta=True)
+        logits, spec, new = self._run(pos, local)
+        target = self._out_sharding(0)
+        want = target.spec if target is not None else ()
+        logits = relayout(pos, Dist(_shape(logits, spec, pos), spec, logits),
+                          *_spec(want, 2))[0]
+        return logits if new is None else (logits, {"attn": new[0]})
+
+
+def _shape(vals: list, spec: tuple, pos: Positions) -> torch.Size:
+    """The whole shape of pieces laid out by ``spec``."""
+    return torch.Size(n * pos.size(_axes(s))
+                      for n, s in zip(vals[0].shape, spec))
+
+
+def partitioned_step(step, in_shardings: Sequence,
+                     out_shardings) -> PartitionedStep:
+    """``step`` (of :func:`~repro_torch.train.serve.make_prefill` or
+    :func:`~repro_torch.train.serve.make_serve_step`) partitioned over
+    the mesh of ``in_shardings``, as ``jax.jit(step,
+    in_shardings=..., out_shardings=...)`` runs it under GSPMD: each
+    position computes its share on its own shards, with the collectives
+    of this module between.  ``in_shardings`` has one entry an argument
+    of the step, in its order (trees for ``params`` and ``caches``);
+    ``out_shardings`` is the logits' sharding (prefill) or a
+    ``(logits, caches)`` pair (decode).
+
+    Raises ``ValueError`` for any other function and
+    ``NotImplementedError`` for what this slice does not partition
+    (see the module docstring); it never falls back to gathering."""
+    return PartitionedStep(step, in_shardings, out_shardings)

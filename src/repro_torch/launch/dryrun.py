@@ -12,17 +12,35 @@ For each cell this:
      the port's one-card machine),
   3. runs the train, prefill or decode step on those tensors, at full
      depth, under ``torch.utils.flop_counter.FlopCounterMode``,
-  4. records the counted FLOPs per device and the per-device argument
-     and output bytes summed from the specs, into ``--out`` (default
-     ``build/dryrun_torch/``; never the reference's ``experiments/``).
+  4. for a prefill or decode cell, traces the partitioned program of
+     mesh position 0 (:mod:`repro_torch.distributed.partition`) on
+     ``meta`` over that position's shards (every position's shards have
+     the same shapes, so one stands for all), counting
+     - ``collective_bytes``: its collectives, by the reference's five
+       kinds and their total, in the reference's ring accounting
+       (:class:`~repro_torch.distributed.partition.CollectiveLedger`);
+     - ``bytes_per_device``: over every aten op the position dispatches,
+       its tensor inputs' and outputs' bytes (:class:`DeviceBytes`; a
+       view moves nothing and counts nothing, an output written in place
+       into an input counts once);
+     - ``memory.peak_bytes``: the most bytes live at once on the
+       position, each storage from the op that makes it until its last
+       tensor goes, a view's storage once, the arguments throughout;
+     - ``memory.temp_bytes``: that peak less the argument and output
+       bytes,
+  5. records the counted FLOPs per device, these fields and the
+     per-device argument and output bytes summed from the specs, into
+     ``--out`` (default ``build/dryrun_torch/``; never the reference's
+     ``experiments/``).
 
-The port loops over the layers in Python, so the counter sees every
+The port loops over the layers in Python, so the counters see every
 layer, and the reference's depth calibration (compile depth 1 and 2 and
 extrapolate, because XLA counts a scan body once) is not needed:
-``depth_calibrated`` is False and ``flops_per_device_raw`` equals
-``flops_per_device``.  What only XLA's compiler gives (the per-device
-bytes accessed, the collectives' bytes, temp and peak memory) has no
-counterpart in a trace on ``meta`` and is None, with the reason under
+``depth_calibrated`` is False, ``flops_per_device_raw`` equals
+``flops_per_device`` and ``collective_bytes_raw`` ``collective_bytes``.
+``flops_per_device`` stays the unpartitioned step's count over the
+devices.  Train cells, and cells whose config the partitioned program
+refuses, keep None in the four fields, with the reason under
 ``not_measured``.
 """
 
@@ -33,14 +51,18 @@ import json
 import os
 import time
 import traceback
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCHS, cell_is_supported, get_config
 from ..distributed import sharding as shd
+from ..distributed.partition import CollectiveLedger, Dist, partitioned_step
 from ..models.config import SHAPES_BY_NAME, ModelConfig, ShapeSpec
 from ..models.params import tree_map
 from ..models.transformer import init_caches, init_lm
@@ -53,16 +75,78 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                        "dryrun_torch")
 META = torch.device("meta")
 
+PARTITIONED_FIELDS = ("bytes_per_device", "collective_bytes", "temp_bytes",
+                      "peak_bytes")
 NOT_MEASURED = {
-    "bytes_per_device": "XLA's cost_analysis of the compiled program; a "
-                        "trace on meta has no compiler",
-    "collective_bytes": "parsed from XLA's optimized HLO, which has no "
-                        "torch counterpart",
-    "temp_bytes": "XLA's memory_analysis of the compiled program",
-    "peak_bytes": "XLA's memory_analysis of the compiled program",
     "depth_calibrated": "not needed: every layer of the Python loop is "
                         "counted",
 }
+TRAIN_NOT_MEASURED = ("a train cell: the partitioned train step (backward "
+                      "collectives, the optimizer on shards) is a later "
+                      "slice (ROADMAP Queue 1), and these fields are counted "
+                      "from the partitioned program")
+
+
+class DeviceBytes(TorchDispatchMode):
+    """What one position's program touches and holds, over the aten ops
+    it dispatches: ``accessed`` sums each op's tensor inputs' and
+    outputs' bytes (a view op moves nothing and counts nothing; an
+    output that is one of the op's inputs, written in place, counts
+    once); ``peak`` is the most bytes live at once, each storage from
+    the op that makes it until its last tensor goes, a view's storage
+    once, the storages of ``arguments`` live from the start."""
+
+    def __init__(self, arguments=()):
+        super().__init__()
+        self.accessed = 0
+        self.live = 0
+        self._storages: Dict[int, list] = {}
+        self._tracked: set = set()
+        for t in arguments:
+            self._track(t)
+        self.peak = self.live
+
+    def _track(self, t: torch.Tensor) -> None:
+        if id(t) in self._tracked:
+            return
+        storage = t.untyped_storage()
+        key = storage._cdata
+        entry = self._storages.get(key)
+        if entry is None:
+            entry = self._storages[key] = [0, storage.nbytes()]
+            self.live += entry[1]
+        entry[0] += 1
+        self._tracked.add(id(t))
+        weakref.finalize(t, self._release, id(t), key)
+
+    def _release(self, tid: int, key: int) -> None:
+        self._tracked.discard(tid)
+        entry = self._storages[key]
+        entry[0] -= 1
+        if entry[0] == 0:
+            del self._storages[key]
+            self.live -= entry[1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ins = [t for t in pytree.tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)]
+        view = any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
+        if not view:
+            self.accessed += sum(_nbytes(t) for t in ins) + sum(
+                _nbytes(t) for t in outs if not any(t is i for i in ins))
+        for t in outs:
+            self._track(t)
+        self.peak = max(self.peak, self.live)
+        return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +207,8 @@ class Lowered:
     flops: int
     args: List[Tuple[Any, Any]]
     outs: List[Tuple[Any, Any]]
+    partitioned: Optional[Dict] = None
+    reason: str = TRAIN_NOT_MEASURED
 
 
 def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
@@ -157,6 +243,9 @@ def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
             logits = fn(params_s, **ins)
             args = [(params_s, p_shard), (ins, b_shard)]
             outs = [(logits, shd.logits_sharding(mesh, shape.global_batch))]
+            part = ((p_shard, b_shard["tokens"], b_shard.get("encoder_feats"),
+                     b_shard.get("vision_embeds")), outs[0][1],
+                    (params_s,), ins)
         else:  # decode
             c_shard = shd.cache_shardings(caches_s, mesh)
             vec = shd.vector_sharding(mesh, shape.global_batch)
@@ -170,22 +259,48 @@ def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
                                 memory=mem)
             outs = [(logits, shd.logits_sharding(mesh, shape.global_batch)),
                     (caches, c_shard)]
-    return Lowered(counter.get_total_flops(), args, outs), time.time() - t0
+            part = (tuple(s for _, s in args), (outs[0][1], c_shard),
+                    (params_s, caches_s, ins["token"], ins["pos"]),
+                    {} if mem is None else {"memory": mem})
+    lowered = Lowered(counter.get_total_flops(), args, outs)
+    if shape.kind != "train":
+        lowered.partitioned, lowered.reason = _trace_position(fn, *part)
+    return lowered, time.time() - t0
+
+
+def _trace_position(fn, in_sh, out_sh, args, kwargs):
+    """Mesh position 0's partitioned program traced on meta: (its
+    collective bytes, bytes accessed and peak live bytes, "") or (None,
+    why it is not partitioned)."""
+    try:
+        step = partitioned_step(fn, in_sh, out_sh)
+        local = step.local_arguments(*args, **kwargs)
+    except NotImplementedError as e:
+        return None, str(e)
+    leaves = [t for d in pytree.tree_leaves(
+        local, is_leaf=lambda x: isinstance(x, Dist)) for t in d.vals]
+    with CollectiveLedger() as ledger, DeviceBytes(leaves) as counter:
+        step.run_position(local)
+    return {"colls": ledger.totals(), "bytes": counter.accessed,
+            "peak": counter.peak}, ""
 
 
 def _measure(lowered: Lowered, n_devices: int) -> Dict:
     def total(pairs):
         return sum(shd.shard_bytes(t, s) for t, s in pairs)
 
+    args, outs = total(lowered.args), total(lowered.outs)
+    part = lowered.partitioned
     return {
         "flops": lowered.flops / n_devices,
-        "bytes": None,
-        "colls": None,
+        "bytes": None if part is None else float(part["bytes"]),
+        "colls": None if part is None else part["colls"],
         "memory": {
-            "argument_bytes": total(lowered.args),
-            "output_bytes": total(lowered.outs),
-            "temp_bytes": None,
-            "peak_bytes": None,
+            "argument_bytes": args,
+            "output_bytes": outs,
+            "temp_bytes": None if part is None else
+            part["peak"] - args - outs,
+            "peak_bytes": None if part is None else part["peak"],
         },
     }
 
@@ -233,7 +348,9 @@ def lower_cell(
         "tokens": shape.global_batch * (1 if shape.is_decode else shape.seq_len),
         "kind": shape.kind,
         "skipped": False,
-        "not_measured": NOT_MEASURED,
+        "not_measured": {**NOT_MEASURED, **(
+            {} if lowered.partitioned is not None else
+            dict.fromkeys(PARTITIONED_FIELDS, lowered.reason))},
     }
 
 
@@ -306,9 +423,13 @@ def main() -> None:
             else:
                 n_ok += 1
                 path = save_result(res, args.out)
+                colls = res["collective_bytes"]
                 print(f"[ ok ] {tag}: trace={res['compile_s']}s "
                       f"flops/dev={res['flops_per_device']:.3e} "
-                      f"args/dev={res['memory']['argument_bytes']}B -> {path}")
+                      f"args/dev={res['memory']['argument_bytes']}B "
+                      f"collectives/dev="
+                      f"{'-' if colls is None else int(colls['total'])}B "
+                      f"peak/dev={res['memory']['peak_bytes']}B -> {path}")
         except Exception as e:  # noqa: BLE001
             n_fail += 1
             print(f"[FAIL] {tag}: {type(e).__name__}: {e}")

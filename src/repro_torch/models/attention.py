@@ -104,7 +104,15 @@ def _q8(x: torch.Tensor):
     return qx, scale
 
 
-def attention(
+def attention(p: Params, x: torch.Tensor, positions: torch.Tensor,
+              **kw) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """:func:`attention_heads` through the output projection ``p["o"]``
+    (keywords as there)."""
+    out, cache = attention_heads(p, x, positions, **kw)
+    return dense(p["o"], out), cache
+
+
+def attention_heads(
     p: Params,
     x: torch.Tensor,
     positions: torch.Tensor,
@@ -120,7 +128,8 @@ def attention(
     causal: bool = True,
     kv_head_pad: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self- or cross-attention.
+    """Self- or cross-attention, before the output projection: the
+    heads' outputs (B, L, n_heads·hd) and the cache.
 
     cache: decode-mode KV cache {"k","v": (B,S,G,hd)} (int8 with
       "k_scale","v_scale": (B,S,G)); the new entries are written into it
@@ -138,7 +147,7 @@ def attention(
         v = _split_heads(dense(p["v"], memory), n_kv, hd)
         m = torch.ones((b, l, k.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, k, v, m, scale)
-        return dense(p["o"], out.reshape(b, l, n_heads * hd)), None
+        return out.reshape(b, l, n_heads * hd), None
 
     k = _split_heads(dense(p["k"], x), n_kv, hd)
     v = _split_heads(dense(p["v"], x), n_kv, hd)
@@ -188,14 +197,14 @@ def attention(
             valid = slots <= cur
         mask = valid[:, None, :].expand(b, l, s)
         out = _sdpa(q, k_eff, v_eff, mask, scale)
-        return dense(p["o"], out.reshape(b, l, n_heads * hd)), cache
+        return out.reshape(b, l, n_heads * hd), cache
 
     # full-sequence (train / prefill)
     if (sliding_window and causal and l > sliding_window
             and l % sliding_window == 0):
         # banded O(L·2W) form — exact for contiguous positions
         out = _banded_sdpa(q, k, v, sliding_window, scale)
-        return dense(p["o"], out.reshape(b, l, n_heads * hd)), None
+        return out.reshape(b, l, n_heads * hd), None
     qpos = positions[:, :, None]                   # (B,L,1)
     kpos = positions[:, None, :]                   # (B,1,L)
     mask = torch.ones((b, l, l), dtype=torch.bool, device=x.device)
@@ -204,7 +213,7 @@ def attention(
     if sliding_window:
         mask = mask & (kpos > (qpos - sliding_window))
     out = _sdpa(q, k, v, mask, scale)
-    return dense(p["o"], out.reshape(b, l, n_heads * hd)), None
+    return out.reshape(b, l, n_heads * hd), None
 
 
 def init_cache(b: int, s: int, n_kv: int, hd: int, dtype, device,

@@ -129,15 +129,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    return dense(p["down"], mlp_hidden(p, x, act))
+
+
+def mlp_hidden(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP before its down projection."""
     up = dense(p["up"], x)
     if act == "swiglu":
         g = dense(p["gate"], x)
-        h = F.silu(g) * up
-    elif act == "gelu":
-        h = gelu(up)
-    else:
-        h = F.relu(up)
-    return dense(p["down"], h)
+        return F.silu(g) * up
+    if act == "gelu":
+        return gelu(up)
+    return F.relu(up)
 
 
 def relu_stage(up: torch.Tensor, pum_bits: int = 8) -> torch.Tensor:

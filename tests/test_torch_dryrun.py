@@ -8,6 +8,13 @@
   3,136 B of ``frontend_proj.w``, which decode never reads and XLA
   prunes from the arguments.  ``params``, ``active_params``, ``tokens``,
   ``kind`` and ``n_devices`` ``==`` the reference's.
+- The same cell's fields counted from position 0's partitioned program:
+  ``collective_bytes`` by kind ``==`` a closed form worked out here from
+  the reference's specs, ``bytes_per_device`` at least the argument
+  bytes, argument and output bytes within ``peak_bytes``, ``temp_bytes``
+  the peak less both.  ``DeviceBytes`` on a program of known sizes
+  reads its exact bytes and peak; a train cell and a refused config keep
+  None with their reasons.
 - A train, a prefill and a decode cell at ``smoke_config``: the counted
   FLOPs ``==`` a closed-form count of their matrix products.
 - The command line prints ``ok=1`` with JAX blocked from importing.
@@ -23,12 +30,13 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.distributed import sharding as ref_shd
 from repro.models import transformer as ref_tf
 from repro_torch.configs import smoke_config
-from repro_torch.launch.dryrun import lower_cell, save_result
+from repro_torch.launch.dryrun import DeviceBytes, lower_cell, save_result
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.config import SHAPES_BY_NAME
 
@@ -91,21 +99,109 @@ def test_cell_argument_bytes_equal_reference_specs(cell):
     assert set(xla) <= set(cell)
 
 
-def test_cell_fields_not_measured_are_none(cell):
+def test_cell_collectives_equal_closed_form(cell):
+    """Position 0's collectives ``==`` the closed form from the
+    reference's specs: the FSDP all-gather of each layer's weights over
+    ``pod`` and ``data`` (each output the shard times 32) and of the
+    readout; q, k, v and o gathered whole over ``model`` too, since 14
+    query and 2 kv heads do not divide over 16 ranks (the cache splits
+    ``head_dim``); all-reduces of the embedding's masked lookup (bf16),
+    of each layer's two row-parallel outputs and of its partial scores
+    (both float32), twice the input bytes (ring accounting)."""
+    rcfg = ref_get_config("internvl2-1b")
+    mesh = ref_shd.abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    specs = ref_shd.param_shardings(params, mesh)
+    n_data, layers = 2 * 16, rcfg.n_layers
+
+    def shard(*path):
+        leaf, spec = params, specs
+        for k in path:
+            leaf, spec = leaf[k], spec[k]
+        assert ("pod", "data") in tuple(spec.spec), path
+        n = ref_shard_bytes(mesh, leaf, spec.spec)
+        return n // layers if path[0] == "blocks" else n
+
+    def whole(*path):
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        return math.prod(leaf.shape[1:]) * 2
+
+    attn = [("blocks", "attn", n, "w") for n in ("q", "k", "v", "o")]
+    ffn = [("blocks", "mlp", n, "w") for n in ("up", "gate", "down")]
+    per_layer = sum(n_data * shard(*p) + whole(*p) for p in attn) + sum(
+        n_data * shard(*p) for p in ffn)
+    gathers = layers * per_layer + n_data * shard("out", "w")
+    b_loc, d, s = 128 // n_data, rcfg.d_model, 32768
+    embed = b_loc * d * 2                        # bf16 (4, 896)
+    row = b_loc * d * 4                          # float32 (4, 1, 896)
+    scores = b_loc * rcfg.n_heads * s * 4        # float32 (4, 2, 7, 1, s)
+    reduces = 2 * (embed + layers * (2 * row + scores))
+    assert gathers == 149_811_200 and reduces == 353_712_128
+    assert cell["collective_bytes"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0, "total": gathers + reduces}
+    assert cell["collective_bytes_raw"] == cell["collective_bytes"]
+
+
+def test_cell_bytes_and_memory_bound_each_other(cell):
+    """The four fields are numbers: bytes accessed at least the argument
+    bytes, argument and output bytes within the peak, temp the peak less
+    both; the FLOPs stay the unpartitioned count over the devices, and
+    nothing but the depth calibration is unmeasured."""
     assert cell["depth_calibrated"] is False
     assert cell["flops_per_device_raw"] == cell["flops_per_device"]
-    for key in ("bytes_per_device", "collective_bytes",
-                "collective_bytes_raw"):
-        assert cell[key] is None
-    assert cell["memory"]["temp_bytes"] is None
-    assert cell["memory"]["peak_bytes"] is None
-    assert set(cell["not_measured"]) >= {"bytes_per_device",
-                                         "collective_bytes", "temp_bytes"}
+    mem = cell["memory"]
+    assert cell["bytes_per_device"] >= mem["argument_bytes"]
+    assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert mem["temp_bytes"] == (mem["peak_bytes"] - mem["argument_bytes"]
+                                 - mem["output_bytes"]) > 0
+    assert set(cell["not_measured"]) == {"depth_calibrated"}
     # bf16 logits (128 x vocab / 16 model ranks, 4 rows a device) + caches
     cfg = ref_get_config("internvl2-1b")
     caches = 24 * 2 * 4 * 32768 * 2 * 4 * 2
-    assert cell["memory"]["output_bytes"] == \
-        caches + 4 * (cfg.vocab_padded // 16) * 2
+    assert mem["output_bytes"] == caches + 4 * (cfg.vocab_padded // 16) * 2
+
+
+def test_device_bytes_of_a_known_program():
+    """``DeviceBytes`` on a program of known sizes: a view counts once
+    and moves nothing, an in-place output counts once, a storage lives
+    until its last view goes."""
+    a = torch.empty(256, dtype=torch.float32, device="meta")  # 1,024 B
+    with DeviceBytes([a]) as c:
+        b = a + a                   # reads 2,048, writes 1,024; live 2,048
+        v = b.view(16, 16)          # a view: nothing
+        del b                       # v keeps the storage
+        d = v.sum(0)                # reads 1,024, writes 64; live 2,112
+        del v                       # 1,024 freed; live 1,088
+        e = torch.cat([d, d])       # reads 128, writes 128; live 1,216
+        e.mul_(e)                   # in place: reads 256, nothing new
+        assert c.live == 1_216
+    assert c.accessed == 3_072 + 1_088 + 256 + 256
+    assert c.peak == 2_112
+    # temp: the peak less the argument and the output e
+    assert c.peak - 1_024 - 128 == 960
+
+
+@pytest.mark.parametrize("arch,shape_name,why", [
+    ("yi-6b", "train_4k", "the partitioned train step"),
+    ("mamba2-370m", "decode_32k", "does not partition the ssm mixer")])
+def test_cells_not_partitioned_say_why(arch, shape_name, why):
+    """A train cell and a cell of a config the partitioned program
+    refuses keep None in the four fields, each with its reason."""
+    res = lower_cell(arch, shape_name, cfg_override=smoke_config(arch))
+    assert res["bytes_per_device"] is None
+    assert res["collective_bytes"] is None
+    assert res["collective_bytes_raw"] is None
+    assert res["memory"]["temp_bytes"] is None
+    assert res["memory"]["peak_bytes"] is None
+    assert res["memory"]["argument_bytes"] > 0
+    for key in ("bytes_per_device", "collective_bytes", "temp_bytes",
+                "peak_bytes"):
+        assert why in res["not_measured"][key]
+    assert "ROADMAP Queue 1" in res["not_measured"]["peak_bytes"]
 
 
 def test_cell_on_the_host_mesh_fits_one_card():

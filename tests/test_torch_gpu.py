@@ -1445,3 +1445,46 @@ def test_gpipe_on_card_positions_uses_their_streams(cuda):
     g_pipe, = torch.autograd.grad((out ** 2).sum(), ws)
     g_seq, = torch.autograd.grad((seq ** 2).sum(), ws)
     torch.testing.assert_close(g_pipe, g_seq, rtol=5e-4, atol=5e-5)
+
+
+# -- the serving steps partitioned over cuda:0 positions (phase 17) ----------
+
+@pytest.mark.parametrize("arch,sizes", [("yi-6b", (2, 2)),
+                                        ("internvl2-1b", (1, 4)),
+                                        ("granite-moe-1b-a400m", (2, 2))])
+def test_partitioned_decode_on_card_positions_equals_cpu_positions(
+        cuda, arch, sizes):
+    """``partitioned_step`` of a smoke decode step (float32, no TF32)
+    over cuda:0 repeated (a stream a position) against the same mesh of
+    CPU positions: every position's logits and cache shards within rtol
+    = atol = 1e-4, each on its position's device."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.partition import partitioned_step
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import init_caches, init_lm
+    from repro_torch.train.serve import make_serve_step
+    cfg = smoke_config(arch).replace(param_dtype="float32")
+    gen = torch.Generator().manual_seed(24)
+    params = init_lm(cfg, generator=gen, device="cpu")
+    caches = {"attn": {k: torch.randn(v.shape, generator=gen) for k, v in
+                       init_caches(cfg, 8, 32, "cpu")["attn"].items()}}
+    token = torch.randint(0, cfg.vocab_size, (8,), generator=gen)
+    pos = torch.randint(16, 32, (8,), generator=gen)
+    axes, n = ("data", "model"), int(np.prod(sizes))
+    runs = {}
+    for where, mesh in (("cpu", Mesh(sizes, axes, [torch.device("cpu")] * n)),
+                        ("card", _card_mesh(sizes, axes))):
+        ps = shd.param_shardings(params, mesh)
+        cs = shd.cache_shardings(caches, mesh)
+        vec = shd.vector_sharding(mesh, 8)
+        step = partitioned_step(make_serve_step(cfg), (ps, cs, vec, vec),
+                                (shd.logits_sharding(mesh, 8), cs))
+        logits, new = step(shd.place(params, ps), shd.place(caches, cs),
+                           shd.place(token, vec), shd.place(pos, vec))
+        runs[where] = [logits] + [new["attn"][k] for k in ("k", "v")]
+    torch.cuda.synchronize()
+    for got, want in zip(runs["card"], runs["cpu"]):
+        for a, b in zip(got.shards, want.shards):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
