@@ -290,6 +290,35 @@ Chrome trace goes to ``--trace`` (default
      its four compiler fields counted from position 0's partitioned
      program, beside the reference's recorded values.  Phase 17 launches
      none of K1-K6;
+ 18. the train step partitioned over a device mesh
+     (``distributed/partition_train.py``: forward, backward, the global
+     gradient norm and AdamW one program a position, the backward's
+     collectives the transposes of the forward's), run after phase 17
+     and before the kernels line, meshes of ``cuda:0`` repeated (or the
+     visible cards): (18a) internvl2-1b at its published width, bf16
+     params with float32 moments, ``TRAIN_PARTITION_LAYERS`` of its 24
+     layers, ``TRAIN_PARTITION_STEPS`` train steps over (2, 2) in 2
+     microbatches (heads split) and over (1, 4) (14 query heads over 4
+     ranks: ``head_dim`` split) against the unpartitioned step on the
+     card on the same batches: loss and grad_norm within
+     ``TRAIN_PARTITION_REL`` of their value and each leaf's ``mu``
+     within it of the leaf's max|value|; three faults planted into the
+     (2, 2) run's first step (data rank 1's partial dropped from the
+     first reduce-scatter, ln_f's gain's gradient summed over ``model``
+     as well, each position's own rows as its microbatches) must read
+     more; (18b) yi-6b at its published width with
+     the PuM MLP (``act="relu", pum="bitplane"``),
+     ``PUM_PARTITION_LAYERS`` layers, over (2, 2): a partitioned prefill
+     and one train step against the unpartitioned ones, each K3 launch
+     counted (one a position a layer a pass: the prefill's forward, the
+     train step's forward and its recompute; the counts set to 0 just
+     before each partitioned run and read just after it, apart from the
+     unpartitioned runs) and then held against the plain circuit in a
+     twin run (the ``partition`` path of K3); (18c) 16b's elastic drill,
+     (4, 2) then ``reshard_restore`` onto (2, 2), its steps through
+     ``partitioned_step``: the 8 losses within ``DRILL_PARTITION_TOL`` of
+     16b's through ``sharded_step``, and a dropped reduce-scatter partial
+     planted into a first step must move the second loss by more;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -306,7 +335,8 @@ The launch counters are set to 0 just before each path (phases 3, 4, 5
 and 6, each tier of phase 7, each app run of phase 8, each served run
 of phase 9, the PuM forward and the counted burst of phase 10, the PuM
 train steps of phase 12, each example's card run of phase 14, each
-split run of phase 15 and the served ep run of phase 16) and read just
+split run of phase 15, the served ep run of phase 16 and the
+partitioned PuM prefill and train step of phase 18) and read just
 after; comparison launches come
 after the read (phases 14's and 15's in their twin runs).
 Any mismatch, a missing card, a failed build or a kernel with no launch
@@ -597,6 +627,42 @@ PARTITION_REL = 0.1
 PARTITION_DROP = ("mlp", 3)
 DRYRUN_ARTIFACT = ROOT / "experiments" / "dryrun" / \
     "internvl2-1b_decode_32k_2x16x16.json"
+# phase 18: the train step partitioned over a device mesh
+# (distributed/partition_train.py), positions of cuda:0 repeated on one
+# card.  18a: internvl2-1b at its published width, bf16 params and float32
+# moments, TRAIN_PARTITION_LAYERS of its 24 layers, TRAIN_PARTITION_STEPS
+# steps of TRAIN_PARTITION_BATCH rows x TRAIN_PARTITION_SEQ tokens (after
+# its 256 vision positions) over each (mesh, microbatches) of
+# TRAIN_PARTITION_MESHES, against the unpartitioned step on the card;
+# loss and grad_norm within TRAIN_PARTITION_REL of their value, each
+# leaf's mu within it of the leaf's max|value|.  TRAIN_PARTITION_REL is
+# set between experiments/partition_train_tolerance.py's readings on the
+# H100 over 6 seeds x 2 runs x both meshes: sound at most 4.139e-2 (a
+# leaf's mu; loss and grad_norm below 7e-4), the planted faults at least
+# 0.3834 (data rank 1's reduce-scatter partial dropped), 0.9944 (ln_f's
+# gain summed over model as well) and 0.3729 (each position's own rows as
+# its microbatches).  18b: yi-6b at its published width with
+# the PuM relu MLP, PUM_PARTITION_LAYERS of its 32 layers, a prefill and
+# one train step of PUM_PARTITION_ROWS x PUM_PARTITION_SEQ tokens over
+# PARTITION_MESH.  18c: 16b's drill through partitioned_step, its losses
+# within DRILL_PARTITION_TOL (relative) of 16b's: the CPU test's bound
+# (tests/test_torch_mesh_lm.py), where the H100 read at most 9.68e-8 and
+# data rank 1's reduce-scatter partial dropped in the first step moves
+# the second loss by 2.6e-4 (on the CPU).
+TRAIN_PARTITION_ARCH = "internvl2-1b"
+TRAIN_PARTITION_LAYERS = 4
+TRAIN_PARTITION_MESHES = (((2, 2), 2), ((1, 4), 1))
+TRAIN_PARTITION_BATCH = 8
+TRAIN_PARTITION_SEQ = 256
+TRAIN_PARTITION_STEPS = 2
+TRAIN_PARTITION_SEED = 29
+TRAIN_PARTITION_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=40)
+TRAIN_PARTITION_REL = 0.1
+TRAIN_FAULTS = ("drop", "norm", "local")
+PUM_PARTITION_LAYERS = 8
+PUM_PARTITION_ROWS = 4
+PUM_PARTITION_SEQ = 256
+DRILL_PARTITION_TOL = 1e-5
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1284,6 +1350,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("17")
     phase("17")
     partition_phase(dev, record)
+    release_device_memory("18")
+    phase("18")
+    counts_ptrain = partition_train_phase(dev, record, kern)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -1311,11 +1380,14 @@ def run(trace_path: str) -> dict:
           f"K5 or K6 was not launched on the split path: {counts_split}")
     check(counts_mesh["replay"] > 0,
           f"K5 was not launched on the mesh LM path: {counts_mesh}")
+    check(counts_ptrain["circuit"] > 0,
+          f"K3 was not launched on the partitioned PuM path: "
+          f"{counts_ptrain}")
     launches = {name: counts_fast[name] + counts_bank[name]
                 + counts_ladder[name] + counts_apps[name]
                 + counts_serve[name] + counts_lm[name] + counts_train[name]
                 + counts_examples[name] + counts_split[name]
-                + counts_mesh[name]
+                + counts_mesh[name] + counts_ptrain[name]
                 for name in ("h2v", "v2h", "circuit", "replay")}
     launches["popmatmul"] = counts_mm["popmatmul"]
     launches["faulty_replay"] = (counts_fault["faulty_replay"]
@@ -1366,7 +1438,7 @@ def run(trace_path: str) -> dict:
         })
         for key in ("wave_device_ms", "wave_kernel_ms", "longest_unit_cmds",
                     "ns_per_real_cmd", "per_width", "ladder", "serving",
-                    "lm", "train", "split", "mesh_lm"):
+                    "lm", "train", "split", "mesh_lm", "partition"):
             if key in k:
                 line[-1][key] = k[key]
     record["kernels"] = line
@@ -1385,6 +1457,7 @@ def run(trace_path: str) -> dict:
     record["launches_examples"] = counts_examples
     record["launches_split"] = counts_split
     record["launches_mesh_lm"] = counts_mesh
+    record["launches_partition_train"] = counts_ptrain
     record["profiler_misses"] = PROFILER_MISSES
     print(f"[11] kernel times the profiler missed (timed by CUDA events): "
           f"{len(PROFILER_MISSES)}")
@@ -6024,6 +6097,419 @@ def partition_phase(dev, record: dict) -> None:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[17] partitioned LM path: launches {counts}; phase 17 took "
           f"{out['seconds']:.1f} s; {card}", flush=True)
+
+
+def _mu_rel(got, want) -> float:
+    """The largest, over the leaves, max|got - want| / max|want| (a leaf
+    that is 0 in ``want``, such as the PuM MLP's ``up``, must be 0);
+    ``got``'s :class:`Sharded` leaves gathered one at a time."""
+    from repro_torch.distributed.sharding import Sharded
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.gather(w.device) if isinstance(g, Sharded) else g
+        d = float((g.float() - w.float()).abs().max())
+        m = float(w.float().abs().max())
+        worst = max(worst, d / m if m else (0.0 if d == 0 else float("inf")))
+    return worst
+
+
+@contextlib.contextmanager
+def planted_train_fault(name: str):
+    """A planted fault in a partitioned train step: ``drop`` (data rank
+    1's partial dropped from the first reduce-scatter), ``norm`` (ln_f's
+    gain, whole over every axis, has its gradient summed over ``model``
+    as well as the data axes) or ``local`` (each position cuts its own
+    rows into microbatches, in place of its share of the reference's)."""
+    import torch
+
+    from repro_torch.distributed import partition, partition_train
+    if name == "local":
+        real = partition_train.relay
+
+        def fault(pos, vals, axes, n_mb):
+            return list(vals)
+
+        mod, attr = partition_train, "relay"
+    elif name == "drop":
+        real, n = partition.reduce_scatter, [0]
+
+        def fault(pos, vals, axes, dim):
+            n[0] += 1
+            if n[0] == 1:
+                vals = [torch.zeros_like(v) if pos.part(k, axes) == 1 else v
+                        for k, v in zip(pos.ks, vals)]
+            return real(pos, vals, axes, dim)
+
+        mod, attr = partition, "reduce_scatter"
+    else:
+        real = partition_train.summed_axes
+
+        def fault(prog, spec):
+            return real(prog, spec) + (
+                ("model",) if tuple(spec) == (None,) else ())
+
+        mod, attr = partition_train, "summed_axes"
+    setattr(mod, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
+                          opt_kw: dict, faults=(),
+                          count_launches: bool = False) -> dict:
+    """``cfg``'s train step partitioned over ``mesh`` against the
+    unpartitioned step on the card, on the same weights (``params``,
+    placed by ``param_shardings``) and ``batches``, one step each: per
+    step the loss's and grad_norm's |partitioned - unpartitioned| over
+    their value, the largest over the leaves of ``mu``'s max|difference|
+    over the leaf's max|value| (``mu_rel``), host-clock ms of both
+    (synchronized), the first step's collective bytes, and each fault of
+    ``faults`` (:func:`planted_train_fault`) planted into the first
+    step, read the same way on ``mu``.  With ``count_launches`` the
+    launch counts are set to 0 just before the partitioned steps and read
+    just after them (``launches``), before any fault runs."""
+    import torch
+
+    from repro_torch.distributed import partition
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.partition_train import attention_mode
+    from repro_torch.kernels import build
+    from repro_torch.models.params import flatten
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    step = make_train_step(cfg, opt.AdamWConfig(**opt_kw),
+                           n_microbatches=n_mb)
+    want, p, o = [], params, opt.init(params)
+    res = {"loss_rel": [], "grad_norm_rel": [], "mu_rel": [], "ms": [],
+           "plain_ms": [], "faults": {}}
+    for b in batches:
+        (p, o, m), ms = timed(lambda: step(p, o, b))
+        want.append(({k: float(v) for k, v in m.items()}, flatten(o.mu)))
+        res["plain_ms"].append(ms)
+    del p, o
+    ps = shd.param_shardings(params, mesh)
+    os_ = shd.opt_shardings(opt.init(params), params, mesh)
+    bs = shd.batch_shardings(batches[0], mesh)
+    pstep = partition.partitioned_step(step, (ps, os_, bs), (ps, os_, None))
+
+    def first():
+        return shd.place(params, ps), shd.place(opt.init(params), os_)
+
+    p, o = first()
+    if count_launches:
+        build.reset_launches()
+    for i, b in enumerate(batches):
+        with partition.CollectiveLedger() as ledger:
+            (p, o, m), ms = timed(lambda: pstep(p, o, b))
+        wm, wmu = want[i]
+        res["loss_rel"].append(abs(float(m["loss"]) - wm["loss"])
+                               / abs(wm["loss"]))
+        res["grad_norm_rel"].append(abs(float(m["grad_norm"])
+                                        - wm["grad_norm"]) / wm["grad_norm"])
+        res["mu_rel"].append(_mu_rel(flatten(o.mu), wmu))
+        res["ms"].append(ms)
+        if i == 0:
+            res["ledger"] = ledger.totals()
+    if count_launches:
+        torch.cuda.synchronize()
+        res["launches"] = dict(build.LAUNCHES)
+    del p, o
+    for name in faults:
+        with planted_train_fault(name):
+            _, o, _ = pstep(*first(), batches[0])
+        res["faults"][name] = _mu_rel(flatten(o.mu), want[0][1])
+        del o
+    res["mode"] = attention_mode(cfg, mesh.shape["model"])
+    res["rel_max"] = max(res["loss_rel"] + res["grad_norm_rel"]
+                         + res["mu_rel"])
+    res["finite"] = bool(np.isfinite(res["rel_max"]))
+    return res
+
+
+def _train_held(label: str, run: dict) -> None:
+    check(run["finite"] and run["rel_max"] <= TRAIN_PARTITION_REL,
+          f"{label}: the partitioned train step is off the unpartitioned "
+          f"one by {run['rel_max']:.4e} (loss {run['loss_rel']}, grad_norm "
+          f"{run['grad_norm_rel']}, mu {run['mu_rel']}; tolerance "
+          f"{TRAIN_PARTITION_REL})")
+    for name, rel in run["faults"].items():
+        check(rel > TRAIN_PARTITION_REL, f"{label}: the planted fault "
+              f"{name} reads {rel:.4e} of a leaf's max|mu| at most, within "
+              f"the tolerance {TRAIN_PARTITION_REL}")
+
+
+def _partition_batches(cfg, dev, rows: int, seq: int, steps: int, seed: int):
+    """Seeded batches on the card: tokens, labels (the next token; masks
+    that differ by microbatch: a tenth of the first half's rows' labels
+    masked, six tenths of the second half's) and, for a VLM, vision
+    embeddings."""
+    import torch
+    gen = torch.Generator(dev).manual_seed(seed)
+    share = torch.where(torch.arange(rows, device=dev) < rows // 2, 0.1,
+                        0.6)[:, None]
+    out = []
+    for _ in range(steps):
+        t = torch.randint(cfg.vocab_size, (rows, seq), generator=gen,
+                          device=dev)
+        masked = torch.rand((rows, seq), generator=gen, device=dev) < share
+        b = {"tokens": t, "labels": torch.where(masked, -1,
+                                                torch.roll(t, -1, 1))}
+        if cfg.family == "vlm":
+            b["vision_embeds"] = 0.02 * torch.randn(
+                (rows, cfg.frontend_seq, cfg.d_model), generator=gen,
+                device=dev)
+        out.append(b)
+    return out
+
+
+def partition_train_phase(dev, record: dict, kern: dict) -> dict:
+    """Phase 18: the train step partitioned over a device mesh of
+    ``cuda:0`` positions (``partitioned_step`` of ``make_train_step``),
+    each position computing its forward, backward and optimizer on its
+    own shards with explicit collectives: 18a internvl2-1b over (2, 2)
+    and (1, 4) against the unpartitioned step, with three planted faults;
+    18b yi-6b's PuM MLP (K3 on each position's shard) in a partitioned
+    prefill and train step; 18c the elastic drill through
+    ``partitioned_step``.  Returns 18b's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import partition
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.serve import make_prefill
+    from repro_torch.train.train_loop import make_train_step
+
+    card = record["card"]
+    out = record["partition_train"] = {}
+    t_phase = time.perf_counter()
+
+    # -- 18a: internvl2-1b over (2, 2) and (1, 4) ----------------------------
+    phase("18a")
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(TRAIN_PARTITION_ARCH)
+    cfg = full.replace(n_layers=TRAIN_PARTITION_LAYERS)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+        TRAIN_PARTITION_SEED), device=dev)
+    batches = _partition_batches(cfg, dev, TRAIN_PARTITION_BATCH,
+                             TRAIN_PARTITION_SEQ, TRAIN_PARTITION_STEPS,
+                             TRAIN_PARTITION_SEED)
+    out["18a"] = {}
+    for sizes, n_mb in TRAIN_PARTITION_MESHES:
+        mesh, where = _split_mesh(sizes, ("data", "model"))
+        run = partition_train_steps(
+            dev, cfg, params, mesh, n_mb=n_mb, batches=batches,
+            opt_kw=TRAIN_PARTITION_OPT,
+            faults=TRAIN_FAULTS if sizes == PARTITION_MESH else ())
+        _train_held("18a", run)
+        tag = "x".join(map(str, sizes))
+        out["18a"][tag] = dict(run, devices=where, microbatches=n_mb)
+        print(f"[18a] {TRAIN_PARTITION_ARCH} at its published width "
+              f"({cfg.n_layers} of {full.n_layers} layers, bf16 params, "
+              f"float32 moments), {TRAIN_PARTITION_STEPS} train steps of "
+              f"{TRAIN_PARTITION_BATCH} x {TRAIN_PARTITION_SEQ} tokens (+ "
+              f"{cfg.frontend_seq} vision positions) in {n_mb} microbatch(es) "
+              f"partitioned over {sizes} ({where}; {run['mode']} split) "
+              f"against the unpartitioned step: loss off by "
+              f"{max(run['loss_rel']):.4e}, grad_norm by "
+              f"{max(run['grad_norm_rel']):.4e} of their values, mu by "
+              f"{max(run['mu_rel']):.4e} of a leaf's max|value| (tolerance "
+              f"{TRAIN_PARTITION_REL})"
+              + "".join(f"; fault {k} reads {v:.4e}"
+                        for k, v in run["faults"].items())
+              + f"; step {float(np.median(run['ms'])):.1f} ms partitioned, "
+              f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned "
+              f"(host clock, synchronized); first step's collectives a "
+              f"position: {_kinds(run['ledger'])}; {card}", flush=True)
+    out["18a"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, batches
+    release_device_memory("18b")
+
+    # -- 18b: yi-6b's PuM MLP over (2, 2), K3 on each position's shard -------
+    phase("18b")
+    t_b = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(PARTITION_ARCH)
+    cfg = full.replace(n_layers=PUM_PARTITION_LAYERS, act="relu",
+                       pum="bitplane", pum_bits=8)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+        TRAIN_PARTITION_SEED + 1), device=dev)
+    batch = _partition_batches(cfg, dev, PUM_PARTITION_ROWS, PUM_PARTITION_SEQ,
+                           1, TRAIN_PARTITION_SEED + 1)
+    mesh, where = _split_mesh(PARTITION_MESH, ("data", "model"))
+    ps = shd.param_shardings(params, mesh)
+    bs = shd.batch_shardings(batch[0], mesh)
+    pre = partition.partitioned_step(make_prefill(cfg), (ps, bs["tokens"]),
+                                     shd.logits_sharding(mesh,
+                                                         PUM_PARTITION_ROWS))
+    want = make_prefill(cfg)(params, batch[0]["tokens"])
+    placed = shd.place(params, ps)
+    tokens = shd.place(batch[0]["tokens"], bs["tokens"])
+    build.reset_launches()
+    got = pre(placed, tokens)
+    torch.cuda.synchronize()
+    counts_pre = dict(build.LAUNCHES)
+    n_pos = mesh.size
+    check(counts_pre["circuit"] == n_pos * cfg.n_layers and all(
+        v == 0 for k, v in counts_pre.items() if k != "circuit"),
+        f"18b: the partitioned PuM prefill launched {counts_pre}, expected "
+        f"one K3 launch a position a layer ({n_pos * cfg.n_layers})")
+    pre_rel = float(_rel_rows(got.gather(dev), want).max())
+    check(np.isfinite(pre_rel) and pre_rel <= PARTITION_REL,
+          f"18b: the partitioned PuM prefill's logits are off the "
+          f"unpartitioned one's by {pre_rel:.4e} of max|logit| (tolerance "
+          f"{PARTITION_REL})")
+    del got, want, placed
+    run = partition_train_steps(dev, cfg, params, mesh, n_mb=1,
+                                batches=batch, opt_kw=TRAIN_PARTITION_OPT,
+                                count_launches=True)
+    counts_train = run["launches"]
+    # one K3 launch a position a layer a pass (the forward, the recompute)
+    want_train = 2 * cfg.n_layers * n_pos
+    check(counts_train["circuit"] == want_train and all(
+        v == 0 for k, v in counts_train.items() if k != "circuit"),
+        f"18b: the partitioned train step launched {counts_train}, expected "
+        f"one K3 launch a position a layer a pass ({want_train})")
+    _train_held("18b", run)
+    counts = {k: counts_pre[k] + counts_train[k] for k in counts_pre}
+    # the twin run: every launch of the counted partitioned runs again,
+    # each held against the plain circuit on the same planes
+    step = make_train_step(cfg, opt.AdamWConfig(**TRAIN_PARTITION_OPT))
+    state = opt.init(params)
+    os_ = shd.opt_shardings(state, params, mesh)
+    pstep = partition.partitioned_step(step, (ps, os_, bs), (ps, os_, None))
+    placed = shd.place(params, ps)
+    with _Twins() as tw:
+        pre(placed, tokens)
+        pstep(placed, shd.place(state, os_), batch[0])
+    torch.cuda.synchronize()
+    errs = tw.errs["circuit"]
+    check(len(errs) == counts["circuit"] and max(errs, default=0) == 0,
+          f"18b: {len(errs)} K3 twins for {counts['circuit']} launches, "
+          f"errors {errs}")
+    _agree(kern["circuit"]["agreement"], "partition", counts["circuit"],
+           errs)
+    kern["circuit"]["partition"] = {"launches": counts["circuit"],
+                                    "positions": n_pos,
+                                    "layers": cfg.n_layers}
+    out["18b"] = dict(run, devices=where, prefill_rel=pre_rel,
+                      k3_launches=counts["circuit"],
+                      k3_launches_prefill=counts_pre["circuit"],
+                      k3_launches_train=counts_train["circuit"],
+                      max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"[18b] {PARTITION_ARCH} at its published width with the PuM relu "
+          f"MLP ({cfg.n_layers} of {full.n_layers} layers, bf16) over "
+          f"{PARTITION_MESH} ({where}): a prefill of {PUM_PARTITION_ROWS} x "
+          f"{PUM_PARTITION_SEQ} tokens off the unpartitioned one by "
+          f"{pre_rel:.4e} of max|logit| (tolerance {PARTITION_REL}), one "
+          f"train step off by {run['rel_max']:.4e} (tolerance "
+          f"{TRAIN_PARTITION_REL}); {counts['circuit']} K3 launches (one a "
+          f"position a layer a pass: {counts_pre['circuit']} in the "
+          f"prefill, {counts_train['circuit']} in the train step's "
+          f"forward and recompute, each counted alone), each equal to the plain "
+          f"circuit in the twin run; train step "
+          f"{float(np.median(run['ms'])):.1f} ms partitioned, "
+          f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned (host "
+          f"clock, synchronized); {card}", flush=True)
+    del params, placed, pre, pstep, run
+    release_device_memory("18c")
+
+    # -- 18c: 16b's elastic drill through partitioned_step ---------------------
+    phase("18c")
+    t_c = time.perf_counter()
+    scfg = smoke_config("yi-6b").replace(param_dtype="float32")
+    p0 = init_lm(scfg, generator=torch.Generator(dev).manual_seed(18),
+                 device=dev)
+    dc = DataConfig(*DRILL_DATA)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in synth_batch(scfg, dc, s).items()}
+               for s in range(8)]
+    step = make_train_step(scfg, opt.AdamWConfig(**DRILL_OPT))
+
+    def make(m):
+        ps = shd.param_shardings(p0, m)
+        os_ = shd.opt_shardings(opt.init(p0), p0, m)
+        bs = shd.batch_shardings(batches[0], m)
+        return ps, os_, partition.partitioned_step(step, (ps, os_, bs),
+                                                   (ps, os_, None))
+
+    ckpt_dir = tempfile.mkdtemp(prefix="elastic_p_", dir=str(ROOT / "build"))
+    try:
+        mesh8, where8 = _split_mesh(DRILL_MESHES[0], ("data", "model"))
+        ps, os_, step8 = make(mesh8)
+        params, state = shd.place(p0, ps), shd.place(opt.init(p0), os_)
+        losses = []
+        for b in batches[:4]:
+            params, state, m = step8(params, state, b)
+            losses.append(float(m["loss"]))
+        ckpt.save(ckpt_dir + "/p", 4, params)
+        ckpt.save(ckpt_dir + "/o", 4, state)
+        mesh4, where4 = _split_mesh(DRILL_MESHES[1], ("data", "model"))
+        ps4, os4, step4 = make(mesh4)
+        params = ckpt.reshard_restore(ckpt_dir + "/p", 4, p0, ps4)
+        state = ckpt.reshard_restore(ckpt_dir + "/o", 4, opt.init(p0), os4)
+        for b in batches[4:]:
+            params, state, m = step4(params, state, b)
+            losses.append(float(m["loss"]))
+        # the planted fault: data rank 1's reduce-scatter partial dropped
+        # in the first step on (4, 2), the second step sound
+        params, state = shd.place(p0, ps), shd.place(opt.init(p0), os_)
+        with planted_train_fault("drop"):
+            params, state, m = step8(params, state, batches[0])
+        faulted = [float(m["loss"])]
+        params, state, m = step8(params, state, batches[1])
+        faulted.append(float(m["loss"]))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    sharded = record["mesh_lm"]["16b"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, sharded))
+    check(all(np.isfinite(losses)) and rel <= DRILL_PARTITION_TOL,
+          f"18c: the drill's losses through partitioned_step {losses} are "
+          f"off 16b's through sharded_step {sharded} by {rel:.4e} "
+          f"(tolerance {DRILL_PARTITION_TOL})")
+    fault_rel = abs(faulted[1] - sharded[1]) / abs(sharded[1])
+    check(fault_rel > DRILL_PARTITION_TOL,
+          f"18c: the planted fault (a dropped reduce-scatter partial) moves "
+          f"the second loss by {fault_rel:.4e} only, within the tolerance "
+          f"{DRILL_PARTITION_TOL}")
+    out["18c"] = {"losses": losses, "sharded_losses": sharded, "rel": rel,
+                  "fault_losses": faulted, "fault_rel": fault_rel,
+                  "devices": [where8, where4],
+                  "seconds": time.perf_counter() - t_c}
+    print(f"[18c] 16b's elastic drill (smoke yi-6b, float32) through "
+          f"partitioned_step: 4 steps on {DRILL_MESHES[0]} ({where8}), "
+          f"reshard_restore onto {DRILL_MESHES[1]} ({where4}), 4 more: the 8 "
+          f"losses within {rel:.4e} of 16b's through sharded_step "
+          f"(tolerance {DRILL_PARTITION_TOL}; "
+          f"{', '.join(f'{v:.4f}' for v in losses)}); a dropped "
+          f"reduce-scatter partial in step 1 moves loss 2 by "
+          f"{fault_rel:.4e}; {card}", flush=True)
+    del p0, params, state, batches
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    out["part_seconds"] = {"18a": t_b - t_phase, "18b": t_c - t_b,
+                           "18c": t_end - t_c}
+    print(f"[18] partitioned train path: launches {counts}; phase 18 took "
+          f"{out['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in out['part_seconds'].items()})}); {card}",
+          flush=True)
+    return counts
 
 
 def _graphed_step(step, params, caches, dev):

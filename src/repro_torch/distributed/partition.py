@@ -1,12 +1,15 @@
-"""Partitioned serving steps over a device mesh: each position computes
-its share of the step on its own shards, with explicit collectives.
+"""Partitioned LM steps over a device mesh: each position computes its
+share of the step on its own shards, with explicit collectives.
 
 This module has no file-for-file counterpart in the reference: it is the
 port's stand-in for what GSPMD does under ``jax.jit(step,
-in_shardings=..., out_shardings=...)`` for the LM's serving steps.
+in_shardings=..., out_shardings=...)`` for the LM's steps.
 :func:`partitioned_step` takes a step built by
-:func:`~repro_torch.train.serve.make_prefill` or
-:func:`~repro_torch.train.serve.make_serve_step` and the shardings the
+:func:`~repro_torch.train.serve.make_prefill`,
+:func:`~repro_torch.train.serve.make_serve_step` or
+:func:`~repro_torch.train.train_loop.make_train_step` (whose program,
+backward and optimizer included, is
+:mod:`~repro_torch.distributed.partition_train`) and the shardings the
 reference passes to ``jax.jit``; the result takes and returns
 :class:`~repro_torch.distributed.sharding.Sharded` leaves, as
 :func:`~repro_torch.distributed.sharding.sharded_step` does, but never
@@ -52,20 +55,43 @@ Decode returns new caches (the arguments are left as they are, as
 ``jax.jit`` without donation leaves them), written where the position's
 own rows and heads are.
 
+- the PuM MLP (``cfg.pum != "off"`` with a relu) quantizes each
+  position's column-parallel ``up`` slice and runs its relu as one
+  SIMDRAM bbop on the position's device and stream (K1, K3, K2 on a
+  card), then the row-parallel ``down``.
+
 The collectives (:func:`all_gather`, :func:`all_reduce`,
 :func:`reduce_scatter`, :func:`all_to_all`, :func:`permute`) run over
 one or more mesh axes on the positions' devices and streams; sums run
-in rank order.  Each charges the :class:`CollectiveLedger` objects
-active in a ``with`` block, by the reference dry run's ring accounting
+in rank order, in float32, rounded once to the parts' dtype.  Each
+charges the :class:`CollectiveLedger` objects active in a ``with``
+block, by the reference dry run's ring accounting
 (``repro.launch.dryrun.collective_bytes``): an all-gather its output
 bytes, an all-reduce twice its input bytes, the others their input
 bytes, per position.  :meth:`PartitionedStep.run_position` runs one
 position's program alone on ``meta`` (its peers' parts stand in by
 shape), which is what the dry run traces.
 
+Under autograd (the train step of
+:mod:`~repro_torch.distributed.partition_train`) each collective is a
+``torch.autograd.Function`` whose backward is its explicit transpose,
+run on the positions' streams, summed in rank order and charged like
+any forward collective.  The program follows Megatron's rules over
+``model``: a value every ``model`` rank holds whole (the residual
+stream) has the whole cotangent at every rank, so the all-reduce of
+row-parallel partials (*g*) passes the cotangent through, and such a
+value entering computation split over ``model`` goes through
+:func:`enter` (*f*: identity forward, all-reduce of the partial
+cotangents backward).  An all-gather's backward is a reduce-scatter
+where what it gathered feeds split computation (the FSDP gathers of
+weights over DATA, whose rows differ), and each position's own part of
+its cotangent where the computation after it is duplicated
+(``copies``).  Over the DATA axes every position's cotangents are
+partials (its rows).  In a no-grad step (serving) nothing of this runs.
+
 Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1): the SSM
 and hybrid mixers, encoder-decoder models, int8 weights or caches,
-sliding windows, padded kv heads, the PuM MLP and ``moe_impl="dense"``.
+sliding windows, padded kv heads and ``moe_impl="dense"``.
 """
 
 from __future__ import annotations
@@ -82,15 +108,17 @@ import torch
 from ..launch.mesh import Mesh, mark, on_stream, read_on, wait_for
 from ..models import moe
 from ..models.attention import NEG_INF, _scale, attention_heads
-from ..models.layers import dense, mlp_hidden, rmsnorm, rope_angles, unembed
+from ..models.layers import (dense, mlp_hidden, pum_relu_hidden, rmsnorm,
+                             rope_angles, unembed)
 from ..models.params import tree_leaves, tree_map
 from ..train.serve import make_prefill, make_serve_step
+from ..train.train_loop import make_train_step
 from . import sharding as shd
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-QUEUE = ("ROADMAP Queue 1: the partitioned train step and SSM / enc-dec / "
-         "int8 are next")
+QUEUE = ("ROADMAP Queue 1: SSM / hybrid mixers, enc-dec, int8 and sliding "
+         "windows are next")
 
 _LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_ledgers", default=())
@@ -242,50 +270,145 @@ def _exchange(pos: Positions, vals: list, axes: Sequence[str], kind: str,
 
 
 def _sum(parts: list) -> torch.Tensor:
-    return functools.reduce(torch.add, parts)
+    """The parts added in rank order in float32, rounded once to their
+    dtype (exact for the one-hot sums of a masked lookup)."""
+    return functools.reduce(torch.add, [p.to(torch.float32) for p in parts]
+                            ).to(parts[0].dtype)
+
+
+class _Transposed(torch.autograd.Function):
+    """A collective over the positions (one input and one output a
+    position) whose backward is ``bwd``, its transpose, given every
+    position's cotangent.  The positions' streams first wait for the
+    engine's (which the cotangents are ready on), and the engine's
+    stream then waits for theirs."""
+
+    @staticmethod
+    def forward(ctx, pos, fwd, bwd, *vals):
+        ctx.pos, ctx.bwd = pos, bwd
+        return tuple(fwd(list(vals)))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        pos = ctx.pos
+        for dev, s in zip(pos.devs, pos.streams):
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(dev))
+        out = ctx.bwd(list(cts))
+        pos.join(out)
+        return (None, None, None, *out)
+
+
+def _collective(pos: Positions, vals: list, axes, fwd: Callable,
+                bwd: Callable) -> list:
+    """``fwd(vals)``, recorded for autograd with the backward ``bwd``
+    where a gradient is being taken through ``vals``; a group of one
+    position is the identity both ways."""
+    if pos.size(tuple(axes)) == 1:
+        return list(vals)
+    if not (torch.is_grad_enabled() and any(v.requires_grad for v in vals)):
+        return fwd(list(vals))
+    return list(_Transposed.apply(pos, fwd, bwd, *vals))
+
+
+def _own(pos: Positions, vals: list, axes: Sequence[str], dim: int) -> list:
+    """Each position's own part, cut along ``dim``, of a whole value."""
+    n = pos.size(axes)
+    size = vals[0].shape[dim] // n
+    return [v.narrow(dim, pos.part(k, axes) * size, size)
+            for k, v in zip(pos.ks, vals)]
 
 
 def all_gather(pos: Positions, vals: list, axes: Sequence[str],
-               dim: int) -> list:
+               dim: int, copies: bool = False) -> list:
     """Every position gets its group's parts concatenated along ``dim``
-    in part order."""
-    return _exchange(pos, vals, axes, "all-gather",
-                     lambda parts, _: torch.cat(parts, dim))
+    in part order.  Backward: the cotangents' reduce-scatter (each
+    position's a partial: the computation after the gather is split
+    over ``axes``), or where ``copies`` (that computation is duplicated,
+    every position's cotangent the whole one) each position's own part
+    of its cotangent, which moves nothing."""
+    axes = tuple(axes)
+    return _collective(
+        pos, vals, axes,
+        lambda v: _exchange(pos, v, axes, "all-gather",
+                            lambda parts, _: torch.cat(parts, dim)),
+        lambda c: _own(pos, c, axes, dim) if copies
+        else reduce_scatter(pos, c, axes, dim))
 
 
 def all_reduce(pos: Positions, vals: list, axes: Sequence[str]) -> list:
-    """Every position gets its group's sum, added in rank order."""
-    return _exchange(pos, vals, axes, "all-reduce",
-                     lambda parts, _: _sum(parts))
+    """Every position gets its group's sum, added in rank order.  The
+    sum of partials into a value every position holds whole (Megatron's
+    *g*): backward passes each position's cotangent through."""
+    axes = tuple(axes)
+    return _collective(
+        pos, vals, axes,
+        lambda v: _exchange(pos, v, axes, "all-reduce",
+                            lambda parts, _: _sum(parts)),
+        lambda c: c)
 
 
 def reduce_scatter(pos: Positions, vals: list, axes: Sequence[str],
                    dim: int) -> list:
     """The group's rank-order sum, cut along ``dim``: part ``i`` to the
-    group's ``i``-th position."""
+    group's ``i``-th position.  Backward: the cotangents' all-gather."""
+    axes = tuple(axes)
     n = pos.size(axes)
-    return _exchange(pos, vals, axes, "reduce-scatter",
-                     lambda parts, i: _sum(parts).chunk(n, dim)[i]
-                     .contiguous())
+    return _collective(
+        pos, vals, axes,
+        lambda v: _exchange(pos, v, axes, "reduce-scatter",
+                            lambda parts, i: _sum(parts).chunk(n, dim)[i]
+                            .contiguous()),
+        lambda c: all_gather(pos, c, axes, dim))
 
 
 def all_to_all(pos: Positions, vals: list, axes: Sequence[str],
                split_dim: int, concat_dim: int) -> list:
     """Each part cut into the group's size along ``split_dim``; position
     ``i`` gets every member's ``i``-th piece, concatenated along
-    ``concat_dim`` in part order."""
+    ``concat_dim`` in part order.  Backward: the all-to-all back."""
+    axes = tuple(axes)
     n = pos.size(axes)
-    return _exchange(pos, vals, axes, "all-to-all", lambda parts, i: torch.cat(
-        [p.chunk(n, split_dim)[i] for p in parts], concat_dim))
+    return _collective(
+        pos, vals, axes,
+        lambda v: _exchange(pos, v, axes, "all-to-all",
+                            lambda parts, i: torch.cat(
+                                [p.chunk(n, split_dim)[i] for p in parts],
+                                concat_dim)),
+        lambda c: all_to_all(pos, c, axes, concat_dim, split_dim))
 
 
 def permute(pos: Positions, vals: list, axes: Sequence[str],
             shift: int = 1) -> list:
     """A ring shift: the group's ``i``-th position gets the part of its
-    ``(i - shift)``-th."""
+    ``(i - shift)``-th.  Backward: the shift back."""
+    axes = tuple(axes)
     n = pos.size(axes)
-    return _exchange(pos, vals, axes, "collective-permute",
-                     lambda parts, i: parts[(i - shift) % n].clone())
+    return _collective(
+        pos, vals, axes,
+        lambda v: _exchange(pos, v, axes, "collective-permute",
+                            lambda parts, i: parts[(i - shift) % n].clone()),
+        lambda c: permute(pos, c, axes, -shift))
+
+
+def enter(pos: Positions, vals: list, axes: Sequence[str]) -> list:
+    """A value every position of the group holds whole, entering
+    computation split over ``axes`` (Megatron's *f*): the identity
+    forward; backward, the positions' partial cotangents all-reduced."""
+    axes = tuple(axes)
+    return _collective(pos, vals, axes, lambda v: v,
+                       lambda c: all_reduce(pos, c, axes))
+
+
+def share(pos: Positions, vals: list, axes: Sequence[str]) -> list:
+    """A value each position of the group computes for the whole group
+    (a copy, or its own stand-in for it), whose cotangent the positions
+    split: the identity forward; backward, each cotangent over the
+    group's size.  Nothing moves."""
+    axes = tuple(axes)
+    n = pos.size(axes)
+    return _collective(pos, vals, axes, lambda v: v,
+                       lambda c: [t / n for t in c])
 
 
 # ---------------------------------------------------------------------------
@@ -309,17 +432,21 @@ def _spec(spec, ndim: int) -> tuple:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
-def relayout(pos: Positions, d: Dist, *want) -> list:
+def relayout(pos: Positions, d: Dist, *want,
+             copies: Sequence[str] = ()) -> list:
     """``d``'s pieces laid out by ``want`` instead: each dim whose axes
     change is all-gathered over its old axes (the DATA gathers first),
-    then cut locally by the new ones."""
+    then cut locally by the new ones.  A gather over axes all among
+    ``copies`` (the computation after it is duplicated over them) takes
+    :func:`all_gather`'s ``copies`` backward."""
     want = _spec(want, len(d.shape))
     data = set(shd.data_axes(pos.mesh))
     vals = d.vals
     moved = [i for i in range(len(d.shape))
              if _axes(d.spec[i]) and _axes(d.spec[i]) != _axes(want[i])]
     for i in sorted(moved, key=lambda i: not set(_axes(d.spec[i])) <= data):
-        vals = all_gather(pos, vals, _axes(d.spec[i]), i)
+        ax = _axes(d.spec[i])
+        vals = all_gather(pos, vals, ax, i, copies=set(ax) <= set(copies))
     for i, w in enumerate(want):
         w = _axes(w)
         if not w or w == _axes(d.spec[i]):
@@ -360,8 +487,24 @@ class _Program:
     def map(self, fn, *args):
         return self.pos.map(fn, *args)
 
-    def fetch(self, d: Dist, *want) -> list:
-        return relayout(self.pos, d, *want)
+    def fetch(self, d: Dist, *want, split: Optional[bool] = None) -> list:
+        """``d``'s pieces laid out by ``want`` for a computation split
+        over ``model`` where ``split`` (default: where ``want`` names
+        ``model``), else duplicated over it.  Under autograd a leaf whole
+        over ``model`` entering split computation goes through
+        :func:`enter`, and a gather over ``model`` feeding duplicated
+        computation takes the ``copies`` backward."""
+        m = _axes(self.M)
+        if split is None:
+            split = any(self.M in _axes(w) for w in want)
+        if split and m and not any(self.M in _axes(a) for a in d.spec):
+            d = Dist(d.shape, d.spec, enter(self.pos, d.vals, m))
+        return relayout(self.pos, d, *want, copies=() if split else m)
+
+    def enter(self, vals: list) -> list:
+        """Activations every ``model`` rank holds whole, entering
+        computation split over ``model`` (:func:`enter`)."""
+        return enter(self.pos, vals, _axes(self.M))
 
     def splits(self, n: int) -> bool:
         """Whether a dim of ``n`` splits over ``model``."""
@@ -373,14 +516,15 @@ class _Program:
     def rank(self, k: int) -> int:
         return self.pos.part(k, _axes(self.M))
 
-    def local(self, p: dict, *want) -> list:
+    def local(self, p: dict, *want, split: Optional[bool] = None) -> list:
         """Each position's dense ``p`` laid out by ``want`` (the weight's
-        spec; the bias follows its output dim), as ``{"w", "b"}`` dicts."""
-        ws = self.fetch(p["w"], *want)
+        spec; the bias follows its output dim), as ``{"w", "b"}`` dicts;
+        ``split`` as :meth:`fetch` takes it."""
+        ws = self.fetch(p["w"], *want, split=split)
         if "b" not in p:
             return [{"w": w} for w in ws]
-        return [{"w": w, "b": b}
-                for w, b in zip(ws, self.fetch(p["b"], want[-1]))]
+        return [{"w": w, "b": b} for w, b in zip(
+            ws, self.fetch(p["b"], want[-1], split=split))]
 
     def dense(self, p: dict, x: list, *want) -> list:
         return self.map(dense, self.local(p, *want), x)
@@ -422,13 +566,24 @@ class _Program:
                         self.fetch(p["g"], None), x)
 
     def mlp(self, p: dict, h: list) -> list:
+        """The MLP, its hidden dim on ``model`` where it splits; the PuM
+        MLP's integer relu stage on each position's own ``up`` slice."""
         split = self.splits(p["up"]["w"].shape[1])
         ax = self.M if split else None
-        names = [n for n in ("up", "gate") if n in p]
-        act = self.cfg.act
-        hidden = self.map(lambda h, *ps: mlp_hidden(dict(zip(names, ps)), h,
-                                                     act),
-                          h, *(self.local(p[n], None, ax) for n in names))
+        cfg = self.cfg
+        if cfg.pum != "off" and cfg.act == "relu":
+            # the integer stage cuts the gradient: nothing flows back
+            # into h through up, so it needs no enter
+            hidden = self.map(
+                lambda h, pu: pum_relu_hidden(dense(pu, h), cfg.pum_bits),
+                h, self.local(p["up"], None, ax))
+        else:
+            names = [n for n in ("up", "gate") if n in p]
+            if split:
+                h = self.enter(h)
+            hidden = self.map(
+                lambda h, *ps: mlp_hidden(dict(zip(names, ps)), h, cfg.act),
+                h, *(self.local(p[n], None, ax) for n in names))
         if not split:
             return self.dense(p["down"], hidden, None, None)
         return self.row(p["down"], hidden,
@@ -442,11 +597,14 @@ class _Program:
         split = self.mode != "full" and self.tp > 1
         n = self.tp if split else 1
         ax = self.M if split else None
+        if split:
+            h = self.enter(h)
         q = self.local(p["q"], None, ax)
         if self.mode == "qheads":
             # each rank's query heads against the kv heads they read, as
             # columns of the gathered k and v weights (one a query head)
-            kv = [self.map(self._kv_columns, self.local(p[name], None, None),
+            kv = [self.map(self._kv_columns,
+                           self.local(p[name], None, None, split=True),
                            list(self.pos.ks)) for name in ("k", "v")]
             n_kv = cfg.n_heads // n
         else:
@@ -485,8 +643,10 @@ class _Program:
         cfg = self.cfg
         hd, nh, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         d, half = hd // self.tp, hd // 2
-        full = [self.local(p[name], None, None) for name in ("q", "k", "v")]
-        wo = self.fetch(p["o"]["w"], None, None)
+        h = self.enter(h)
+        full = [self.local(p[name], None, None, split=True)
+                for name in ("q", "k", "v")]
+        wo = self.fetch(p["o"]["w"], None, None, split=True)
         scale = _scale(hd)
 
         def cols(n_heads, dims):
@@ -548,7 +708,9 @@ class _Program:
 
         firsts = self.map(first, h, positions, cache, idx, list(self.pos.ks),
                           *full)
-        scores = self.model_sum([s for s, _ in firsts])
+        # the summed scores (every rank's whole) meet each rank's own
+        # value dims in p.v: enter, so their cotangent sums the ranks'
+        scores = self.enter(self.model_sum([s for s, _ in firsts]))
         out = self.map(second, scores, [r for _, r in firsts])
         rows = self.map(lambda w, rest: w[cols(nh, rest[3])], wo,
                         [r for _, r in firsts])
@@ -657,10 +819,12 @@ class _Program:
             emb = params["embed"]["emb"]
             ax = self.M if self.splits(emb.shape[0]) else None
             out = self.map(lambda w, h: unembed({"emb": w}, h),
-                           self.fetch(emb, ax, None), x)
+                           self.fetch(emb, ax, None),
+                           self.enter(x) if ax else x)
         else:
             ax = self.M if self.splits(params["out"]["w"].shape[1]) else None
-            out = self.dense(params["out"], x, None, ax)
+            out = self.dense(params["out"], self.enter(x) if ax else x, None,
+                             ax)
         return out, (self.bax, ax)
 
     # -- the steps -------------------------------------------------------------
@@ -755,17 +919,31 @@ def _attention_mode(cfg, tp: int) -> str:
 
 _PREFILL = make_prefill(None).__wrapped__.__code__
 _DECODE = make_serve_step(None).__wrapped__.__code__
+_TRAIN = next(c for c in make_train_step.__code__.co_consts
+              if inspect.iscode(c) and c.co_name == "train_step")
 
 
-def _recognise(step) -> Tuple[str, Any]:
+def _cells(fn) -> dict:
+    """The names and values of ``fn``'s closure."""
+    return dict(zip(fn.__code__.co_freevars,
+                    (c.cell_contents for c in fn.__closure__ or ())))
+
+
+def _recognise(step) -> Tuple[str, dict]:
+    """The kind of ``step`` and its closure: ``cfg`` for every kind, and
+    for a train step ``ocfg``, ``n_microbatches``, ``grad_transform``,
+    ``remat`` and ``unroll``."""
+    if getattr(step, "__code__", None) is _TRAIN:
+        cells = _cells(step)
+        cells.update(_cells(_cells(cells["value_and_grad"])["loss_fn"]))
+        return "train", cells
     fn = getattr(step, "__wrapped__", None)
     code = getattr(fn, "__code__", None)
     if code is not _PREFILL and code is not _DECODE:
         raise ValueError(f"partitioned_step takes a step of make_prefill or "
-                         f"make_serve_step, not {step!r}")
-    cells = dict(zip(code.co_freevars,
-                     (c.cell_contents for c in fn.__closure__)))
-    return ("prefill" if code is _PREFILL else "decode"), cells["cfg"]
+                         f"make_serve_step (or make_train_step), not "
+                         f"{step!r}")
+    return ("prefill" if code is _PREFILL else "decode"), _cells(fn)
 
 
 def _unsupported(cfg) -> Optional[str]:
@@ -779,8 +957,6 @@ def _unsupported(cfg) -> Optional[str]:
         return "a sliding window"
     if cfg.kv_head_pad > cfg.n_kv_heads:
         return "padded kv heads"
-    if cfg.pum != "off" and cfg.act == "relu":
-        return "the PuM MLP"
     if cfg.n_experts and cfg.moe_impl == "dense":
         return "moe_impl='dense'"
     return None
@@ -791,7 +967,8 @@ class PartitionedStep:
     shardings (see :func:`partitioned_step`)."""
 
     def __init__(self, step, in_shardings, out_shardings):
-        self.kind, self.cfg = _recognise(step)
+        self.kind, self.closure = _recognise(step)
+        self.cfg = self.closure["cfg"]
         what = _unsupported(self.cfg)
         if what is not None:
             raise NotImplementedError(f"partitioned_step does not partition "
@@ -857,21 +1034,8 @@ class PartitionedStep:
         (:class:`Sharded` leaves, or whole tensors, which are cut first),
         outputs laid out by ``out_shardings`` (an entry of None gives a
         whole tensor on the first position's device)."""
-        mesh = self.mesh
-        pos = Positions(mesh, range(mesh.size))
-
-        def make(leaf, sh):
-            if sh.mesh is not mesh:
-                raise ValueError(f"a sharding over {sh.mesh!r}, not the "
-                                 f"step's {mesh!r}")
-            if not (isinstance(leaf, shd.Sharded) and leaf.sharding == sh):
-                leaf = shd.place(leaf if isinstance(leaf, shd.Sharded)
-                                 else torch.as_tensor(leaf), sh)
-            vals = list(leaf.shards) if isinstance(leaf, shd.Sharded) \
-                else [leaf]
-            return Dist(leaf.shape, _spec(sh.spec, len(leaf.shape)), vals)
-
-        dists = self._dists(self._bind(args, kwargs), make)
+        pos = Positions(self.mesh, range(self.mesh.size))
+        dists = self._dists(self._bind(args, kwargs), self._placed)
         logits, spec, new = self._run(pos, dists)
         out = self._out(pos, Dist(_shape(logits, spec, pos), spec, logits),
                         self._out_sharding(0))
@@ -883,6 +1047,19 @@ class PartitionedStep:
                             None if cs is None
                             else shd._sharding_at(cs, ("attn", name)))
             for name, d in dists["caches"]["attn"].items()}}
+
+    def _placed(self, leaf, sh) -> Dist:
+        """An argument's leaf as the pieces its sharding ``sh`` lays out
+        (a :class:`Sharded` of another layout, or a whole tensor, cut
+        anew)."""
+        if sh.mesh is not self.mesh:
+            raise ValueError(f"a sharding over {sh.mesh!r}, not the step's "
+                             f"{self.mesh!r}")
+        if not (isinstance(leaf, shd.Sharded) and leaf.sharding == sh):
+            leaf = shd.place(leaf if isinstance(leaf, shd.Sharded)
+                             else torch.as_tensor(leaf), sh)
+        vals = list(leaf.shards) if isinstance(leaf, shd.Sharded) else [leaf]
+        return Dist(leaf.shape, _spec(sh.spec, len(leaf.shape)), vals)
 
     def _out(self, pos: Positions, d: Dist, sh):
         target = sh if sh is not None else shd.replicated(self.mesh)
@@ -928,17 +1105,22 @@ def _shape(vals: list, spec: tuple, pos: Positions) -> torch.Size:
 
 def partitioned_step(step, in_shardings: Sequence,
                      out_shardings) -> PartitionedStep:
-    """``step`` (of :func:`~repro_torch.train.serve.make_prefill` or
-    :func:`~repro_torch.train.serve.make_serve_step`) partitioned over
-    the mesh of ``in_shardings``, as ``jax.jit(step,
+    """``step`` (of :func:`~repro_torch.train.serve.make_prefill`,
+    :func:`~repro_torch.train.serve.make_serve_step` or
+    :func:`~repro_torch.train.train_loop.make_train_step`) partitioned
+    over the mesh of ``in_shardings``, as ``jax.jit(step,
     in_shardings=..., out_shardings=...)`` runs it under GSPMD: each
     position computes its share on its own shards, with the collectives
     of this module between.  ``in_shardings`` has one entry an argument
-    of the step, in its order (trees for ``params`` and ``caches``);
-    ``out_shardings`` is the logits' sharding (prefill) or a
-    ``(logits, caches)`` pair (decode).
+    of the step, in its order (trees for ``params``, ``caches``,
+    ``opt_state`` and ``batch``); ``out_shardings`` is the logits'
+    sharding (prefill), a ``(logits, caches)`` pair (decode) or a
+    ``(params, opt_state, metrics)`` triple (train).
 
     Raises ``ValueError`` for any other function and
     ``NotImplementedError`` for what this slice does not partition
     (see the module docstring); it never falls back to gathering."""
+    if getattr(step, "__code__", None) is _TRAIN:
+        from .partition_train import PartitionedTrainStep
+        return PartitionedTrainStep(step, in_shardings, out_shardings)
     return PartitionedStep(step, in_shardings, out_shardings)

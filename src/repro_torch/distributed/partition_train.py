@@ -1,0 +1,516 @@
+"""The train step partitioned over a device mesh: forward, backward, the
+global gradient norm and AdamW, one program a mesh position.
+
+Like :mod:`~repro_torch.distributed.partition`, this module has no
+file-for-file counterpart in the reference: it stands in for what GSPMD
+does under ``jax.jit(make_train_step(...), in_shardings=(ps, os_, bs),
+out_shardings=(ps, os_, None))``.  ``partition.partitioned_step`` of a
+step of :func:`~repro_torch.train.train_loop.make_train_step` returns a
+:class:`PartitionedTrainStep`, whose program each position runs on its
+own shards of the params, the optimizer state and the batch:
+
+- **microbatches in the reference's order**: the reference cuts the
+  global batch into ``n_microbatches`` contiguous slices, each split
+  over the DATA axes.  A position's rows of the batch are not its rows
+  of those slices, so the batch is relayed once (:func:`relay`, one
+  all-to-all over DATA) and microbatch ``i`` of each position is its
+  share of the reference's microbatch ``i``;
+- **the forward** is the partitioned prefill's (``_Program``'s embed,
+  norm, attention in its heads/qheads/hd modes, MLP, the PuM MLP,
+  readout) over every position of the sequence, with no cache, each
+  block under ``remat`` as the port's ``train_loop`` runs it (per-block
+  ``torch.utils.checkpoint``; ``"dots"`` saves the ``aten.mm``/``addmm``
+  outputs).  A recompute re-runs its all-gathers and charges them again,
+  as XLA's FSDP backward re-gathers;
+- **the MoE FFN** routes every token at every ``model`` rank (a copy of
+  the routing), dispatches the tokens to the rank's own experts and adds
+  the ranks' partial outputs.  Grouped (``moe_impl="grouped"``), each
+  position dispatches the whole microbatch (its rows all-gathered over
+  DATA) with the whole microbatch's capacity; ``"ep"`` dispatches each
+  data shard's rows alone, as the reference's ``shard_map`` does, whose
+  aux is then data shard 0's (each position reports its own shard's);
+- **the loss is vocab-parallel**: logits stay split over ``model``, each
+  rank takes its log-sum-exp over its vocabulary slice, the ranks'
+  values are all-gathered and combined in rank order, and the gold logit
+  comes from the rank that holds it (a masked pick, then an all-reduce).
+  Padded vocabulary entries get -1e30 on the rank that holds them; then
+  the z-loss.  The mask count (``denom``) is all-reduced over DATA and
+  the loss is the sum over DATA of each position's share;
+- **the backward** runs through autograd, each collective's backward its
+  explicit transpose (see ``partition``'s docstring).  Every position
+  seeds its copy of the loss with 1; over DATA a position's cotangents
+  are partials of its rows, over ``model`` every rank's cotangent of a
+  whole value is the whole one.  A leaf the layout does not split over a
+  DATA axis (norm gains, biases, the router, a vocabulary split only
+  over ``model``) goes through ``partition.enter`` over those axes
+  (:func:`summed_axes`), so its gradient is summed over them and only
+  them: over ``model`` its compute is duplicated, and the ranks' grads
+  are copies.  A value computed whole by every position of a data group
+  (the grouped MoE's aux) goes through ``partition.share``.  Gradients
+  accumulate in float32 over the microbatches, as the reference's scan
+  does;
+- **the optimizer runs on shards**: each leaf's local sum of squares
+  counts once (a leaf not split over an axis contributes from rank 0 of
+  that axis only), the per-leaf sums go through one packed all-reduce
+  and add up in the reference's leaf order; the clip scale, ``lr`` and
+  the step are then the same at every position, and each position
+  updates its own shards of the params, ``mu`` and ``nu`` (in the
+  moments' layout, which ``"dp2"`` makes differ from the params').
+
+Layouts: the batch must split over every DATA axis, and every other axis
+of the mesh is ``model`` (tensor parallel) or also splits the batch
+(``param_shardings``' ``"dp"``/``"dp2"``, whose program has no tensor
+parallelism).  A ``grad_transform`` is not partitioned
+(``NotImplementedError``); neither is anything ``partition`` refuses.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, List, Tuple
+
+import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from ..models import moe
+from ..models.layers import _dtype
+from ..models.params import tree_map
+from ..models.transformer import _save_products
+from ..train import optimizer as opt
+from . import partition as part
+from . import sharding as shd
+from .partition import QUEUE, Dist, Positions, _axes, _spec
+
+
+def _leaves(tree) -> List[Dist]:
+    """The leaves of a params tree of :class:`Dist` in ``flatten``'s
+    order (keys sorted), the reference's leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _held(spec) -> set:
+    return {a for e in spec for a in _axes(e)}
+
+
+def summed_axes(prog: "_TrainProgram", spec) -> Tuple[str, ...]:
+    """The axes over which a leaf laid out by ``spec`` has its gradient
+    summed where it enters the step: the batch's axes that it is not
+    split over (its copies there see other rows)."""
+    held = _held(spec)
+    return tuple(a for a in prog.bax if a not in held)
+
+
+def relay(pos: Positions, vals: list, axes: Tuple[str, ...],
+          n_mb: int) -> list:
+    """Batch rows laid out over ``axes`` (each position a contiguous
+    block of the global batch), relayed so that rows
+    ``[i·c, (i+1)·c)`` of each position are its share of the reference's
+    microbatch ``i`` (``c`` rows a microbatch a position): one
+    all-to-all over ``axes``."""
+    nd = pos.size(axes)
+    if n_mb == 1 or nd == 1:
+        return list(vals)
+
+    def combine(parts, d):
+        c = parts[0].shape[0] // n_mb
+        chunks = [i * nd + d for i in range(n_mb)]
+        return torch.cat([parts[g // n_mb].narrow(0, (g % n_mb) * c, c)
+                          for g in chunks])
+
+    return part._exchange(pos, vals, axes, "all-to-all", combine)
+
+
+def _batch_axes(mesh, tokens: Dist) -> Tuple[str, ...]:
+    bax = _axes(tokens.spec[0])
+    if not set(shd.data_axes(mesh)) <= set(bax) or \
+            not set(mesh.axis_names) - set(bax) <= {"model"}:
+        raise NotImplementedError(
+            f"a batch laid out as {tokens.spec} over {mesh!r}: the "
+            f"partitioned train step splits the batch over every data axis, "
+            f"and any other axis is model ({QUEUE})")
+    return bax
+
+
+def attention_mode(cfg, tp: int) -> str:
+    """How the train step's attention splits over ``tp`` model ranks:
+    as prefill's, by kv heads where they divide, else by query heads
+    where they divide (there is no cache to keep in its layout), else by
+    ``head_dim``."""
+    mode = part._attention_mode(cfg, tp)
+    return "qheads" if mode != "heads" and cfg.n_heads % tp == 0 else mode
+
+
+class _TrainProgram(part._Program):
+    """One partitioned train step's forward of ``cfg`` over ``pos``, the
+    batch split over ``bax``."""
+
+    def __init__(self, cfg, pos: Positions, bax: Tuple[str, ...],
+                 remat: str):
+        super().__init__(cfg, pos)
+        mesh = pos.mesh
+        self.bax = bax
+        self.M = "model" if "model" in mesh.axis_names and \
+            "model" not in bax else None
+        self.tp = mesh.shape["model"] if self.M else 1
+        self.mode = attention_mode(cfg, self.tp)
+        self.remat = remat
+
+    # -- the forward -----------------------------------------------------------
+
+    def loss(self, params: dict, mb: dict) -> Tuple[list, list, list]:
+        """(loss + the MoE weight x aux, loss, aux) at each position for
+        one microbatch ``mb`` (each position's rows of its leaves)."""
+        cfg, pos = self.cfg, self.pos
+        ids = mb["tokens"]
+        x = self.embed(params["embed"]["emb"], ids)
+        positions = self.map(lambda i: torch.arange(
+            i.shape[1], dtype=torch.int32, device=i.device)[None].expand(
+                *i.shape), ids)
+        vp = 0
+        if "vision_embeds" in mb:
+            # the reference casts the stub features to bf16 and lets the
+            # first product promote them to the params' dtype
+            dt = _dtype(cfg.param_dtype)
+            ve = self.map(lambda v: v.to(torch.bfloat16).to(dt),
+                          mb["vision_embeds"])
+            fp = params["frontend_proj"]
+            split = self.splits(fp["w"].shape[1])
+            ve = self.dense(fp, ve, None, self.M if split else None)
+            if split:
+                ve = part.all_gather(pos, ve, _axes(self.M), 2, copies=True)
+            x = self.map(lambda v, h: torch.cat([v.to(h.dtype), h], dim=1),
+                         ve, x)
+            vp = ve[0].shape[1]
+            positions = self.map(lambda t: torch.cat([torch.arange(
+                vp, dtype=torch.int32, device=t.device)[None].expand(
+                    t.shape[0], vp), t + vp], dim=1), positions)
+        x, aux = self.stack(params["blocks"], x, positions)
+        x = self.norm(params["ln_f"], x)
+        if vp:
+            x = self.map(lambda h: h[:, vp:, :], x)
+        logits, (_, ax) = self.readout(params, x)
+        loss = self.xent(logits, ax, mb["labels"])
+        aux = part.share(pos, aux, self.bax)
+        moe_w = 0.01 if cfg.n_experts else 0.0
+        total = self.map(lambda l, a: l + moe_w * a, loss, aux)
+        return total, loss, aux
+
+    def stack(self, blocks: dict, x: list, positions: list):
+        """The blocks, each under ``remat``; (x, the summed aux)."""
+        parts = tree_map(lambda d: [v.unbind(0) for v in d.vals], blocks)
+        n_layers = len(next(iter(_leaves(parts)))[0])
+
+        def layer(i):
+            return tree_map(lambda d, u: Dist(d.shape[1:], d.spec[1:],
+                                              [t[i] for t in u]),
+                            blocks, parts)
+
+        body: Callable = self.block_train
+        if self.remat == "full":
+            body = functools.partial(checkpoint, body, use_reentrant=False)
+        elif self.remat == "dots":
+            body = functools.partial(
+                checkpoint, body, use_reentrant=False,
+                context_fn=functools.partial(
+                    create_selective_checkpoint_contexts, _save_products))
+        aux = self.map(lambda h: torch.zeros((), dtype=torch.float32,
+                                             device=h.device), x)
+        for i in range(n_layers):
+            x, a = body(layer(i), x, positions)
+            if a is not None:
+                aux = self.map(torch.add, aux, a)
+        return x, aux
+
+    def block_train(self, p: dict, x: list, positions: list):
+        none = self.pos.same(None)
+        h = self.norm(p["ln1"], x)
+        x = self.map(torch.add, x, self.attention(p["attn"], h, positions,
+                                                  none, none))
+        h2 = self.norm(p["ln2"], x)
+        ff, aux = None, None
+        if "moe" in p:
+            ff, aux = self.moe_train(p["moe"], h2)
+        if "mlp" in p:
+            m = self.mlp(p["mlp"], h2)
+            ff = m if ff is None else self.map(torch.add, ff, m)
+        return self.map(torch.add, x, ff), aux
+
+    def moe_train(self, p: dict, h: list) -> Tuple[list, list]:
+        """The MoE FFN and its aux at each position: the routing a copy
+        at every ``model`` rank, the dispatch to the rank's experts, the
+        ranks' partials added (see the module docstring)."""
+        cfg, pos = self.cfg, self.pos
+        mesh = pos.mesh
+        n_e = p["router"].shape[1]
+        top_k = cfg.experts_per_token
+        split = self.splits(n_e)
+        ep = cfg.moe_impl == "ep" and "model" in mesh.axis_names and \
+            n_e % mesh.shape["model"] == 0
+        if ep and self.bax != shd.data_axes(mesh):
+            raise NotImplementedError(f"moe_impl='ep' with the batch over "
+                                      f"{self.bax} ({QUEUE})")
+        gather = bool(self.bax) and not ep
+        x = part.all_gather(pos, h, self.bax, 0) if gather else h
+        ax = self.M if split else None
+        names = [n for n in ("up", "gate", "down") if n in p]
+        ws = [self.fetch(p[n], ax, None, None) for n in names]
+
+        def route(xb, r):
+            b, l, d = xb.shape
+            xt = xb.reshape(b * l, d)
+            return (xt,) + moe._route({"router": r}, xt, top_k)
+
+        xt, probs, topv, topi = (list(z) for z in zip(
+            *self.map(route, x, self.fetch(p["router"], None, None))))
+        if split:
+            xt, topv = self.enter(xt), self.enter(topv)
+        e_loc = n_e // self.tp if split else n_e
+        b, l, d = x[0].shape
+        cap = max(1, int(1.25 * b * l * top_k / n_e))
+
+        def dispatch(xt, tv, ti, k, *w):
+            return moe.dispatch_local(
+                dict(zip(names, w)), xt, tv, ti, act=cfg.act, cap=cap,
+                e_lo=self.rank(k) * e_loc if split else 0, e_loc=e_loc)
+
+        out = self.map(dispatch, xt, topv, topi, list(pos.ks), *ws)
+        if split:
+            out = self.model_sum(out)
+        out = self.map(lambda o: o.reshape(b, l, d), out)
+        if gather:
+            n = b // pos.size(self.bax)
+            out = [o.narrow(0, pos.part(k, self.bax) * n, n)
+                   for k, o in zip(pos.ks, out)]
+        aux = self.map(lambda pr, ti: moe.load_balance_aux(pr, ti, n_e),
+                       probs, topi)
+        return out, aux
+
+    def xent(self, logits: list, ax, labels: list) -> list:
+        """The masked next-token loss + z-loss of vocab-parallel logits
+        (vocab on ``ax``), the same at every position."""
+        cfg, pos = self.cfg, self.pos
+        n = logits[0].shape[-1]
+
+        def local(lg, lab, k):
+            lo = self.rank(k) * n if ax else 0
+            if cfg.vocab_padded != cfg.vocab_size:
+                real = torch.arange(lo, lo + n, device=lg.device) < \
+                    cfg.vocab_size
+                lg = torch.where(real, lg, -1e30)
+            lf = lg.to(torch.float32)
+            t = torch.clamp(lab, min=0).long() - lo
+            hit = (t >= 0) & (t < n)
+            gold = torch.take_along_dim(lf, t.clamp(0, n - 1)[..., None],
+                                        dim=-1)[..., 0]
+            return torch.logsumexp(lf, dim=-1), torch.where(hit, gold, 0.0)
+
+        lse, gold = (list(z) for z in zip(
+            *self.map(local, logits, labels, list(pos.ks))))
+        if ax:
+            m = _axes(self.M)
+            lse = self.map(lambda s: torch.logsumexp(s, dim=0),
+                           part.all_gather(pos, self.map(lambda s: s[None],
+                                                         lse), m, 0,
+                                           copies=True))
+            gold = part.all_reduce(pos, gold, m)
+
+        def sums(lse, gold, lab):
+            mask = (lab >= 0).to(torch.float32)
+            nll = (lse - gold) * mask
+            zl = 1e-4 * torch.square(lse) * mask
+            return nll.sum() + zl.sum(), mask.sum()
+
+        total, count = (list(z) for z in zip(
+            *self.map(sums, lse, gold, labels)))
+        denom = part.all_reduce(pos, count, self.bax)
+        return part.all_reduce(pos, self.map(
+            lambda t, c: t / torch.clamp(c, min=1.0), total, denom), self.bax)
+
+    # -- the optimizer -----------------------------------------------------------
+
+    def global_norm(self, grads: List[Dist]) -> list:
+        """The gradients' global norm at every position: each leaf's sum
+        of squares from the positions at rank 0 of every axis it is not
+        split over, one packed all-reduce, the leaves added in order."""
+        pos = self.pos
+        names = pos.mesh.axis_names
+
+        def local(k, *gs):
+            out = []
+            for d, g in zip(grads, gs):
+                ssq = torch.sum(torch.square(g.to(torch.float32)))
+                own = all(pos.part(k, (a,)) == 0 for a in names
+                          if a not in _held(d.spec))
+                out.append(ssq if own else torch.zeros_like(ssq))
+            return torch.stack(out)
+
+        packed = part.all_reduce(pos, self.map(local, list(pos.ks),
+                                               *(d.vals for d in grads)),
+                                 names)
+        return self.map(lambda v: torch.sqrt(sum(v.unbind())), packed)
+
+
+def _per_position(tree, i: int):
+    return tree_map(lambda d: d.vals[i], tree)
+
+
+def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict):
+    """(new params, new optimizer state, metrics) at ``pos``: the params
+    and moments as trees of :class:`Dist`, the metrics as lists, one
+    value a position."""
+    params, state, batch = (dists["params"], dists["opt_state"],
+                            dists["batch"])
+    mesh = pos.mesh
+    bax = _batch_axes(mesh, batch["tokens"])
+    prog = _TrainProgram(cfg, pos, bax, remat)
+    nd = pos.size(bax)
+    b = batch["tokens"].shape[0]
+    if b % n_mb or (b // n_mb) % nd:
+        raise NotImplementedError(
+            f"a batch of {b} rows in {n_mb} microbatches over {bax} "
+            f"({nd} parts) ({QUEUE})")
+    rows = {name: relay(pos, part.relayout(pos, d, bax), bax, n_mb)
+            for name, d in batch.items()}
+    c = b // (n_mb * nd)
+
+    live = tree_map(lambda d: Dist(d.shape, d.spec, [
+        v.detach().requires_grad_() for v in d.vals]), params)
+    leaves = _leaves(live)
+    inputs = [v for d in leaves for v in d.vals]
+    acc, losses, auxes = None, [], []
+    for i in range(n_mb):
+        mb = {name: [v.narrow(0, i * c, c) for v in vals]
+              for name, vals in rows.items()}
+        used = tree_map(lambda d: Dist(d.shape, d.spec, part.enter(
+            pos, d.vals, summed_axes(prog, d.spec))), live)
+        total, loss, aux = prog.loss(used, mb)
+        grads = torch.autograd.grad(
+            total, inputs, grad_outputs=[torch.ones_like(t) for t in total],
+            materialize_grads=True)
+        if n_mb == 1:
+            acc = list(grads)
+        else:
+            if acc is None:
+                acc = [torch.zeros(v.shape, dtype=torch.float32,
+                                   device=v.device) for v in inputs]
+            for a, g in zip(acc, grads):
+                a.add_(g)
+        # the reference's scan keeps each microbatch's whole objective
+        losses.append([t.detach() for t in (loss if n_mb == 1 else total)])
+        auxes.append([t.detach() for t in aux])
+    if n_mb > 1:
+        acc = [a / n_mb for a in acc]
+        loss = [torch.stack(v).mean() for v in zip(*losses)]
+        aux = [torch.stack(v).mean() for v in zip(*auxes)]
+    else:
+        loss, aux = losses[0], auxes[0]
+    it = iter(acc)
+    gleaves = [Dist(d.shape, d.spec, [next(it) for _ in d.vals])
+               for d in leaves]
+    gnorm = prog.global_norm(gleaves)
+
+    # each position updates its shards in the moments' layout
+    with torch.no_grad():
+        g_of = dict(zip(map(id, leaves), gleaves))
+        grads = tree_map(lambda d: g_of[id(d)], live)
+
+        def moments_layout(d: Dist, m: Dist) -> Dist:
+            return d if d.spec == m.spec else Dist(
+                d.shape, m.spec, part.relayout(pos, d, *m.spec))
+
+        params_m = tree_map(moments_layout, params, state.mu)
+        grads_m = tree_map(moments_layout, grads, state.mu)
+        out = pos.map(
+            lambda i, gn: opt.update(
+                ocfg, _per_position(params_m, i), _per_position(grads_m, i),
+                opt.OptState(state.step.vals[i], _per_position(state.mu, i),
+                             _per_position(state.nu, i)), gnorm=gn),
+            list(range(len(pos.ks))), gnorm)
+
+    new_p = _collect(params_m, [o[0] for o in out])
+    new_mu = _collect(state.mu, [o[1].mu for o in out])
+    new_nu = _collect(state.nu, [o[1].nu for o in out])
+    new_state = opt.OptState(
+        Dist(state.step.shape, state.step.spec, [o[1].step for o in out]),
+        new_mu, new_nu)
+    metrics = {"loss": loss, "aux": aux, "grad_norm": gnorm,
+               "lr": [o[2]["lr"] for o in out]}
+    return new_p, new_state, metrics
+
+
+def _collect(like: dict, trees: list) -> dict:
+    """Trees of one tensor a position as a tree of :class:`Dist` laid
+    out as ``like``."""
+    if isinstance(like, dict):
+        return {k: _collect(v, [t[k] for t in trees]) for k, v in like.items()}
+    return Dist(like.shape, like.spec, list(trees))
+
+
+class PartitionedTrainStep(part.PartitionedStep):
+    """A step of :func:`~repro_torch.train.train_loop.make_train_step`
+    partitioned over the mesh of its shardings (see the module
+    docstring): ``step(params, opt_state, batch)`` takes arguments laid
+    out by ``in_shardings = (ps, os_, bs)`` and returns ``(params,
+    opt_state, metrics)`` laid out by ``out_shardings`` (``metrics``
+    whole on the first position's device where its entry is None)."""
+
+    def __init__(self, step, in_shardings, out_shardings):
+        super().__init__(step, in_shardings, out_shardings)
+        c = self.closure
+        if c["grad_transform"] is not None:
+            raise NotImplementedError(f"partitioned_step does not partition "
+                                      f"a grad_transform ({QUEUE})")
+        self.ocfg, self.n_mb, self.remat = (c["ocfg"], c["n_microbatches"],
+                                            c["remat"])
+
+    def _run(self, pos: Positions, dists: dict):
+        with torch.enable_grad():
+            return _step(pos, self.cfg, self.ocfg, self.n_mb, self.remat,
+                         dists)
+
+    def _outputs(self, pos: Positions, new_p: dict, new_s, leaf):
+        """The new params and optimizer state, each leaf ``leaf(d,
+        sharding)`` with its out sharding (None where there is none)."""
+
+        def tree(t, sh):
+            if isinstance(t, dict):
+                return {k: tree(v, None if sh is None else sh[k])
+                        for k, v in t.items()}
+            return leaf(t, sh)
+
+        p_sh, s_sh = self._out_sharding(0), self._out_sharding(1)
+        return tree(new_p, p_sh), opt.OptState(*(
+            tree(t, None if s_sh is None else getattr(s_sh, f))
+            for t, f in zip(new_s, opt.OptState._fields)))
+
+    def __call__(self, *args, **kwargs):
+        pos = Positions(self.mesh, range(self.mesh.size))
+        dists = self._dists(self._bind(args, kwargs), self._placed)
+        new_p, new_s, metrics = self._run(pos, dists)
+        params, state = self._outputs(
+            pos, new_p, new_s, lambda d, sh: self._out(pos, d, sh))
+        m_sh = self._out_sharding(2)
+        if m_sh is None:
+            # the same value at every position: the first one's
+            for v in metrics.values():
+                pos.join(v)
+            return params, state, {k: v[0] for k, v in metrics.items()}
+        return params, state, {
+            k: self._out(pos, Dist(torch.Size(), (), v), m_sh[k])
+            for k, v in metrics.items()}
+
+    def run_position(self, local: dict, position: int = 0):
+        """Position ``position``'s train step alone on ``meta``, backward
+        and optimizer included, over the pieces :meth:`local_arguments`
+        gave (its peers' parts stand in by its own): its params and
+        optimizer state as it holds them after the step, in the out
+        shardings' layout, and its metrics."""
+        pos = Positions(self.mesh, [position], meta=True)
+        new_p, new_s, metrics = self._run(pos, local)
+        params, state = self._outputs(pos, new_p, new_s, lambda d, sh: (
+            part.relayout(pos, d, *_spec(() if sh is None else sh.spec,
+                                         len(d.shape)))[0]))
+        return params, state, {k: v[0] for k, v in metrics.items()}

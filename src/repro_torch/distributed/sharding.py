@@ -510,8 +510,8 @@ def sharded_step(fn: Callable, in_shardings: tuple,
     outputs are cut onto the mesh by :func:`place`.  So a sharded step
     gives exactly what ``fn`` gives on that device.  Tensor- and
     data-parallel compute over several cards is not ported (the card's
-    machine has one H100).  The serving steps partition their compute,
-    each position on its own shards, through
+    machine has one H100).  The LM's serving and train steps partition
+    their compute, each position on its own shards, through
     :func:`repro_torch.distributed.partition.partitioned_step`."""
     s = _first_sharding(tuple(in_shardings))
     if s is None or s.mesh.abstract:

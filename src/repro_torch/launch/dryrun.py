@@ -12,10 +12,12 @@ For each cell this:
      the port's one-card machine),
   3. runs the train, prefill or decode step on those tensors, at full
      depth, under ``torch.utils.flop_counter.FlopCounterMode``,
-  4. for a prefill or decode cell, traces the partitioned program of
-     mesh position 0 (:mod:`repro_torch.distributed.partition`) on
-     ``meta`` over that position's shards (every position's shards have
-     the same shapes, so one stands for all), counting
+  4. traces the partitioned program of mesh position 0
+     (:mod:`repro_torch.distributed.partition`; a train cell's,
+     :mod:`~repro_torch.distributed.partition_train`, runs its backward
+     and the optimizer too) on ``meta`` over that position's shards
+     (every position's shards have the same shapes, so one stands for
+     all), counting
      - ``collective_bytes``: its collectives, by the reference's five
        kinds and their total, in the reference's ring accounting
        (:class:`~repro_torch.distributed.partition.CollectiveLedger`);
@@ -39,9 +41,11 @@ extrapolate, because XLA counts a scan body once) is not needed:
 ``depth_calibrated`` is False, ``flops_per_device_raw`` equals
 ``flops_per_device`` and ``collective_bytes_raw`` ``collective_bytes``.
 ``flops_per_device`` stays the unpartitioned step's count over the
-devices.  Train cells, and cells whose config the partitioned program
-refuses, keep None in the four fields, with the reason under
-``not_measured``.
+devices.  Cells whose config the partitioned program refuses keep None
+in the four fields, with the reason (what is refused) under
+``not_measured``.  In a train cell under ``remat="dots"`` the
+recompute's all-gathers count again, as XLA's re-gathers of the FSDP
+backward do.
 """
 
 from __future__ import annotations
@@ -81,12 +85,6 @@ NOT_MEASURED = {
     "depth_calibrated": "not needed: every layer of the Python loop is "
                         "counted",
 }
-TRAIN_NOT_MEASURED = ("a train cell: the partitioned train step (backward "
-                      "collectives, the optimizer on shards) is a later "
-                      "slice (ROADMAP Queue 1), and these fields are counted "
-                      "from the partitioned program")
-
-
 class DeviceBytes(TorchDispatchMode):
     """What one position's program touches and holds, over the aten ops
     it dispatches: ``accessed`` sums each op's tensor inputs' and
@@ -208,7 +206,7 @@ class Lowered:
     args: List[Tuple[Any, Any]]
     outs: List[Tuple[Any, Any]]
     partitioned: Optional[Dict] = None
-    reason: str = TRAIN_NOT_MEASURED
+    reason: str = ""
 
 
 def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
@@ -234,6 +232,9 @@ def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
             args = [(params_s, p_shard), (opt_s, o_shard), (ins, b_shard)]
             outs = [(new_p, p_shard), (new_o, o_shard),
                     (metrics, tree_map(lambda _: rep, metrics))]
+            fn = step
+            part = ((p_shard, o_shard, b_shard), (p_shard, o_shard, None),
+                    (params_s, opt_s, ins), {})
         elif shape.kind == "prefill":
             b_shard = shd.batch_shardings(ins, mesh, policy)
             fn = make_prefill(cfg, remat=remat, unroll=unroll)
@@ -263,8 +264,7 @@ def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
                     (params_s, caches_s, ins["token"], ins["pos"]),
                     {} if mem is None else {"memory": mem})
     lowered = Lowered(counter.get_total_flops(), args, outs)
-    if shape.kind != "train":
-        lowered.partitioned, lowered.reason = _trace_position(fn, *part)
+    lowered.partitioned, lowered.reason = _trace_position(fn, *part)
     return lowered, time.time() - t0
 
 

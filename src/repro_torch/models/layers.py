@@ -158,6 +158,15 @@ def relu_stage(up: torch.Tensor, pum_bits: int = 8) -> torch.Tensor:
     return r.reshape(q.shape)
 
 
+def pum_relu_hidden(up: torch.Tensor, pum_bits: int = 8) -> torch.Tensor:
+    """``relu(up)`` through :func:`relu_stage`: quantized, the bbop relu,
+    dequantized back to ``up``'s dtype (``mlp_pum``'s hidden, and the
+    partitioned MLP's on each position's ``up`` slice)."""
+    scale = float(1 << (pum_bits - 2))
+    r = relu_stage(up, pum_bits)
+    return (r.to(torch.float32) / scale).to(up.dtype)
+
+
 def mlp_pum(p: Params, x: torch.Tensor, act: str,
             pum_bits: int = 8) -> torch.Tensor:
     """MLP with the activation stage offloaded to the SIMDRAM bit-plane
@@ -170,7 +179,5 @@ def mlp_pum(p: Params, x: torch.Tensor, act: str,
         h = F.silu(g) * up
     else:
         # ReLU executes as a SIMDRAM relu bbop on int lanes
-        scale = float(1 << (pum_bits - 2))
-        r = relu_stage(up, pum_bits)
-        h = (r.to(torch.float32) / scale).to(x.dtype)
+        h = pum_relu_hidden(up, pum_bits)
     return dense(p["down"], h)

@@ -90,16 +90,28 @@ def _grouped_local(p: Params, xt: torch.Tensor, *, top_k: int, act: str,
                    cap: int, e_lo: int, e_loc: int, ep_hints: bool = False):
     """Token dispatch restricted to experts [e_lo, e_lo+e_loc) with local
     expert weights ``p``; tokens routed elsewhere contribute zero.
-    ``ep_hints`` pins the expert buffers to ``P("model", ...)``.
+    ``ep_hints`` pins the expert buffers to ``P("model", ...)``: the
+    routing, :func:`dispatch_local` and :func:`load_balance_aux`."""
+    n_e = p["router"].shape[1]
+    probs, topv, topi = _route(p, xt, top_k)
+    out = dispatch_local(p, xt, topv, topi, act=act, cap=cap, e_lo=e_lo,
+                         e_loc=e_loc, ep_hints=ep_hints)
+    return out, load_balance_aux(probs, topi, n_e)
+
+
+def dispatch_local(p: Params, xt: torch.Tensor, topv: torch.Tensor,
+                   topi: torch.Tensor, *, act: str, cap: int, e_lo: int,
+                   e_loc: int, ep_hints: bool = False) -> torch.Tensor:
+    """The tokens ``xt`` (T, D), routed to ``topi`` with weights ``topv``
+    (T, K), through experts [e_lo, e_lo+e_loc) of the local weights
+    ``p``: the (T, D) sum of their weighted outputs.
 
     Tokens go to per-expert buffers of ``cap`` slots by their queue rank
     (a cumsum of one-hots); overflowed tokens land in the clamped last
     slot with their payload and weight zeroed, so they add 0, and kept
     slots are written exactly once (queue ranks are unique per expert)."""
     t, d = xt.shape
-    n_e = p["router"].shape[1]
-    probs, topv, topi = _route(p, xt, top_k)
-
+    top_k = topi.shape[-1]
     flat_e = topi.reshape(-1)                                  # (T*K,)
     mine = (flat_e >= e_lo) & (flat_e < e_lo + e_loc)
     local_e = torch.clamp(flat_e - e_lo, 0, e_loc - 1)
@@ -131,11 +143,16 @@ def _grouped_local(p: Params, xt: torch.Tensor, *, top_k: int, act: str,
     w = (topv.reshape(-1) * keep).to(eout.dtype)
     out = torch.zeros((t, d), dtype=eout.dtype, device=xt.device)
     out.index_add_(0, tok_idx, eout[buf_idx] * w[:, None])
+    return out
 
+
+def load_balance_aux(probs: torch.Tensor, topi: torch.Tensor,
+                     n_e: int) -> torch.Tensor:
+    """Switch/GShard's E·Σ_e f_e·p_e over the tokens of ``probs`` (T, E)
+    and their top-k experts ``topi`` (T, K)."""
     frac_tokens = torch.mean(
         F.one_hot(topi, n_e).to(torch.float32).sum(1), dim=0)
-    aux = n_e * torch.sum(frac_tokens * torch.mean(probs, dim=0))
-    return out, aux
+    return n_e * torch.sum(frac_tokens * torch.mean(probs, dim=0))
 
 
 def moe_forward_grouped(

@@ -11,7 +11,7 @@ tensors (the step, lr and norm too), so a step never waits for the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -66,9 +66,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: OptState
+    cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-    gnorm = global_norm(grads)
+    """One AdamW step.  ``gnorm`` is the gradients' global norm where the
+    caller has it (a partitioned step, whose trees are one position's
+    shards, sums it over the mesh); by default :func:`global_norm` of
+    ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

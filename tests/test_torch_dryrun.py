@@ -13,8 +13,12 @@
   the reference's specs, ``bytes_per_device`` at least the argument
   bytes, argument and output bytes within ``peak_bytes``, ``temp_bytes``
   the peak less both.  ``DeviceBytes`` on a program of known sizes
-  reads its exact bytes and peak; a train cell and a refused config keep
-  None with their reasons.
+  reads its exact bytes and peak; refused configs' train and decode
+  cells keep None with their reasons.
+- The smoke yi-6b x train_4k cell, counted from position 0's partitioned
+  train step: its all-gather and reduce-scatter bytes ``==`` their
+  closed form (the forward's and the recompute's gathers, the
+  gradients' reduce-scatters).
 - A train, a prefill and a decode cell at ``smoke_config``: the counted
   FLOPs ``==`` a closed-form count of their matrix products.
 - The command line prints ``ok=1`` with JAX blocked from importing.
@@ -33,6 +37,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
+from repro.configs import smoke_config as ref_smoke_config
 from repro.distributed import sharding as ref_shd
 from repro.models import transformer as ref_tf
 from repro_torch.configs import smoke_config
@@ -186,10 +191,11 @@ def test_device_bytes_of_a_known_program():
 
 
 @pytest.mark.parametrize("arch,shape_name,why", [
-    ("yi-6b", "train_4k", "the partitioned train step"),
+    ("seamless-m4t-medium", "train_4k",
+     "does not partition the encoder-decoder"),
     ("mamba2-370m", "decode_32k", "does not partition the ssm mixer")])
 def test_cells_not_partitioned_say_why(arch, shape_name, why):
-    """A train cell and a cell of a config the partitioned program
+    """A train and a decode cell of configs the partitioned program
     refuses keep None in the four fields, each with its reason."""
     res = lower_cell(arch, shape_name, cfg_override=smoke_config(arch))
     assert res["bytes_per_device"] is None
@@ -202,6 +208,57 @@ def test_cells_not_partitioned_say_why(arch, shape_name, why):
                 "peak_bytes"):
         assert why in res["not_measured"][key]
     assert "ROADMAP Queue 1" in res["not_measured"]["peak_bytes"]
+
+
+def test_smoke_train_cell_gathers_equal_closed_form():
+    """yi-6b x train_4k at ``smoke_config`` on 16 x 16, counted from
+    position 0's partitioned train step (``remat="dots"``): the
+    all-gather and reduce-scatter bytes ``==`` the closed form from the
+    reference's specs.  The block weights are gathered over ``data`` in
+    the forward and again in the recompute (each output the shard times
+    16); q, k, v and o are gathered whole over ``model`` too, since 4
+    query and 2 kv heads do not divide over 16 ranks (attention splits
+    ``head_dim``); the readout is gathered once, and the loss gathers
+    each rank's float32 log-sum-exp of its 16 x 4,096 positions.  Each
+    weight gather's backward reduce-scatters its gradient once (its
+    input the gather's output); the other fields are numbers."""
+    from repro_torch.distributed.partition import _attention_mode
+    cfg = smoke_config("yi-6b")
+    res = lower_cell("yi-6b", "train_4k", cfg_override=cfg)
+    rcfg = ref_smoke_config("yi-6b")
+    mesh = ref_shd.abstract_mesh((16, 16), ("data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    specs = ref_shd.param_shardings(params, mesh)
+    layers, n_data, tp = rcfg.n_layers, 16, 16
+    assert _attention_mode(cfg, tp) == "hd" and cfg.n_heads % tp
+
+    def leaf(*path):
+        t, spec = params, specs
+        for k in path:
+            t, spec = t[k], spec[k]
+        assert "data" in tuple(spec.spec), path
+        n = ref_shard_bytes(mesh, t, spec.spec)
+        return (n // layers if path[0] == "blocks" else n), \
+            math.prod(t.shape[1:]) * 2
+
+    per_layer = 0
+    for name in ("q", "k", "v", "o"):
+        shard, whole = leaf("blocks", "attn", name, "w")
+        per_layer += n_data * shard + whole
+    for name in ("up", "gate", "down"):
+        per_layer += n_data * leaf("blocks", "mlp", name, "w")[0]
+    readout = n_data * leaf("out", "w")[0]
+    shape = SHAPES_BY_NAME["train_4k"]
+    lse = tp * (shape.global_batch // n_data) * shape.seq_len * 4
+    colls = res["collective_bytes"]
+    assert colls["all-gather"] == 2 * layers * per_layer + readout + lse
+    assert colls["reduce-scatter"] == layers * per_layer + readout
+    assert per_layer == 29_184 and readout == 2_048 and lse == 4_194_304
+    mem = res["memory"]
+    assert res["bytes_per_device"] >= mem["argument_bytes"]
+    assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert set(res["not_measured"]) == {"depth_calibrated"}
 
 
 def test_cell_on_the_host_mesh_fits_one_card():

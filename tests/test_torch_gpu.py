@@ -1488,3 +1488,112 @@ def test_partitioned_decode_on_card_positions_equals_cpu_positions(
         for a, b in zip(got.shards, want.shards):
             assert a.device.type == "cuda"
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# -- the train step partitioned over cuda:0 positions (phase 18) -------------
+
+def _partitioned_train(cfg, params, batch, mesh, n_mb=1):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.partition import partitioned_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    state = opt.init(params)
+    ps = shd.param_shardings(params, mesh)
+    os_ = shd.opt_shardings(state, params, mesh)
+    bs = shd.batch_shardings(batch, mesh)
+    step = partitioned_step(make_train_step(
+        cfg, opt.AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=2),
+        n_microbatches=n_mb), (ps, os_, bs), (ps, os_, None))
+    p, o = shd.place(params, ps), shd.place(state, os_)
+    for _ in range(2):
+        p, o, m = step(p, o, batch)
+    return p, o, m
+
+
+def _smoke_train_inputs(arch, seed, **replace):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import init_lm
+    cfg = smoke_config(arch).replace(param_dtype="float32", **replace)
+    gen = torch.Generator().manual_seed(seed)
+    params = init_lm(cfg, generator=gen, device="cpu")
+    t = torch.randint(0, cfg.vocab_size, (8, 16), generator=gen)
+    batch = {"tokens": t, "labels": torch.where(
+        torch.rand((8, 16), generator=gen) < 0.3, -1, torch.roll(t, -1, 1))}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            (8, cfg.frontend_seq, cfg.d_model), generator=gen)
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("arch,sizes,n_mb", [
+    ("yi-6b", (2, 2), 2), ("internvl2-1b", (1, 4), 1),
+    ("granite-moe-1b-a400m", (2, 2), 1)])
+def test_partitioned_train_on_card_positions_equals_cpu_positions(
+        cuda, arch, sizes, n_mb):
+    """Two partitioned train steps of a smoke config (float32, no TF32)
+    over cuda:0 repeated (a stream a position) against the same mesh of
+    CPU positions: the metrics and every position's shards of params,
+    ``mu`` and ``nu`` within rtol = atol = 1e-4, each on its position's
+    device."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import flatten
+    cfg, params, batch = _smoke_train_inputs(arch, 25)
+    axes, n = ("data", "model"), int(np.prod(sizes))
+    runs = {}
+    for where, mesh in (("cpu", Mesh(sizes, axes, [torch.device("cpu")] * n)),
+                        ("card", _card_mesh(sizes, axes))):
+        runs[where] = _partitioned_train(cfg, params, batch, mesh, n_mb)
+    torch.cuda.synchronize()
+    (gp, go, gm), (wp, wo, wm) = runs["card"], runs["cpu"]
+    for k in wm:
+        torch.testing.assert_close(gm[k].cpu(), wm[k], rtol=1e-4, atol=1e-4)
+    for got, want in ((gp, wp), (go.mu, wo.mu), (go.nu, wo.nu)):
+        for g, w in zip(flatten(got), flatten(want)):
+            for a, b in zip(g.shards, w.shards):
+                assert a.device.type == "cuda"
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_partitioned_pum_block_launches_k3_per_position(cuda):
+    """Smoke yi-6b with the PuM MLP over (2, 2) cuda:0 positions: a
+    partitioned prefill makes one K3 launch a position a layer, on the
+    position's stream, and its logits equal the CPU positions' within
+    1e-4."""
+    from repro_torch.distributed import partition
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.serve import make_prefill
+    cfg, params, batch = _smoke_train_inputs(
+        "yi-6b", 26, act="relu", pum="bitplane", pum_bits=8)
+    axes = ("data", "model")
+    runs, streams = {}, []
+    real = build.launch
+
+    def seen(lib, fn, *args, **kw):
+        if lib == "circuit":
+            streams.append(torch.cuda.current_stream(cuda))
+        return real(lib, fn, *args, **kw)
+
+    for where, mesh in (("cpu", Mesh((2, 2), axes, [torch.device("cpu")] * 4)),
+                        ("card", _card_mesh((2, 2), axes))):
+        ps = shd.param_shardings(params, mesh)
+        bs = shd.batch_shardings({"tokens": batch["tokens"]}, mesh)
+        step = partition.partitioned_step(
+            make_prefill(cfg), (ps, bs["tokens"]),
+            shd.logits_sharding(mesh, 8))
+        build.reset_launches()
+        build.launch = seen
+        try:
+            runs[where] = step(shd.place(params, ps),
+                               shd.place(batch["tokens"], bs["tokens"]))
+        finally:
+            build.launch = real
+        if where == "card":
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["circuit"] == 4 * cfg.n_layers
+            want = [mesh.stream_at(k, mesh.device_at(k, cuda))
+                    for k in range(4)] * cfg.n_layers
+            assert streams == want
+    torch.testing.assert_close(runs["card"].gather(torch.device("cpu")),
+                               runs["cpu"].gather(torch.device("cpu")),
+                               rtol=1e-4, atol=1e-4)

@@ -29,7 +29,9 @@ forced host devices (``--xla_force_host_platform_device_count=8``):
 The port's drill trains on a (4, 2) mesh of CPU positions, checkpoints,
 takes ``recovery_plan(4, 2, 8)`` and ``reshard_restore``s onto (2, 2):
 its 8 losses ``==`` the uninterrupted unsharded run's, and every shard
-``==`` its slice of the gathered leaf.
+``==`` its slice of the gathered leaf.  The same drill with its steps
+partitioned (``partition.partitioned_step``) keeps its losses within
+1e-5 of those.
 """
 
 import contextlib
@@ -468,12 +470,10 @@ def _check_shards(tree) -> int:
     return n
 
 
-def test_elastic_drill_over_cpu_positions(ref, tmp_path):
-    """tests/test_elastic.py's drill with meshes of CPU positions: 4
-    sharded steps on (4, 2), checkpoint, lose half the chips, restore
-    onto (2, 2), 4 more.  The 8 losses ``==`` the uninterrupted unsharded
-    run's; the first 4 within rtol 1e-5 of the reference's jitted
-    steps."""
+def _drill(ref, tmp_path, wrap):
+    """The drill: 4 steps of ``wrap(step, in_shardings, out_shardings)``
+    on (4, 2), checkpoint, ``recovery_plan``, ``reshard_restore`` onto
+    (2, 2), 4 more; (the 8 losses, the unsharded run's 8)."""
     cfg = smoke_config("yi-6b").replace(param_dtype="float32")
     like = init_lm(cfg, device="meta")
     p0 = params_from_numpy(unflatten(like, [
@@ -491,8 +491,7 @@ def test_elastic_drill_over_cpu_positions(ref, tmp_path):
         ps = shd.param_shardings(p0, mesh)
         os_ = shd.opt_shardings(opt.init(p0), p0, mesh)
         bs = shd.batch_shardings(_drill_batch(cfg, 0), mesh)
-        return ps, os_, shd.sharded_step(step, (ps, os_, bs),
-                                         (ps, os_, None))
+        return ps, os_, wrap(step, (ps, os_, bs), (ps, os_, None))
 
     mesh8 = cpu_mesh((4, 2), ("data", "model"))
     ps, os_, step8 = make(mesh8)
@@ -519,7 +518,38 @@ def test_elastic_drill_over_cpu_positions(ref, tmp_path):
         params2, state2, m = step4(params2, state2, _drill_batch(cfg, s))
         losses.append(float(m["loss"]))
     _check_shards(params2)
+    return losses, straight
+
+
+def test_elastic_drill_over_cpu_positions(ref, tmp_path):
+    """tests/test_elastic.py's drill with meshes of CPU positions: 4
+    sharded steps on (4, 2), checkpoint, lose half the chips, restore
+    onto (2, 2), 4 more.  The 8 losses ``==`` the uninterrupted unsharded
+    run's; the first 4 within rtol 1e-5 of the reference's jitted
+    steps."""
+    losses, straight = _drill(ref, tmp_path, shd.sharded_step)
     assert losses == straight
+    assert losses[-1] < losses[0], losses
+    np.testing.assert_allclose(losses[:4], ref["arrays"]["drill|losses"],
+                               rtol=1e-5)
+
+
+def test_elastic_drill_through_partitioned_step(ref, tmp_path):
+    """The same drill with each step partitioned over its mesh
+    (``partition.partitioned_step``: one program a position on its own
+    shards, (4, 2) then (2, 2) after ``reshard_restore``): the 8 losses
+    within 1e-5 of the ``sharded_step`` run's (the unsharded run's); the
+    first 4 within 1e-5 of the reference's jitted steps."""
+    from repro_torch.distributed.partition import partitioned_step
+    # one intra-op thread: the partitioned steps' many small ops are tens
+    # of times slower with an OpenMP team each beside other test workers
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        losses, straight = _drill(ref, tmp_path, partitioned_step)
+    finally:
+        torch.set_num_threads(n)
+    np.testing.assert_allclose(losses, straight, rtol=1e-5, atol=1e-5)
     assert losses[-1] < losses[0], losses
     np.testing.assert_allclose(losses[:4], ref["arrays"]["drill|losses"],
                                rtol=1e-5)
