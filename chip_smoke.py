@@ -319,6 +319,30 @@ Chrome trace goes to ``--trace`` (default
      ``partitioned_step``: the 8 losses within ``DRILL_PARTITION_TOL`` of
      16b's through ``sharded_step``, and a dropped reduce-scatter partial
      planted into a first step must move the second loss by more;
+ 19. the SSM and hybrid mixers partitioned over a device mesh
+     (``cuda:0`` x 4), each case at its published width in bf16 against
+     the unpartitioned step of the same weights: (19a) mamba2-370m at
+     all 48 layers over (2, 2) and (1, 4), a prefill of
+     ``SSM_MAMBA_PREFILL`` (16 SSD chunks) and ``SSM_DECODE_STEPS``
+     decode steps of ``SSM_MAMBA_DECODE`` (rows, first position), logits
+     and every written ``conv`` and ``ssm`` shard within
+     ``SSM_PARTITION_REL``; (19b) hymba-1.5b at all 32 layers likewise
+     (over (1, 4) its SSD splits ``P`` and its attention ``head_dim``),
+     its prefill past the 1,024-token window and its decode from a
+     position where the ring has wrapped, every written cache shard
+     held; three faults planted into a first decode step (the gated
+     norm's mean square over a rank's own channels, B and C from a
+     rank's own conv slice, the ring slot written at ``pos``) must read
+     more, on the logits or the cache shards; (19c) train steps
+     (``SSM_TRAIN``, ``SSM_TRAIN_DTYPE`` params, SSD chunks of
+     ``SSM_TRAIN_CHUNK``) of mamba2-370m over (2, 2) in 2 microbatches
+     and over (1, 4), and of hymba-1.5b cut to
+     ``SSM_HYMBA_TRAIN_LAYERS`` layers over (1, 4): loss, grad_norm and
+     each leaf's ``mu`` within ``SSM_PARTITION_REL``, the rank-local norm
+     planted into the (2, 2) run must read more; (19d) the dry
+     run's four fields for mamba2-370m x long_500k and hymba-1.5b x
+     decode_32k on the 2x16x16 mesh, each not None.  Runs before the
+     kernels line and launches none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -663,6 +687,44 @@ PUM_PARTITION_LAYERS = 8
 PUM_PARTITION_ROWS = 4
 PUM_PARTITION_SEQ = 256
 DRILL_PARTITION_TOL = 1e-5
+# phase 19: the SSM and hybrid mixers partitioned over a device mesh of
+# cuda:0 positions (partitioned_step): 19a mamba2-370m, all 48 layers, a
+# prefill of SSM_MAMBA_PREFILL (rows, tokens: 16 chunks of 128) and
+# SSM_DECODE_STEPS decode steps of SSM_MAMBA_DECODE (rows, first
+# position); 19b hymba-1.5b, all 32 layers, likewise (its prefill past
+# the 1,024-token window, its decode after the ring has wrapped); 19c
+# SSM_TRAIN (rows, tokens, steps) train steps of mamba2-370m over
+# (2, 2) in 2 microbatches and over (1, 4), and of hymba-1.5b cut to
+# SSM_HYMBA_TRAIN_LAYERS layers over (1, 4), in SSD chunks of
+# SSM_TRAIN_CHUNK (at the configs' 128 the reference's ssd_chunked, and
+# the port's with it, gives NaN gradients: exp of the masked decay
+# overflows float32; ROADMAP Queue 3) and with SSM_TRAIN_DTYPE params
+# (in bf16 the 48 layers of a random-init SSM turn rounding into
+# per-entry noise: two correct bf16 steps' mu read 0.40-0.63 apart, and
+# the bf16 step lies 0.25 from the float32 one; PERF.md section 6), the
+# rank-local norm planted into mamba2's (2, 2) run.  Logits, the written cache
+# shards, loss, grad_norm and each leaf's mu within SSM_PARTITION_REL of
+# the unpartitioned step on the card (see experiments/
+# partition_ssm_tolerance.py for the readings that set it).
+SSM_MESHES = ((2, 2), (1, 4))
+SSM_MAMBA = "mamba2-370m"
+SSM_MAMBA_PREFILL = (4, 2048)
+SSM_MAMBA_DECODE = (16, 4096)
+SSM_HYMBA = "hymba-1.5b"
+SSM_HYMBA_PREFILL = (2, 2048)
+SSM_HYMBA_DECODE = (16, 1500)
+SSM_DECODE_STEPS = 8
+SSM_TRAIN = (8, 512, 2)
+SSM_HYMBA_TRAIN_LAYERS = 8
+SSM_TRAIN_CHUNK = 32
+SSM_TRAIN_DTYPE = "float32"
+SSM_TRAIN_FAULTS = ("norm",)
+SSM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=40)
+SSM_SEED = 31
+SSM_PARTITION_REL = 0.2
+SSM_FAULTS = {(SSM_MAMBA, (2, 2)): ("norm", "bc"),
+              (SSM_HYMBA, (1, 4)): ("norm", "bc", "ring")}
+SSM_DRYRUN_CELLS = ((SSM_MAMBA, "long_500k"), (SSM_HYMBA, "decode_32k"))
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1353,6 +1415,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("18")
     phase("18")
     counts_ptrain = partition_train_phase(dev, record, kern)
+    release_device_memory("19")
+    phase("19")
+    partition_ssm_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -6101,16 +6166,17 @@ def partition_phase(dev, record: dict) -> None:
 
 def _mu_rel(got, want) -> float:
     """The largest, over the leaves, max|got - want| / max|want| (a leaf
-    that is 0 in ``want``, such as the PuM MLP's ``up``, must be 0);
+    that is 0 in ``want``, such as the PuM MLP's ``up``, must be 0; a
+    value that is not finite on either side reads NaN);
     ``got``'s :class:`Sharded` leaves gathered one at a time."""
     from repro_torch.distributed.sharding import Sharded
-    worst = 0.0
+    worst = [0.0]
     for g, w in zip(got, want):
         g = g.gather(w.device) if isinstance(g, Sharded) else g
         d = float((g.float() - w.float()).abs().max())
         m = float(w.float().abs().max())
-        worst = max(worst, d / m if m else (0.0 if d == 0 else float("inf")))
-    return worst
+        worst.append(d / m if m else (0.0 if d == 0 else float("inf")))
+    return float(np.max(worst))
 
 
 @contextlib.contextmanager
@@ -6158,7 +6224,8 @@ def planted_train_fault(name: str):
 
 def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
                           opt_kw: dict, faults=(),
-                          count_launches: bool = False) -> dict:
+                          count_launches: bool = False,
+                          plant=planted_train_fault) -> dict:
     """``cfg``'s train step partitioned over ``mesh`` against the
     unpartitioned step on the card, on the same weights (``params``,
     placed by ``param_shardings``) and ``batches``, one step each: per
@@ -6167,7 +6234,8 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
     over the leaf's max|value| (``mu_rel``), host-clock ms of both
     (synchronized), the first step's collective bytes, and each fault of
     ``faults`` (:func:`planted_train_fault`) planted into the first
-    step, read the same way on ``mu``.  With ``count_launches`` the
+    step, read the same way on ``mu`` (``plant(name)`` plants it:
+    :func:`planted_train_fault` by default).  With ``count_launches`` the
     launch counts are set to 0 just before the partitioned steps and read
     just after them (``launches``), before any fault runs."""
     import torch
@@ -6225,14 +6293,15 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
         res["launches"] = dict(build.LAUNCHES)
     del p, o
     for name in faults:
-        with planted_train_fault(name):
+        with plant(name):
             _, o, _ = pstep(*first(), batches[0])
         res["faults"][name] = _mu_rel(flatten(o.mu), want[0][1])
         del o
     res["mode"] = attention_mode(cfg, mesh.shape["model"])
-    res["rel_max"] = max(res["loss_rel"] + res["grad_norm_rel"]
-                         + res["mu_rel"])
-    res["finite"] = bool(np.isfinite(res["rel_max"]))
+    res["rel_max"] = float(np.max(res["loss_rel"] + res["grad_norm_rel"]
+                                  + res["mu_rel"]))
+    res["finite"] = bool(np.isfinite(res["loss_rel"] + res["grad_norm_rel"]
+                                     + res["mu_rel"]).all())
     return res
 
 
@@ -6510,6 +6579,360 @@ def partition_train_phase(dev, record: dict, kern: dict) -> dict:
           f"{out['seconds']:.1f} s ({json.dumps({k: round(v, 1) for k, v in out['part_seconds'].items()})}); {card}",
           flush=True)
     return counts
+
+
+@contextlib.contextmanager
+def planted_ssm_fault(name: str, cfg):
+    """A planted fault in the partitioned SSM or hybrid step: ``norm``
+    (the gated norm's mean square over each rank's own channels), ``bc``
+    (B and C from the last channels of each rank's own conv slice, not
+    the gathered ones) or ``ring`` (each new key and value written at
+    slot ``pos`` instead of ``pos % window``: past the window that slot
+    lies outside the ring and, as the reference's ``where(slot == idx,
+    new, cache)`` write does, nothing is written)."""
+    import torch
+
+    from repro_torch.distributed import partition, partition_ssm
+    if name == "norm":
+        def local(prog, y):
+            return prog.map(lambda t: torch.mean(torch.square(
+                t.to(torch.float32)), dim=-1, keepdim=True), y)
+
+        patches = [(partition_ssm, "_mean_square", local)]
+    elif name == "bc":
+        real = partition.all_gather
+        n, conv_dim = cfg.ssm_state, cfg.d_inner + 2 * cfg.ssm_state
+
+        def own(pos, vals, axes, dim, copies=False):
+            out = real(pos, vals, axes, dim, copies)
+            if dim == 2 and out[0].shape[-1] == conv_dim:
+                out = [torch.cat([o[..., :-2 * n], v[..., -2 * n:]], dim=-1)
+                       for o, v in zip(out, vals)]
+            return out
+
+        patches = [(partition, "all_gather", own)]
+    else:
+        def dropped_outside(cache, slot, new):
+            at = torch.arange(cache.shape[1], device=cache.device)[
+                None, :] == slot[:, None]
+            at = at.reshape(*at.shape, *([1] * (cache.dim() - 2)))
+            cache.copy_(torch.where(at, new[:, None].to(cache.dtype), cache))
+
+        patches = [(partition, "ring_slot", lambda cfg, t: t),
+                   (partition, "write_slot", dropped_outside)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _shard_rel(new: dict, whole: dict) -> dict:
+    """Per cache leaf (``attn.k``, ``ssm.conv``, ...), the largest over
+    every position's shard of max|shard - its slice of the
+    unpartitioned cache| over the slice's max|value| (NaN where a value
+    is not finite)."""
+    out = {}
+    for group, leaves in new.items():
+        for name, leaf in leaves.items():
+            w, worst = whole[group][name], [0.0]
+            for idx, part in zip(leaf.sharding.indices(leaf.shape),
+                                 leaf.shards):
+                want = w[idx].float()
+                worst.append(float((part.float() - want).abs().max()
+                                   / want.abs().max()))
+            out[f"{group}.{name}"] = float(np.max(worst))
+    return out
+
+
+def ssm_serving_steps(dev, cfg, params, mesh, *, prefill: tuple,
+                      decode: tuple, steps: int, seed: int,
+                      faults=()) -> dict:
+    """``cfg``'s prefill and decode steps partitioned over ``mesh``
+    against the unpartitioned steps on the card, on the same weights and
+    inputs made from ``seed``: a prefill of ``prefill`` = (rows, tokens),
+    then ``steps`` decode steps of ``decode`` = (rows, first position)
+    from caches filled with seeded normals, each step fed the
+    unpartitioned step's greedy token.  Returns each row's max|partitioned
+    - unpartitioned| over the row's max|logit| (``prefill_rel``,
+    ``rel``), the same over every cache shard after the steps against
+    its slice of the unpartitioned caches (``cache_rel``), the first
+    decode step's collective bytes, host-clock ms of both
+    (synchronized), and each fault of ``faults``
+    (:func:`planted_ssm_fault`) planted into the first decode step,
+    read as the larger of the logits' and the cache shards' readings
+    against the unpartitioned first step's (a ring slot left unwritten
+    moves one key of 1,024 in the logits, and its whole slot in the
+    cache)."""
+    import torch
+
+    from repro_torch.distributed import partition
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.train.serve import make_prefill, make_serve_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    ps = shd.param_shardings(params, mesh)
+    placed = shd.place(params, ps)
+    res = {"rel": [], "ms": [], "plain_ms": [], "faults": {}}
+    rows, length = prefill
+    tokens = torch.randint(cfg.vocab_size, (rows, length), generator=gen,
+                           device=dev)
+    bs = shd.batch_shardings({"tokens": tokens}, mesh)
+    pre = partition.partitioned_step(make_prefill(cfg), (ps, bs["tokens"]),
+                                     shd.logits_sharding(mesh, rows))
+    cut = shd.place(tokens, bs["tokens"])
+    got, res["prefill_ms"] = timed(lambda: pre(placed, cut))
+    want, res["prefill_plain_ms"] = timed(
+        lambda: make_prefill(cfg)(params, tokens))
+    res["prefill_rel"] = _rel_rows(got.gather(dev), want)
+    del got, want, cut
+
+    rows, start = decode
+    caches = init_caches(cfg, rows, start + steps, device=dev)
+    for t in tree_leaves(caches):
+        t.normal_(generator=gen)
+    cs = shd.cache_shardings(caches, mesh)
+    vec = shd.vector_sharding(mesh, rows)
+    lsh = shd.logits_sharding(mesh, rows)
+    first = shd.place(caches, cs)
+    dec = partition.partitioned_step(make_serve_step(cfg),
+                                     (ps, cs, vec, vec), (lsh, cs))
+    plain = make_serve_step(cfg)
+    tok = torch.randint(cfg.vocab_size, (rows,), generator=gen, device=dev)
+    pos = torch.full((rows,), start, dtype=torch.int32, device=dev)
+    args0 = (placed, first, shd.place(tok, vec), shd.place(pos, vec))
+    pcaches, want_first = first, None
+    for i in range(steps):
+        args = (placed, pcaches, shd.place(tok, vec), shd.place(pos, vec))
+        with partition.CollectiveLedger() as ledger:
+            (logits, pcaches), ms = timed(lambda: dec(*args))
+        (want, caches), plain_ms = timed(
+            lambda: plain(params, caches, tok, pos))
+        if i == 0:
+            res["ledger"], want_first = ledger.totals(), want.clone()
+            caches_first = tree_map(torch.clone, caches)
+        res["rel"].append(_rel_rows(logits.gather(dev), want))
+        res["ms"].append(ms)
+        res["plain_ms"].append(plain_ms)
+        tok, pos = want.argmax(-1), pos + 1
+    res["cache_leaf_rel"] = _shard_rel(pcaches, caches)
+    res["cache_rel"] = float(np.max(list(res["cache_leaf_rel"].values())))
+    del pcaches, caches
+    for name in faults:
+        with planted_ssm_fault(name, cfg):
+            logits, new = dec(*args0)
+        res["faults"][name] = max(
+            float(_rel_rows(logits.gather(dev), want_first).max()),
+            *_shard_rel(new, caches_first).values())
+        del new
+    del caches_first
+    rel = np.concatenate(res["rel"] + [res["prefill_rel"],
+                                       [res["cache_rel"]]])
+    res["rel_max"] = float(rel.max())
+    res["finite"] = bool(np.isfinite(rel).all())
+    return res
+
+
+def _ssm_held(label: str, run: dict) -> None:
+    check(run["finite"] and run["rel_max"] <= SSM_PARTITION_REL,
+          f"{label}: the partitioned logits or cache shards are off the "
+          f"unpartitioned step's by {run['rel_max']:.4e} (prefill "
+          f"{float(run['prefill_rel'].max()):.4e}, decode "
+          f"{max(float(r.max()) for r in run['rel']):.4e}, caches "
+          f"{run['cache_rel']:.4e}; tolerance {SSM_PARTITION_REL})")
+    for name, rel in run["faults"].items():
+        check(rel > SSM_PARTITION_REL, f"{label}: the planted fault {name} "
+              f"reads {rel:.4e} of max|logit| at most, within the tolerance "
+              f"{SSM_PARTITION_REL}")
+
+
+def partition_ssm_phase(dev, record: dict) -> None:
+    """Phase 19: the SSM and hybrid mixers partitioned over a device mesh
+    of ``cuda:0`` positions: 19a mamba2-370m and 19b hymba-1.5b, prefill
+    and decode, against the unpartitioned steps with three planted
+    faults; 19c their train steps; 19d the dry run's fields of their
+    cells.  Launches none of K1-K6."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partition import _attention_mode
+    from repro_torch.distributed.partition_ssm import ssm_mode
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.transformer import init_lm
+
+    card = record["card"]
+    out = record["partition_ssm"] = {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # -- 19a, 19b: prefill and decode over (2, 2) and (1, 4) ----------------
+    for label, arch, pre, dec in (
+            ("19a", SSM_MAMBA, SSM_MAMBA_PREFILL, SSM_MAMBA_DECODE),
+            ("19b", SSM_HYMBA, SSM_HYMBA_PREFILL, SSM_HYMBA_DECODE)):
+        phase(label)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+            SSM_SEED), device=dev)
+        out[label] = {}
+        for sizes in SSM_MESHES:
+            mesh, where = _split_mesh(sizes, ("data", "model"))
+            tp = sizes[1]
+            run = ssm_serving_steps(
+                dev, cfg, params, mesh, prefill=pre, decode=dec,
+                steps=SSM_DECODE_STEPS, seed=SSM_SEED,
+                faults=SSM_FAULTS.get((arch, tuple(sizes)), ()))
+            _ssm_held(label, run)
+            attn = "" if cfg.family == "ssm" else \
+                f", attention {_attention_mode(cfg, tp)} split"
+            tag = "x".join(map(str, sizes))
+            out[label][tag] = {k: v for k, v in run.items()
+                               if k not in ("rel", "prefill_rel")}
+            out[label][tag].update(
+                devices=where, ssm=ssm_mode(cfg, tp),
+                prefill_rel_max=float(run["prefill_rel"].max()))
+            print(f"[{label}] {arch} at its published width (all "
+                  f"{cfg.n_layers} layers, bf16) partitioned over {sizes} "
+                  f"({where}; SSD {ssm_mode(cfg, tp)} split{attn}): prefill "
+                  f"of {pre[0]} x {pre[1]} tokens ({pre[1] // cfg.ssm_chunk} "
+                  f"SSD chunks) off the unpartitioned step's by "
+                  f"{out[label][tag]['prefill_rel_max']:.4e} of max|logit|; "
+                  f"{SSM_DECODE_STEPS} decode steps of {dec[0]} rows from "
+                  f"position {dec[1]} by "
+                  f"{max(float(r.max()) for r in run['rel']):.4e}, every "
+                  f"cache shard by {run['cache_rel']:.4e} ("
+                  + ", ".join(f"{k} {v:.3e}"
+                              for k, v in run["cache_leaf_rel"].items())
+                  + f"; tolerance {SSM_PARTITION_REL})"
+                  + "".join(f"; fault {k} reads {v:.4e}"
+                            for k, v in run["faults"].items())
+                  + f"; prefill {run['prefill_ms']:.1f} ms partitioned, "
+                  f"{run['prefill_plain_ms']:.1f} ms unpartitioned; decode "
+                  f"step median {float(np.median(run['ms'])):.1f} ms "
+                  f"partitioned, {float(np.median(run['plain_ms'])):.1f} ms "
+                  f"unpartitioned (host clock, synchronized); one decode "
+                  f"step's collectives a position: {_kinds(run['ledger'])}; "
+                  f"{card}", flush=True)
+            del run
+            gc.collect()
+        out[label]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out[label]["seconds"] = time.perf_counter() - t0
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 19c: train steps ------------------------------------------------------
+    phase("19c")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows, seq, n_steps = SSM_TRAIN
+    out["19c"] = {}
+    for arch, layers, cases in (
+            (SSM_MAMBA, None, (((2, 2), 2), ((1, 4), 1))),
+            (SSM_HYMBA, SSM_HYMBA_TRAIN_LAYERS, (((1, 4), 1),))):
+        full = get_config(arch)
+        cfg = full.replace(n_layers=layers or full.n_layers,
+                           ssm_chunk=SSM_TRAIN_CHUNK,
+                           param_dtype=SSM_TRAIN_DTYPE)
+        params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+            SSM_SEED + 1), device=dev)
+        batches = _partition_batches(cfg, dev, rows, seq, n_steps,
+                                     SSM_SEED + 1)
+        for sizes, n_mb in cases:
+            mesh, where = _split_mesh(sizes, ("data", "model"))
+            run = partition_train_steps(
+                dev, cfg, params, mesh, n_mb=n_mb, batches=batches,
+                opt_kw=SSM_TRAIN_OPT,
+                faults=SSM_TRAIN_FAULTS if (arch, sizes) == (
+                    SSM_MAMBA, (2, 2)) else (),
+                plant=lambda name: planted_ssm_fault(name, cfg))
+            check(run["finite"] and run["rel_max"] <= SSM_PARTITION_REL,
+                  f"19c: {arch}'s partitioned train step over {sizes} is "
+                  f"off the unpartitioned one by {run['rel_max']:.4e} (loss "
+                  f"{run['loss_rel']}, grad_norm {run['grad_norm_rel']}, mu "
+                  f"{run['mu_rel']}; tolerance {SSM_PARTITION_REL})")
+            for name, rel in run["faults"].items():
+                check(rel > SSM_PARTITION_REL, f"19c: the planted fault "
+                      f"{name} reads {rel:.4e} of a leaf's max|mu| at most, "
+                      f"within the tolerance {SSM_PARTITION_REL}")
+            tag = f"{arch}|" + "x".join(map(str, sizes))
+            out["19c"][tag] = dict(run, devices=where, microbatches=n_mb,
+                                   layers=cfg.n_layers)
+            print(f"[19c] {arch} at its published width ({cfg.n_layers} of "
+                  f"{full.n_layers} layers, {cfg.param_dtype} params and "
+                  f"moments), "
+                  f"{n_steps} train steps of {rows} x {seq} tokens in {n_mb} "
+                  f"microbatch(es), SSD chunks of {cfg.ssm_chunk}, "
+                  f"partitioned over {sizes} ({where}) "
+                  f"against the unpartitioned step: loss off by "
+                  f"{max(run['loss_rel']):.4e}, grad_norm by "
+                  f"{max(run['grad_norm_rel']):.4e} of their values, mu by "
+                  f"{max(run['mu_rel']):.4e} of a leaf's max|value| "
+                  f"(tolerance {SSM_PARTITION_REL})"
+                  + "".join(f"; fault {k} reads {v:.4e}"
+                            for k, v in run["faults"].items())
+                  + "; step "
+                  f"{float(np.median(run['ms'])):.1f} ms partitioned, "
+                  f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned "
+                  f"(host clock, synchronized); first step's collectives a "
+                  f"position: {_kinds(run['ledger'])}; {card}", flush=True)
+            del run
+            gc.collect()
+        del params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["19c"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["19c"]["seconds"] = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    check(not any(counts.values()), f"19: the partitioned SSM and hybrid "
+          f"steps launched {counts}, none of K1-K6 expected")
+
+    # -- 19d: the dry run's fields of the two cells ---------------------------
+    phase("19d")
+    t0 = time.perf_counter()
+    out["19d"] = {}
+    for arch, shape in SSM_DRYRUN_CELLS:
+        res = lower_cell(arch, shape, multi_pod=True)
+        mem = res["memory"]
+        fields = {"bytes_per_device": res["bytes_per_device"],
+                  "collective_bytes": res["collective_bytes"],
+                  "temp_bytes": mem["temp_bytes"],
+                  "peak_bytes": mem["peak_bytes"]}
+        check(None not in fields.values(), f"19d: a partitioned field of "
+              f"{arch} x {shape} is None: {res['not_measured']}")
+        out["19d"][f"{arch}|{shape}"] = dict(
+            fields, argument_bytes=mem["argument_bytes"],
+            output_bytes=mem["output_bytes"])
+        print(f"[19d] the dry run of {arch} x {shape} x 2x16x16 on meta, "
+              f"position 0's partitioned program: bytes_per_device "
+              f"{fields['bytes_per_device']:,.0f}, collectives "
+              f"{_kinds(fields['collective_bytes'])}, temp_bytes "
+              f"{fields['temp_bytes']:,}, peak_bytes "
+              f"{fields['peak_bytes']:,} (argument bytes "
+              f"{mem['argument_bytes']:,})", flush=True)
+    out["19d"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[19] partitioned SSM and hybrid path: launches {counts}; phase "
+          f"19 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
+                      for k in ("19a", "19b", "19c", "19d"))
+          + f"); {card}", flush=True)
 
 
 def _graphed_step(step, params, caches, dev):

@@ -59,6 +59,13 @@ own rows and heads are.
   position's column-parallel ``up`` slice and runs its relu as one
   SIMDRAM bbop on the position's device and stream (K1, K3, K2 on a
   card), then the row-parallel ``down``.
+- the SSM mixer (``family="ssm"``, and beside attention in a hybrid
+  block, whose two outputs add before the residual) is
+  :mod:`~repro_torch.distributed.partition_ssm`.
+- a sliding window masks every attention layout: prefill and train past
+  the window take the reference's banded form, and decode writes the
+  ring slot ``pos % window`` (:func:`ring_slot`) while RoPE reads the
+  true position.
 
 The collectives (:func:`all_gather`, :func:`all_reduce`,
 :func:`reduce_scatter`, :func:`all_to_all`, :func:`permute`) run over
@@ -89,9 +96,9 @@ its cotangent where the computation after it is duplicated
 (``copies``).  Over the DATA axes every position's cotangents are
 partials (its rows).  In a no-grad step (serving) nothing of this runs.
 
-Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1): the SSM
-and hybrid mixers, encoder-decoder models, int8 weights or caches,
-sliding windows, padded kv heads and ``moe_impl="dense"``.
+Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1):
+encoder-decoder models, int8 weights or KV caches, padded kv heads and
+``moe_impl="dense"``.
 """
 
 from __future__ import annotations
@@ -107,7 +114,8 @@ import torch
 
 from ..launch.mesh import Mesh, mark, on_stream, read_on, wait_for
 from ..models import moe
-from ..models.attention import NEG_INF, _scale, attention_heads
+from ..models.attention import (NEG_INF, _scale, attention_heads,
+                                band_mask, band_pairs)
 from ..models.layers import (dense, mlp_hidden, pum_relu_hidden, rmsnorm,
                              rope_angles, unembed)
 from ..models.params import tree_leaves, tree_map
@@ -117,8 +125,8 @@ from . import sharding as shd
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-QUEUE = ("ROADMAP Queue 1: SSM / hybrid mixers, enc-dec, int8 and sliding "
-         "windows are next")
+QUEUE = ("ROADMAP Queue 1: enc-dec, int8 weights or KV caches, padded kv "
+         "heads and moe_impl='dense' are next")
 
 _LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_ledgers", default=())
@@ -467,6 +475,21 @@ def _has_int8(tree) -> bool:
     return False
 
 
+def ring_slot(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """The cache slot a decode step writes for each row's position: the
+    ring's ``pos % window`` under a sliding window, else ``pos``."""
+    w = cfg.sliding_window
+    return positions % w if w else positions
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """``new`` (B, ...) written in place at each row's ``slot`` of
+    ``cache`` (B, S, ...)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot] = new.to(cache.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the program
 # ---------------------------------------------------------------------------
@@ -614,7 +637,8 @@ class _Program:
         def one(h, t, c, i, pq, pk, pv):
             return attention_heads(
                 {"q": pq, "k": pk, "v": pv}, h, t, n_heads=cfg.n_heads // n,
-                n_kv=n_kv, hd=cfg.hd, rope_theta=cfg.rope_theta, cache=c,
+                n_kv=n_kv, hd=cfg.hd, rope_theta=cfg.rope_theta,
+                sliding_window=cfg.sliding_window, cache=c,
                 cache_index=i)[0]
 
         out = self.map(one, h, positions, cache, idx, q, *kv)
@@ -643,6 +667,7 @@ class _Program:
         cfg = self.cfg
         hd, nh, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         d, half = hd // self.tp, hd // 2
+        win = cfg.sliding_window
         h = self.enter(h)
         full = [self.local(p[name], None, None, split=True)
                 for name in ("q", "k", "v")]
@@ -678,33 +703,52 @@ class _Program:
             q = rope(pq, nh)
             kk = rope(pk, g)
             v = project(pv, g, own)
+            qf = q.to(torch.float32)
+            if c is None and win and l > win and l % win == 0:
+                # the reference's banded form: query block i against key
+                # blocks i-1 and i
+                nb = l // win
+                part = torch.einsum("bnwgrh,bnsgh->bngrws",
+                                    qf.reshape(b, nb, win, g, nh // g, d),
+                                    band_pairs(kk.to(torch.float32), nb,
+                                               win))
+                return part, (band_mask(nb, win, hx.device),
+                              band_pairs(v, nb, win), q.dtype, own)
             if c is None:
                 kc, vc = kk, v
                 qpos, kpos = t[:, :, None], t[:, None, :]
                 mask = kpos <= qpos
+                if win:
+                    mask = mask & (kpos > qpos - win)
             else:
-                rows = torch.arange(b, device=hx.device)
                 slot = i[:, 0]
-                c["k"][rows, slot] = kk[:, 0].to(c["k"].dtype)
-                c["v"][rows, slot] = v[:, 0].to(c["v"].dtype)
+                write_slot(c["k"], slot, kk[:, 0])
+                write_slot(c["v"], slot, v[:, 0])
                 kc, vc = c["k"], c["v"]
                 s = kc.shape[1]
-                valid = torch.arange(s, device=hx.device)[None, :] <= \
-                    t[:, 0][:, None]
+                slots = torch.arange(s, device=hx.device)[None, :]
+                cur = t[:, 0][:, None]
+                if win:
+                    # the ring: each slot's age, the oldest dropped
+                    valid = cur - (slot[:, None] - slots) % s >= 0
+                else:
+                    valid = slots <= cur
                 mask = valid[:, None, :].expand(b, l, s)
-            qg = q.reshape(b, l, g, nh // g, d)
-            part = torch.einsum("blgrh,bsgh->bgrls", qg.to(torch.float32),
+            qg = qf.reshape(b, l, g, nh // g, d)
+            part = torch.einsum("blgrh,bsgh->bgrls", qg,
                                 kc.to(torch.float32))
-            return part, (mask, vc, q.dtype, own)
+            return part, (mask[:, None, None], vc, q.dtype, own)
 
         def second(score, rest):
             mask, vc, dt, own = rest
-            b, gg, rep, l, _ = score.shape
             logits = score.to(dt).to(torch.float32) * scale
-            logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+            logits = torch.where(mask, logits, NEG_INF)
             probs = torch.softmax(logits, dim=-1).to(vc.dtype)
-            out = torch.einsum("bgrls,bsgh->blgrh", probs, vc)
-            return out.reshape(b, l, nh * d)
+            if score.dim() == 6:
+                out = torch.einsum("bngrws,bnsgh->bnwgrh", probs, vc)
+            else:
+                out = torch.einsum("bgrls,bsgh->blgrh", probs, vc)
+            return out.reshape(out.shape[0], -1, nh * d)
 
         firsts = self.map(first, h, positions, cache, idx, list(self.pos.ks),
                           *full)
@@ -800,11 +844,31 @@ class _Program:
                     ledger.charge("all-reduce", _nbytes(y), _nbytes(y))
         return out
 
+    def mix(self, p: dict, h: list, positions: list, cache: list,
+            idx: list) -> list:
+        """The block's sequence mixer on the normed ``h``: attention, the
+        SSM, or (a hybrid block) their sum.  ``cache`` is each position's
+        layer caches (None without), which decode writes: attention's in
+        place, the SSM's new state copied in."""
+        out = None
+        if "attn" in p:
+            out = self.attention(p["attn"], h, positions, [
+                None if c is None else c["attn"] for c in cache], idx)
+        if "ssm" in p:
+            from .partition_ssm import mixer
+            s, new = mixer(self, p["ssm"], h, [
+                None if c is None else c["ssm"] for c in cache])
+            for c, n in zip(cache, new or ()):
+                tree_map(lambda old, t: old.copy_(t), c["ssm"], n)
+            out = s if out is None else self.map(torch.add, out, s)
+        return out
+
     def block(self, p: dict, x: list, positions: list, cache: list,
               idx: list) -> list:
         h = self.norm(p["ln1"], x)
-        x = self.map(torch.add, x, self.attention(p["attn"], h, positions,
-                                                  cache, idx))
+        x = self.map(torch.add, x, self.mix(p, h, positions, cache, idx))
+        if "ln2" not in p:
+            return x
         h2 = self.norm(p["ln2"], x)
         ff = self.moe(p["moe"], h2) if "moe" in p else None
         if "mlp" in p:
@@ -835,7 +899,7 @@ class _Program:
         for i in range(n_layers):
             lp = tree_map(lambda d: d.layer(i), blocks)
             lc = self.pos.same(None) if caches is None else [
-                {name: t[i] for name, t in c.items()} for c in caches]
+                tree_map(lambda t: t[i], c) for c in caches]
             x = self.block(lp, x, positions, lc, idx)
         return self.norm(params["ln_f"], x)
 
@@ -877,32 +941,68 @@ class _Program:
 
     def decode(self, params: dict, caches: dict, token: Dist,
                pos_: Dist) -> Tuple[list, tuple, dict]:
-        k = caches["attn"]["k"]
-        for name, d in caches["attn"].items():
-            if d.spec != k.spec:
-                raise NotImplementedError(
-                    f"cache {name} laid out as {d.spec}, k as {k.spec}")
-        ax = [_axes(a) for a in k.spec]
-        data = set(shd.data_axes(self.pos.mesh))
-        if ax[0] or ax[2] or not set(ax[1]) <= data or any(
-                a not in ((), _axes(self.M)) for a in ax[3:]) or (
-                ax[3] and ax[4]):
-            raise NotImplementedError(
-                f"a cache laid out as {k.spec}: decode partitions the "
-                f"layouts of cache_shardings ({QUEUE})")
-        self.bax = ax[1]
-        self.mode = "heads" if ax[3] or self.tp == 1 else \
-            "hd" if ax[4] else "full"
+        self.bax = self._cache_layout(caches)
         ids = self.fetch(token, self.bax)
         at = self.fetch(pos_, self.bax)
         x = self.map(lambda i: i[:, None], self.embed(
             params["embed"]["emb"], ids))
         positions = self.map(lambda t: t[:, None], at)
-        new = [dict(zip(caches["attn"], ts)) for ts in zip(*(
-            self.map(torch.clone, d.vals) for d in caches["attn"].values()))]
-        x = self.blocks(params, x, positions, new, positions)
+        cloned = tree_map(lambda d: self.map(torch.clone, d.vals), caches)
+        new = [tree_map(lambda v: v[i], cloned)
+               for i in range(len(self.pos.ks))]
+        idx = self.map(lambda t: ring_slot(self.cfg, t), positions)
+        x = self.blocks(params, x, positions, new, idx)
         logits, spec = self.readout(params, x)
         return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2), new
+
+    def _cache_layout(self, caches: dict) -> Tuple[str, ...]:
+        """The batch axes of ``caches`` (every cache's the same), after
+        checking that each cache has the layout of ``cache_shardings``
+        this program computes on; sets attention's mode from the kv
+        cache's."""
+        data = set(shd.data_axes(self.pos.mesh))
+        m = _axes(self.M)
+        bax = None
+
+        def batch(d: Dist) -> Tuple[str, ...]:
+            nonlocal bax
+            b = _axes(d.spec[1])
+            if d.spec[0] or not set(b) <= data or bax not in (None, b):
+                raise NotImplementedError(
+                    f"a cache laid out as {d.spec}: decode partitions the "
+                    f"layouts of cache_shardings ({QUEUE})")
+            bax = b
+            return b
+
+        if "attn" in caches:
+            k = caches["attn"]["k"]
+            for name, d in caches["attn"].items():
+                if d.spec != k.spec:
+                    raise NotImplementedError(
+                        f"cache {name} laid out as {d.spec}, k as {k.spec}")
+            ax = [_axes(a) for a in k.spec]
+            batch(k)
+            if ax[2] or any(a not in ((), m) for a in ax[3:]) or (
+                    ax[3] and ax[4]):
+                raise NotImplementedError(
+                    f"a cache laid out as {k.spec}: decode partitions the "
+                    f"layouts of cache_shardings ({QUEUE})")
+            self.mode = "heads" if ax[3] or self.tp == 1 else \
+                "hd" if ax[4] else "full"
+        if "ssm" in caches:
+            from .partition_ssm import ssm_mode
+            split = ssm_mode(self.cfg, self.tp)
+            heads, p = (m, ()) if split == "heads" else ((), m)
+            # (L, B, H, N, P) and (L, B, K - 1, channels)
+            for name, want in (("ssm", (heads, (), p)), ("conv", ((), m))):
+                d = caches["ssm"][name]
+                batch(d)
+                if tuple(_axes(a) for a in d.spec[2:]) != want:
+                    raise NotImplementedError(
+                        f"an SSM {name} cache laid out as {d.spec}: decode "
+                        f"partitions the layouts of cache_shardings "
+                        f"({QUEUE})")
+        return bax or ()
 
 
 def _attention_mode(cfg, tp: int) -> str:
@@ -947,14 +1047,10 @@ def _recognise(step) -> Tuple[str, dict]:
 
 
 def _unsupported(cfg) -> Optional[str]:
-    if cfg.family in ("ssm", "hybrid") or cfg.parallel_ssm:
-        return f"the {cfg.family} mixer of {cfg.name}"
     if cfg.is_encdec:
         return f"the encoder-decoder {cfg.name}"
     if cfg.kv_cache_dtype == "int8":
         return "an int8 KV cache"
-    if cfg.sliding_window:
-        return "a sliding window"
     if cfg.kv_head_pad > cfg.n_kv_heads:
         return "padded kv heads"
     if cfg.n_experts and cfg.moe_impl == "dense":
@@ -1042,11 +1138,13 @@ class PartitionedStep:
         if new is None:
             return out
         cs = self._out_sharding(1)
-        return out, {"attn": {
-            name: self._out(pos, Dist(d.shape, d.spec, [c[name] for c in new]),
+        return out, {group: {
+            name: self._out(pos, Dist(d.shape, d.spec,
+                                      [c[group][name] for c in new]),
                             None if cs is None
-                            else shd._sharding_at(cs, ("attn", name)))
-            for name, d in dists["caches"]["attn"].items()}}
+                            else shd._sharding_at(cs, (group, name)))
+            for name, d in leaves.items()}
+            for group, leaves in dists["caches"].items()}
 
     def _placed(self, leaf, sh) -> Dist:
         """An argument's leaf as the pieces its sharding ``sh`` lays out
@@ -1094,7 +1192,7 @@ class PartitionedStep:
         want = target.spec if target is not None else ()
         logits = relayout(pos, Dist(_shape(logits, spec, pos), spec, logits),
                           *_spec(want, 2))[0]
-        return logits if new is None else (logits, {"attn": new[0]})
+        return logits if new is None else (logits, new[0])
 
 
 def _shape(vals: list, spec: tuple, pos: Positions) -> torch.Size:

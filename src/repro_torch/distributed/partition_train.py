@@ -16,8 +16,10 @@ own shards of the params, the optimizer state and the batch:
   all-to-all over DATA) and microbatch ``i`` of each position is its
   share of the reference's microbatch ``i``;
 - **the forward** is the partitioned prefill's (``_Program``'s embed,
-  norm, attention in its heads/qheads/hd modes, MLP, the PuM MLP,
-  readout) over every position of the sequence, with no cache, each
+  norm, attention in its heads/qheads/hd modes with its sliding window,
+  the SSM mixer of :mod:`~repro_torch.distributed.partition_ssm` beside
+  or instead of it, MLP, the PuM MLP, readout) over every position of
+  the sequence, with no cache, each
   block under ``remat`` as the port's ``train_loop`` runs it (per-block
   ``torch.utils.checkpoint``; ``"dots"`` saves the ``aten.mm``/``addmm``
   outputs).  A recompute re-runs its all-gathers and charges them again,
@@ -61,7 +63,9 @@ Layouts: the batch must split over every DATA axis, and every other axis
 of the mesh is ``model`` (tensor parallel) or also splits the batch
 (``param_shardings``' ``"dp"``/``"dp2"``, whose program has no tensor
 parallelism).  A ``grad_transform`` is not partitioned
-(``NotImplementedError``); neither is anything ``partition`` refuses.
+(``NotImplementedError``, ROADMAP Queue 1); neither is anything
+``partition`` refuses (enc-dec, int8, padded kv heads,
+``moe_impl="dense"``).
 """
 
 from __future__ import annotations
@@ -227,8 +231,9 @@ class _TrainProgram(part._Program):
     def block_train(self, p: dict, x: list, positions: list):
         none = self.pos.same(None)
         h = self.norm(p["ln1"], x)
-        x = self.map(torch.add, x, self.attention(p["attn"], h, positions,
-                                                  none, none))
+        x = self.map(torch.add, x, self.mix(p, h, positions, none, none))
+        if "ln2" not in p:
+            return x, None
         h2 = self.norm(p["ln2"], x)
         ff, aux = None, None
         if "moe" in p:

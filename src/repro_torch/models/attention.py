@@ -61,6 +61,29 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(b, lq, h, hd)
 
 
+def band_pairs(x: torch.Tensor, nb: int, w: int) -> torch.Tensor:
+    """Keys or values (B, nb·w, G, d) as the banded form reads them:
+    block ``i`` beside block ``i - 1`` (zeros before the first),
+    (B, nb, 2w, G, d)."""
+    xb = x.reshape(x.shape[0], nb, w, *x.shape[2:])
+    return torch.cat([torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]],
+                                dim=1), xb], dim=2)
+
+
+def band_mask(nb: int, w: int, device) -> torch.Tensor:
+    """Which of :func:`band_pairs`' 2w keys each query of a block sees:
+    causal and within the window, and none of the zeros before the first
+    block; (1, nb, 1, 1, w, 2w) against logits (B, nb, G, rep, w, 2w)."""
+    t = torch.arange(w, device=device)[:, None]
+    s = torch.arange(2 * w, device=device)[None, :]
+    rel = t + w - s                      # key→query distance
+    valid = (rel >= 0) & (rel < w)       # causal ∧ within window
+    blk0 = (torch.arange(nb, device=device) == 0)[None, :, None, None, None,
+                                                  None]
+    return valid[None, None, None, None] & ~(
+        blk0 & (s < w)[None, None, None, None])
+
+
 def _banded_sdpa(q, k, v, window: int, scale):
     """Exact sliding-window attention in O(L·2W) instead of O(L²): query
     block i attends key blocks i-1 and i only."""
@@ -71,26 +94,11 @@ def _banded_sdpa(q, k, v, window: int, scale):
     assert l % w == 0, (l, w)
     nb = l // w
     qb = q.reshape(b, nb, w, g, rep, hd)
-    kb = k.reshape(b, nb, w, g, hd)
-    vb = v.reshape(b, nb, w, g, hd)
-    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]],
-                              dim=1), kb], dim=2)        # (b,nb,2w,g,hd)
-    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]],
-                              dim=1), vb], dim=2)
-    logits = torch.einsum("bnwgrh,bnsgh->bngrws", qb, k2).to(
-        torch.float32) * scale
-    dev = q.device
-    t = torch.arange(w, device=dev)[:, None]
-    s = torch.arange(2 * w, device=dev)[None, :]
-    rel = t + w - s                      # key→query distance
-    valid = (rel >= 0) & (rel < w)       # causal ∧ within window
-    blk0 = (torch.arange(nb, device=dev) == 0)[None, :, None, None, None,
-                                               None]
-    valid = valid[None, None, None, None] & ~(
-        blk0 & (s < w)[None, None, None, None])
-    logits = torch.where(valid, logits, NEG_INF)
+    logits = torch.einsum("bnwgrh,bnsgh->bngrws", qb,
+                          band_pairs(k, nb, w)).to(torch.float32) * scale
+    logits = torch.where(band_mask(nb, w, q.device), logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bngrws,bnsgh->bnwgrh", probs, v2)
+    out = torch.einsum("bngrws,bnsgh->bnwgrh", probs, band_pairs(v, nb, w))
     return out.reshape(b, l, h, hd)
 
 

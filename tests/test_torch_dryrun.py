@@ -19,6 +19,10 @@
   train step: its all-gather and reduce-scatter bytes ``==`` their
   closed form (the forward's and the recompute's gathers, the
   gradients' reduce-scatters).
+- The smoke mamba2-370m x long_500k and hymba-1.5b x decode_32k cells:
+  their collective bytes ``==`` the closed form of the partitioned
+  decode's gathers and sums, their ``ssm`` and ``conv`` cache shards in
+  the argument bytes.
 - A train, a prefill and a decode cell at ``smoke_config``: the counted
   FLOPs ``==`` a closed-form count of their matrix products.
 - The command line prints ``ok=1`` with JAX blocked from importing.
@@ -190,14 +194,16 @@ def test_device_bytes_of_a_known_program():
     assert c.peak - 1_024 - 128 == 960
 
 
-@pytest.mark.parametrize("arch,shape_name,why", [
-    ("seamless-m4t-medium", "train_4k",
+@pytest.mark.parametrize("arch,shape_name,replace,why", [
+    ("seamless-m4t-medium", "train_4k", {},
      "does not partition the encoder-decoder"),
-    ("mamba2-370m", "decode_32k", "does not partition the ssm mixer")])
-def test_cells_not_partitioned_say_why(arch, shape_name, why):
+    ("yi-6b", "decode_32k", {"kv_cache_dtype": "int8"},
+     "does not partition an int8 KV cache")])
+def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
     """A train and a decode cell of configs the partitioned program
     refuses keep None in the four fields, each with its reason."""
-    res = lower_cell(arch, shape_name, cfg_override=smoke_config(arch))
+    res = lower_cell(arch, shape_name,
+                     cfg_override=smoke_config(arch).replace(**replace))
     assert res["bytes_per_device"] is None
     assert res["collective_bytes"] is None
     assert res["collective_bytes_raw"] is None
@@ -258,6 +264,86 @@ def test_smoke_train_cell_gathers_equal_closed_form():
     mem = res["memory"]
     assert res["bytes_per_device"] >= mem["argument_bytes"]
     assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert set(res["not_measured"]) == {"depth_calibrated"}
+
+
+def _ssm_gathers(cfg, rows: int, tp: int) -> int:
+    """All-gather bytes of one SSM mixer in a decode step whose SSD
+    splits its head dim ``P`` (the smoke configs' 8 heads over 16 model
+    ranks): ``in_proj_z`` and ``out_proj`` gathered whole (over
+    ``data``, then ``model``), ``in_proj_xbc`` and ``in_proj_dt`` over
+    ``data``, and the convolved channels of ``rows`` rows over
+    ``model``; bf16."""
+    d, di = cfg.d_model, cfg.d_inner
+    conv = di + 2 * cfg.ssm_state
+    z = out = d * di // tp * 2 + d * di * 2
+    return (z + out + d * conv // tp * 2 + d * cfg.ssm_heads * 2
+            + rows * conv * 2)
+
+
+@pytest.mark.parametrize("arch,shape_name", [
+    ("mamba2-370m", "long_500k"), ("hymba-1.5b", "decode_32k")])
+def test_smoke_ssm_cells_equal_closed_form(arch, shape_name):
+    """mamba2-370m x long_500k (batch 1, replicated over ``data``) and
+    hymba-1.5b x decode_32k (8 rows a position) at ``smoke_config`` on
+    16 x 16, counted from position 0's partitioned decode: the
+    all-gather and all-reduce bytes ``==`` their closed form.  The
+    SSD's 8 heads do not divide 16 model ranks, so it splits ``P``
+    (:func:`_ssm_gathers`); an all-reduce sums each SSM's norm (a float32
+    mean square a row) and its row-parallel output (float32), and the
+    embedding's lookup (bf16).  hymba adds attention split by
+    ``head_dim`` (q, k, v and o gathered whole; its partial scores over
+    the 16-slot ring and its output all-reduced), the MLP (hidden split;
+    its output all-reduced) and the untied readout's gather (each weight
+    gathered over ``data``: its output the shard times 16).  The
+    ``ssm`` and ``conv`` caches' shards are in ``argument_bytes``, as
+    the reference's specs lay them out."""
+    cfg = smoke_config(arch)
+    res = lower_cell(arch, shape_name, cfg_override=cfg)
+    shape = SHAPES_BY_NAME[shape_name]
+    n_data, tp, layers, d = 16, 16, cfg.n_layers, cfg.d_model
+    rows = max(1, shape.global_batch // n_data)
+    assert rows == (1 if arch.startswith("mamba2") else 8)
+    gathers = layers * _ssm_gathers(cfg, rows, tp)
+    reduces = 2 * (rows * d * 2 + layers * (rows * 4 + rows * d * 4))
+    if cfg.sliding_window:
+        hd, nh, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        qo = d * nh * hd // n_data * 2 + d * nh * hd * 2
+        kv = d * g * hd // n_data * 2 + d * g * hd * 2
+        ffn = 3 * d * cfg.d_ff // tp * 2
+        gathers += layers * (2 * qo + 2 * kv + ffn) \
+            + d * cfg.vocab_padded // tp * 2
+        scores = rows * nh * cfg.sliding_window * 4
+        reduces += 2 * layers * (scores + 2 * rows * d * 4)
+    assert (gathers, reduces) == ({"mamba2-370m": (74_560, 1_296),
+                                   "hymba-1.5b": (139_008, 34_944)}[arch])
+    assert res["collective_bytes"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0, "total": gathers + reduces}
+
+    rcfg = ref_smoke_config(arch)
+    mesh = ref_shd.abstract_mesh((16, 16), ("data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    caches = jax.eval_shape(lambda: ref_tf.init_caches(
+        rcfg, shape.global_batch, shape.seq_len))
+    cs = ref_shd.cache_shardings(caches, mesh)
+    vec = jax.ShapeDtypeStruct((shape.global_batch,), jnp.int32)
+    ssm = {k: ref_shard_bytes(mesh, caches["ssm"][k], cs["ssm"][k].spec)
+           for k in ("ssm", "conv")}
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    assert ssm == {
+        "ssm": layers * rows * cfg.ssm_heads * cfg.ssm_state
+        * (cfg.ssm_head_dim // tp) * 4,
+        "conv": layers * rows * (cfg.ssm_conv - 1) * (conv_dim // tp) * 2}
+    assert res["memory"]["argument_bytes"] == (
+        ref_tree_bytes(mesh, params, ref_shd.param_shardings(params, mesh))
+        + ref_tree_bytes(mesh, caches, cs)
+        + 2 * ref_shard_bytes(mesh, vec, ref_shd.vector_sharding(
+            mesh, shape.global_batch).spec))
+    mem = res["memory"]
+    assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert res["bytes_per_device"] >= mem["argument_bytes"]
     assert set(res["not_measured"]) == {"depth_calibrated"}
 
 

@@ -24,7 +24,7 @@ positions, and the unsharded jitted steps beside them.
   case a kind.
 - Planted faults read above 1e-5: one model rank's partial dropped from
   one all-reduce, and a position computing on another's cache slice.
-- What the slice does not partition raises: mamba2-370m,
+- What the slice does not partition raises: padded kv heads,
   seamless-m4t-medium, an int8 tree, and any other function.
 """
 
@@ -497,19 +497,24 @@ def test_position_trace_has_the_run_shapes(ref):
 
 # -- what the slice does not partition -------------------------------------------------
 
-@pytest.mark.parametrize("what", ["mamba2-370m", "seamless-m4t-medium",
+@pytest.mark.parametrize("what", ["padded-kv-heads", "seamless-m4t-medium",
                                   "int8"])
 def test_unsupported_raise(what):
     mesh = cpu_mesh((2, 2))
-    arch = "yi-6b" if what == "int8" else what
+    arch = "yi-6b" if what in ("int8", "padded-kv-heads") else what
     cfg = smoke_config(arch)
+    if what == "padded-kv-heads":
+        cfg = cfg.replace(kv_head_pad=4)
     params = init_lm(cfg, generator=torch.Generator().manual_seed(0),
                      device="cpu")
     ps = shd.param_shardings(params, mesh)
     vec = shd.vector_sharding(mesh, BATCH)
     if what != "int8":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") \
+                as err:
             partition.partitioned_step(make_prefill(cfg), (ps, vec), vec)
+        assert ("padded kv heads" if what == "padded-kv-heads"
+                else "encoder-decoder") in str(err.value)
         return
     q = quantize_tree(params)
     step = partition.partitioned_step(

@@ -721,9 +721,9 @@ def test_train_refusals():
         partition.partitioned_step(
             _step(cfg, 1, grad_transform=compressed_grad_transform(res)),
             sh, None)
-    mamba = smoke_config("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="ssm mixer"):
-        partition.partitioned_step(_step(mamba, 1), sh, None)
+    encdec = smoke_config("seamless-m4t-medium")
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        partition.partitioned_step(_step(encdec, 1), sh, None)
     whole = {k: shd.replicated(mesh) for k in batch}
     step = partition.partitioned_step(_step(cfg, 1), sh[:2] + (whole,), None)
     with pytest.raises(NotImplementedError, match="every data axis"):
