@@ -335,7 +335,8 @@ Chrome trace goes to ``--trace`` (default
      rank's own conv slice, the ring slot written at ``pos``) must read
      more, on the logits or the cache shards; (19c) train steps
      (``SSM_TRAIN``, ``SSM_TRAIN_DTYPE`` params, SSD chunks of
-     ``SSM_TRAIN_CHUNK``) of mamba2-370m over (2, 2) in 2 microbatches
+     ``SSM_TRAIN_CHUNK``) of mamba2-370m cut to
+     ``SSM_MAMBA_TRAIN_LAYERS`` layers over (2, 2) in 2 microbatches
      and over (1, 4), and of hymba-1.5b cut to
      ``SSM_HYMBA_TRAIN_LAYERS`` layers over (1, 4): loss, grad_norm and
      each leaf's ``mu`` within ``SSM_PARTITION_REL``, the rank-local norm
@@ -343,6 +344,35 @@ Chrome trace goes to ``--trace`` (default
      run's four fields for mamba2-370m x long_500k and hymba-1.5b x
      decode_32k on the 2x16x16 mesh, each not None.  Runs before the
      kernels line and launches none of K1-K6;
+ 20. the encoder-decoder and the serving levers partitioned over a
+     device mesh (``cuda:0`` repeated), each against the unpartitioned
+     step of the same weights: (20a) seamless-m4t-medium at its
+     published width and depth (12 encoder and 12 decoder layers) in
+     bf16 over (2, 2) and (1, 4): a prefill of ``ENCDEC_PREFILL`` (rows,
+     tokens, encoder frames) and ``ENCDEC_DECODE_STEPS`` decode steps of
+     ``ENCDEC_DECODE`` (rows, first position, memory frames), logits and
+     every written cache shard within ``ENCDEC_PARTITION_REL``; two
+     faults planted into the (2, 2) run's first decode step (position 0
+     reading another data shard's memory rows, model rank 1's
+     cross-attention partial dropped) must read more; (20b) its float32
+     train steps (``ENCDEC_TRAIN``; ``ENCDEC_TRAIN_LAYERS`` encoder and
+     decoder layers) over (2, 2) in 2 microbatches: loss, grad_norm and
+     each leaf's ``mu`` within ``ENCDEC_PARTITION_REL``, ln_f's gain's
+     gradient summed over ``model`` too must read more; (20c) yi-6b at
+     its published width (``INT8_LAYERS`` of its 32 layers, bf16):
+     ``quantize_tree`` weights, a prefill of ``INT8_PREFILL`` and
+     ``INT8_STEPS`` decode steps of ``INT8_DECODE`` over (2, 2); an int8
+     KV cache over (2, 2) (split by kv heads); ``kv_head_pad`` =
+     ``INT8_KVPAD`` over (1, 8) (32 query and 4 kv heads: padded, the
+     cache splits by heads); and internvl2-1b (all 24 layers) with an
+     int8 KV cache over (1, 4) (``head_dim`` split): logits and every
+     cache shard (int8 entries as numbers) within ``INT8_PARTITION_REL``;
+     a dropped MLP partial (the quantized run), a rank-local amax
+     (internvl2-1b) and a query head reading the padded head next to its
+     own must read more; (20d) the dry run's four fields of
+     ``ENCDEC_DRYRUN_CELLS`` on the 2x16x16 mesh, each not None and
+     ``==`` ``ENCDEC_DRYRUN_COUNTS``.  Runs before the kernels line and
+     launches none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -693,8 +723,10 @@ DRILL_PARTITION_TOL = 1e-5
 # SSM_DECODE_STEPS decode steps of SSM_MAMBA_DECODE (rows, first
 # position); 19b hymba-1.5b, all 32 layers, likewise (its prefill past
 # the 1,024-token window, its decode after the ring has wrapped); 19c
-# SSM_TRAIN (rows, tokens, steps) train steps of mamba2-370m over
-# (2, 2) in 2 microbatches and over (1, 4), and of hymba-1.5b cut to
+# SSM_TRAIN (rows, tokens, steps) train steps of mamba2-370m cut to
+# SSM_MAMBA_TRAIN_LAYERS layers over (2, 2) in 2 microbatches and over
+# (1, 4) (at 48 layers 19c took 89-114 s, and the whole smoke came
+# within 190 s of its time limit), and of hymba-1.5b cut to
 # SSM_HYMBA_TRAIN_LAYERS layers over (1, 4), in SSD chunks of
 # SSM_TRAIN_CHUNK (at the configs' 128 the reference's ssd_chunked, and
 # the port's with it, gives NaN gradients: exp of the masked decay
@@ -716,6 +748,7 @@ SSM_HYMBA_DECODE = (16, 1500)
 SSM_DECODE_STEPS = 8
 SSM_TRAIN = (8, 512, 2)
 SSM_HYMBA_TRAIN_LAYERS = 8
+SSM_MAMBA_TRAIN_LAYERS = 24
 SSM_TRAIN_CHUNK = 32
 SSM_TRAIN_DTYPE = "float32"
 SSM_TRAIN_FAULTS = ("norm",)
@@ -725,6 +758,85 @@ SSM_PARTITION_REL = 0.2
 SSM_FAULTS = {(SSM_MAMBA, (2, 2)): ("norm", "bc"),
               (SSM_HYMBA, (1, 4)): ("norm", "bc", "ring")}
 SSM_DRYRUN_CELLS = ((SSM_MAMBA, "long_500k"), (SSM_HYMBA, "decode_32k"))
+# phase 20: the encoder-decoder, int8 weights, int8 KV caches and padded
+# kv heads partitioned over a device mesh of cuda:0 positions
+# (partitioned_step): 20a seamless-m4t-medium at its published width and
+# depth in bf16, a prefill of ENCDEC_PREFILL (rows, tokens, encoder
+# frames) and ENCDEC_DECODE_STEPS decode steps of ENCDEC_DECODE (rows,
+# first position, memory frames: a 4,096-slot cache); 20b its float32
+# train steps ENCDEC_TRAIN (rows, tokens, frames, steps) at
+# ENCDEC_TRAIN_LAYERS encoder and decoder layers (at 12 + 12 they took
+# 27.6 s, and the whole smoke came within 190 s of its time limit); 20c
+# yi-6b at
+# INT8_LAYERS of its 32 layers (quantize_tree weights; an int8 KV cache;
+# kv_head_pad INT8_KVPAD over (1, 8)) and internvl2-1b with an int8 KV
+# cache over (1, 4); 20d the dry run's cells.  Logits, cache shards,
+# loss, grad_norm and mu within ENCDEC_PARTITION_REL (20a, 20b) and
+# INT8_PARTITION_REL (20c) of the unpartitioned step on the card, set
+# between the sound readings and the planted faults of
+# experiments/partition_encdec_tolerance.py over 6 seeds (H100 80GB HBM3,
+# 700.00 W: enc-dec sound at most 1.923e-2, its faults at least 0.7025;
+# int8 sound at most 7.087e-2, an int8 entry's rounding through 24
+# bf16 layers, its faults at least 0.5262).
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_MESHES = ((2, 2), (1, 4))
+ENCDEC_PREFILL = (4, 2048, 512)
+ENCDEC_DECODE = (16, 4088, 1024)
+ENCDEC_DECODE_STEPS = 8
+ENCDEC_TRAIN = (8, 512, 128, 2)
+ENCDEC_TRAIN_LAYERS = 6
+ENCDEC_TRAIN_DTYPE = "float32"
+ENCDEC_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=40)
+ENCDEC_FAULTS = {(2, 2): ("memory", "xdrop")}
+ENCDEC_TRAIN_FAULTS = ("norm",)
+ENCDEC_SEED = 37
+ENCDEC_PARTITION_REL = 0.1
+INT8_LAYERS = 8
+INT8_PREFILL = (4, 512)
+INT8_DECODE = (16, 2044)
+INT8_STEPS = 4
+INT8_KVPAD = 8
+# (label, arch, layers (None: all), config changes, quantized weights,
+# mesh, prefill, faults)
+INT8_CASES = (
+    ("int8 weights", "yi-6b", INT8_LAYERS, {}, True, (2, 2), True,
+     ("drop",)),
+    ("int8 kv", "yi-6b", INT8_LAYERS, {"kv_cache_dtype": "int8"}, False,
+     (2, 2), False, ()),
+    ("padded kv", "yi-6b", INT8_LAYERS, {"kv_head_pad": INT8_KVPAD}, False,
+     (1, 8), False, ("neighbour",)),
+    ("int8 kv hd", "internvl2-1b", None, {"kv_cache_dtype": "int8"}, False,
+     (1, 4), False, ("amax",)),
+)
+INT8_PARTITION_REL = 0.2
+# (arch, shape, config changes, --quantize)
+ENCDEC_DRYRUN_CELLS = (
+    (ENCDEC_ARCH, "train_4k", {}, False),
+    (ENCDEC_ARCH, "prefill_32k", {}, False),
+    (ENCDEC_ARCH, "decode_32k", {}, False),
+    ("yi-6b", "prefill_32k", {}, True),
+    ("yi-6b", "decode_32k", {}, True),
+    ("yi-6b", "decode_32k", {"kv_cache_dtype": "int8"}, False),
+    ("qwen2-72b", "decode_32k", {"kv_head_pad": 16}, False),
+)
+# the same cells' counts, (bytes_per_device, collective total,
+# peak_bytes), as lower_cell first traced them on meta (device-free:
+# any host gives these numbers)
+ENCDEC_DRYRUN_COUNTS = {
+    f"{ENCDEC_ARCH}|train_4k": (1_643_606_386_430, 25_047_654_616,
+                                16_201_232_036),
+    f"{ENCDEC_ARCH}|prefill_32k": (1_134_761_545_860, 11_469_455_360,
+                                   12_101_976_064),
+    f"{ENCDEC_ARCH}|decode_32k": (3_931_424_172, 26_361_856, 915_907_104),
+    "yi-6b|prefill_32k|quantize": (5_232_479_610_180, 69_754_159_104,
+                                   23_469_295_232),
+    "yi-6b|decode_32k|quantize": (51_242_001_260, 2_654_273_536,
+                                  1_266_122_400),
+    "yi-6b|decode_32k|kv_cache_dtype=int8": (52_927_754_476, 4_222_951_424,
+                                             1_020_873_440),
+    "qwen2-72b|decode_32k|kv_head_pad=16": (72_479_380_588, 11_659_051_008,
+                                            11_330_861_344),
+}
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1418,6 +1530,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("19")
     phase("19")
     partition_ssm_phase(dev, record)
+    release_device_memory("20")
+    phase("20")
+    partition_encdec_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -6317,11 +6432,13 @@ def _train_held(label: str, run: dict) -> None:
               f"the tolerance {TRAIN_PARTITION_REL}")
 
 
-def _partition_batches(cfg, dev, rows: int, seq: int, steps: int, seed: int):
+def _partition_batches(cfg, dev, rows: int, seq: int, steps: int, seed: int,
+                       frames: int = 0):
     """Seeded batches on the card: tokens, labels (the next token; masks
     that differ by microbatch: a tenth of the first half's rows' labels
     masked, six tenths of the second half's) and, for a VLM, vision
-    embeddings."""
+    embeddings, for an encoder-decoder ``frames`` encoder features a
+    row."""
     import torch
     gen = torch.Generator(dev).manual_seed(seed)
     share = torch.where(torch.arange(rows, device=dev) < rows // 2, 0.1,
@@ -6337,6 +6454,9 @@ def _partition_batches(cfg, dev, rows: int, seq: int, steps: int, seed: int):
             b["vision_embeds"] = 0.02 * torch.randn(
                 (rows, cfg.frontend_seq, cfg.d_model), generator=gen,
                 device=dev)
+        if cfg.is_encdec:
+            b["encoder_feats"] = torch.randn((rows, frames, cfg.d_model),
+                                             generator=gen, device=dev)
         out.append(b)
     return out
 
@@ -6648,30 +6768,51 @@ def _shard_rel(new: dict, whole: dict) -> dict:
     return out
 
 
-def ssm_serving_steps(dev, cfg, params, mesh, *, prefill: tuple,
-                      decode: tuple, steps: int, seed: int,
-                      faults=()) -> dict:
+def _fill_caches(caches, gen) -> None:
+    """Seeded normals in every cache leaf; an int8 cache holds seeded
+    normals as it would hold keys and values, quantized per (entry,
+    head) with their scales (``attention.quantize_kv``)."""
+    import torch
+
+    from repro_torch.models.attention import quantize_kv
+    for group in caches.values():
+        for name, t in group.items():
+            if t.dtype == torch.int8:
+                x = torch.randn(t.shape, generator=gen, device=t.device)
+                q, scale = quantize_kv(x, x.abs().amax(-1))
+                t.copy_(q)
+                group[f"{name}_scale"].copy_(scale)
+            elif not name.endswith("_scale"):
+                t.normal_(generator=gen)
+
+
+def mesh_serving_steps(dev, cfg, params, mesh, *, prefill, decode,
+                       steps: int, seed: int, faults=(),
+                       plant=None) -> dict:
     """``cfg``'s prefill and decode steps partitioned over ``mesh``
     against the unpartitioned steps on the card, on the same weights and
-    inputs made from ``seed``: a prefill of ``prefill`` = (rows, tokens),
-    then ``steps`` decode steps of ``decode`` = (rows, first position)
-    from caches filled with seeded normals, each step fed the
-    unpartitioned step's greedy token.  Returns each row's max|partitioned
-    - unpartitioned| over the row's max|logit| (``prefill_rel``,
-    ``rel``), the same over every cache shard after the steps against
-    its slice of the unpartitioned caches (``cache_rel``), the first
-    decode step's collective bytes, host-clock ms of both
-    (synchronized), and each fault of ``faults``
-    (:func:`planted_ssm_fault`) planted into the first decode step,
-    read as the larger of the logits' and the cache shards' readings
-    against the unpartitioned first step's (a ring slot left unwritten
-    moves one key of 1,024 in the logits, and its whole slot in the
-    cache)."""
+    inputs made from ``seed``: a prefill of ``prefill`` = (rows, tokens)
+    (with an encoder-decoder's frames as a third entry; none where
+    ``prefill`` is None), then ``steps`` decode steps of ``decode`` =
+    (rows, first position) (an encoder-decoder's memory frames a third
+    entry) from caches filled with seeded values (:func:`_fill_caches`),
+    each step fed the unpartitioned step's greedy token; stub features
+    and the memory are seeded normals.  Returns each row's
+    max|partitioned - unpartitioned| over the row's max|logit|
+    (``prefill_rel``, ``rel``), the same over every cache shard after the
+    steps against its slice of the unpartitioned caches (``cache_rel``;
+    int8 entries as numbers), the first decode step's collective bytes,
+    host-clock ms of both (synchronized), and each fault of ``faults``
+    planted into the first decode step by ``plant(name)``
+    (:func:`planted_ssm_fault` by default), read as the larger of the
+    logits' and the cache shards' readings against the unpartitioned
+    first step's (a ring slot left unwritten moves one key of 1,024 in
+    the logits, and its whole slot in the cache)."""
     import torch
 
     from repro_torch.distributed import partition
     from repro_torch.distributed import sharding as shd
-    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.params import tree_map
     from repro_torch.models.transformer import init_caches
     from repro_torch.train.serve import make_prefill, make_serve_step
 
@@ -6682,33 +6823,46 @@ def ssm_serving_steps(dev, cfg, params, mesh, *, prefill: tuple,
         torch.cuda.synchronize()
         return got, (time.perf_counter() - t0) * 1e3
 
+    plant = plant or (lambda name: planted_ssm_fault(name, cfg))
     gen = torch.Generator(dev).manual_seed(seed)
+    dt = params["embed"]["emb"].dtype
     ps = shd.param_shardings(params, mesh)
     placed = shd.place(params, ps)
     res = {"rel": [], "ms": [], "plain_ms": [], "faults": {}}
-    rows, length = prefill
-    tokens = torch.randint(cfg.vocab_size, (rows, length), generator=gen,
-                           device=dev)
-    bs = shd.batch_shardings({"tokens": tokens}, mesh)
-    pre = partition.partitioned_step(make_prefill(cfg), (ps, bs["tokens"]),
-                                     shd.logits_sharding(mesh, rows))
-    cut = shd.place(tokens, bs["tokens"])
-    got, res["prefill_ms"] = timed(lambda: pre(placed, cut))
-    want, res["prefill_plain_ms"] = timed(
-        lambda: make_prefill(cfg)(params, tokens))
-    res["prefill_rel"] = _rel_rows(got.gather(dev), want)
-    del got, want, cut
+    if prefill is not None:
+        rows, length = prefill[:2]
+        ins = {"tokens": torch.randint(cfg.vocab_size, (rows, length),
+                                       generator=gen, device=dev)}
+        if cfg.is_encdec:
+            ins["encoder_feats"] = torch.randn(
+                (rows, prefill[2], cfg.d_model), generator=gen,
+                device=dev).to(dt)
+        bs = shd.batch_shardings(ins, mesh)
+        pre = partition.partitioned_step(
+            make_prefill(cfg), (ps, bs["tokens"], bs.get("encoder_feats")),
+            shd.logits_sharding(mesh, rows))
+        cut = shd.place(ins, bs)
+        got, res["prefill_ms"] = timed(lambda: pre(placed, **cut))
+        want, res["prefill_plain_ms"] = timed(
+            lambda: make_prefill(cfg)(params, **ins))
+        res["prefill_rel"] = _rel_rows(got.gather(dev), want)
+        del got, want, cut, ins
 
-    rows, start = decode
+    rows, start = decode[:2]
     caches = init_caches(cfg, rows, start + steps, device=dev)
-    for t in tree_leaves(caches):
-        t.normal_(generator=gen)
+    _fill_caches(caches, gen)
     cs = shd.cache_shardings(caches, mesh)
     vec = shd.vector_sharding(mesh, rows)
     lsh = shd.logits_sharding(mesh, rows)
     first = shd.place(caches, cs)
-    dec = partition.partitioned_step(make_serve_step(cfg),
-                                     (ps, cs, vec, vec), (lsh, cs))
+    in_sh, mem, pmem = (ps, cs, vec, vec), {}, {}
+    if cfg.is_encdec:
+        mem = {"memory": torch.randn((rows, decode[2], cfg.d_model),
+                                     generator=gen, device=dev).to(dt)}
+        msh = shd.batch_shardings(mem, mesh)["memory"]
+        in_sh += (msh,)
+        pmem = {"memory": shd.place(mem["memory"], msh)}
+    dec = partition.partitioned_step(make_serve_step(cfg), in_sh, (lsh, cs))
     plain = make_serve_step(cfg)
     tok = torch.randint(cfg.vocab_size, (rows,), generator=gen, device=dev)
     pos = torch.full((rows,), start, dtype=torch.int32, device=dev)
@@ -6717,9 +6871,9 @@ def ssm_serving_steps(dev, cfg, params, mesh, *, prefill: tuple,
     for i in range(steps):
         args = (placed, pcaches, shd.place(tok, vec), shd.place(pos, vec))
         with partition.CollectiveLedger() as ledger:
-            (logits, pcaches), ms = timed(lambda: dec(*args))
+            (logits, pcaches), ms = timed(lambda: dec(*args, **pmem))
         (want, caches), plain_ms = timed(
-            lambda: plain(params, caches, tok, pos))
+            lambda: plain(params, caches, tok, pos, **mem))
         if i == 0:
             res["ledger"], want_first = ledger.totals(), want.clone()
             caches_first = tree_map(torch.clone, caches)
@@ -6731,15 +6885,15 @@ def ssm_serving_steps(dev, cfg, params, mesh, *, prefill: tuple,
     res["cache_rel"] = float(np.max(list(res["cache_leaf_rel"].values())))
     del pcaches, caches
     for name in faults:
-        with planted_ssm_fault(name, cfg):
-            logits, new = dec(*args0)
+        with plant(name):
+            logits, new = dec(*args0, **pmem)
         res["faults"][name] = max(
             float(_rel_rows(logits.gather(dev), want_first).max()),
             *_shard_rel(new, caches_first).values())
         del new
     del caches_first
-    rel = np.concatenate(res["rel"] + [res["prefill_rel"],
-                                       [res["cache_rel"]]])
+    rel = np.concatenate(res["rel"] + [[res["cache_rel"]]] + (
+        [res["prefill_rel"]] if prefill is not None else []))
     res["rel_max"] = float(rel.max())
     res["finite"] = bool(np.isfinite(rel).all())
     return res
@@ -6794,7 +6948,7 @@ def partition_ssm_phase(dev, record: dict) -> None:
         for sizes in SSM_MESHES:
             mesh, where = _split_mesh(sizes, ("data", "model"))
             tp = sizes[1]
-            run = ssm_serving_steps(
+            run = mesh_serving_steps(
                 dev, cfg, params, mesh, prefill=pre, decode=dec,
                 steps=SSM_DECODE_STEPS, seed=SSM_SEED,
                 faults=SSM_FAULTS.get((arch, tuple(sizes)), ()))
@@ -6844,7 +6998,7 @@ def partition_ssm_phase(dev, record: dict) -> None:
     rows, seq, n_steps = SSM_TRAIN
     out["19c"] = {}
     for arch, layers, cases in (
-            (SSM_MAMBA, None, (((2, 2), 2), ((1, 4), 1))),
+            (SSM_MAMBA, SSM_MAMBA_TRAIN_LAYERS, (((2, 2), 2), ((1, 4), 1))),
             (SSM_HYMBA, SSM_HYMBA_TRAIN_LAYERS, (((1, 4), 1),))):
         full = get_config(arch)
         cfg = full.replace(n_layers=layers or full.n_layers,
@@ -6932,6 +7086,316 @@ def partition_ssm_phase(dev, record: dict) -> None:
           f"19 took {out['seconds']:.1f} s ("
           + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
                       for k in ("19a", "19b", "19c", "19d"))
+          + f"); {card}", flush=True)
+
+
+@contextlib.contextmanager
+def planted_lever_fault(name: str, cfg, tp: int):
+    """A planted fault in a partitioned serving step of phase 20:
+    ``memory`` (position 0's cross-attention reading the memory rows of
+    another data shard), ``xdrop`` (model rank 1's partial dropped from
+    every cross-attention's row-parallel output), ``amax`` (each rank
+    quantizing its ``head_dim`` slice of a fresh k or v row by its own
+    amax), ``neighbour`` (each rank's padded kv heads filled from the
+    padded head next to its own) or ``drop`` (model rank 1's partial
+    dropped from the all-reduce ``PARTITION_DROP``; ``tp`` model
+    ranks)."""
+    import torch
+
+    from repro_torch.distributed import partition
+    if name == "drop":
+        with dropped_partial(_drop_call(cfg, tp, PARTITION_DROP)):
+            yield
+        return
+    prog = partition._Program
+    if name in ("memory", "xdrop"):
+        real = prog.cross
+        reduce_ = partition.all_reduce
+
+        def dropped(pos, vals, axes):
+            vals = [torch.zeros_like(v) if pos.part(k, ("model",)) == 1
+                    else v for k, v in zip(pos.ks, vals)]
+            return reduce_(pos, vals, axes)
+
+        def fault(self, p, x, memory):
+            if memory is None:
+                return real(self, p, x, memory)
+            if name == "memory":
+                ks = self.pos.ks
+                other = next(i for i, k in enumerate(ks) if self.pos.part(
+                    k, self.bax) != self.pos.part(ks[0], self.bax))
+                return real(self, p, x, [memory[other]] + list(memory[1:]))
+            partition.all_reduce = dropped
+            try:
+                return real(self, p, x, memory)
+            finally:
+                partition.all_reduce = reduce_
+
+        mod, attr = prog, "cross"
+    elif name == "amax":
+        real = partition.all_max
+
+        def fault(pos, vals, axes):
+            return list(vals)
+
+        mod, attr = partition, "all_max"
+    else:
+        real = partition.padded_sources
+
+        def fault(cfg, tp, rank, device):
+            m = cfg.kv_head_pad // tp
+            j = torch.arange(rank * m, (rank + 1) * m, device=device)
+            return ((j + 1) % cfg.kv_head_pad) // (cfg.kv_head_pad
+                                                   // cfg.n_kv_heads)
+
+        mod, attr = partition, "padded_sources"
+    setattr(mod, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def _lever_held(label: str, what: str, run: dict, tol: float) -> None:
+    check(run["finite"] and run["rel_max"] <= tol,
+          f"{label}: {what}'s partitioned logits or cache shards are off "
+          f"the unpartitioned step's by {run['rel_max']:.4e} (prefill "
+          f"{float(run['prefill_rel'].max()) if 'prefill_rel' in run else 0:.4e}, "
+          f"decode {max(float(r.max()) for r in run['rel']):.4e}, caches "
+          f"{run['cache_rel']:.4e}; tolerance {tol})")
+    for name, rel in run["faults"].items():
+        check(rel > tol, f"{label}: {what}'s planted fault {name} reads "
+              f"{rel:.4e} at most, within the tolerance {tol}")
+
+
+def _serving_line(label: str, what: str, run: dict, card: str) -> str:
+    pre = "" if "prefill_rel" not in run else (
+        f"prefill off the unpartitioned step's by "
+        f"{float(run['prefill_rel'].max()):.4e} of max|logit| "
+        f"({run['prefill_ms']:.1f} ms partitioned, "
+        f"{run['prefill_plain_ms']:.1f} ms unpartitioned); ")
+    return (f"[{label}] {what}: {pre}{len(run['rel'])} decode steps by "
+            f"{max(float(r.max()) for r in run['rel']):.4e}, every cache "
+            f"shard by {run['cache_rel']:.4e} ("
+            + ", ".join(f"{k} {v:.3e}" for k, v in
+                        run["cache_leaf_rel"].items()) + ")"
+            + "".join(f"; fault {k} reads {v:.4e}"
+                      for k, v in run["faults"].items())
+            + f"; decode step median {float(np.median(run['ms'])):.1f} ms "
+            f"partitioned, {float(np.median(run['plain_ms'])):.1f} ms "
+            f"unpartitioned (host clock, synchronized); one decode step's "
+            f"collectives a position: {_kinds(run['ledger'])}; {card}")
+
+
+def encdec_dryrun() -> dict:
+    """20d: the dry run's four fields of ``ENCDEC_DRYRUN_CELLS`` on the
+    2x16x16 mesh, traced on meta from position 0's partitioned program:
+    each not None, and ``==`` ``ENCDEC_DRYRUN_COUNTS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import lower_cell
+
+    out = {}
+    for arch, shape, change, quantize in ENCDEC_DRYRUN_CELLS:
+        tag = f"{arch}|{shape}" + "".join(f"|{k}={v}" for k, v in
+                                          change.items()) + (
+            "|quantize" if quantize else "")
+        t0 = time.perf_counter()
+        res = lower_cell(arch, shape, multi_pod=True, quantize=quantize,
+                         cfg_override=get_config(arch).replace(**change)
+                         if change else None)
+        mem = res["memory"]
+        fields = {"bytes_per_device": res["bytes_per_device"],
+                  "collective_bytes": res["collective_bytes"],
+                  "temp_bytes": mem["temp_bytes"],
+                  "peak_bytes": mem["peak_bytes"]}
+        check(None not in fields.values(), f"20d: a partitioned field of "
+              f"{tag} is None: {res['not_measured']}")
+        counts = [fields["bytes_per_device"],
+                  fields["collective_bytes"]["total"], fields["peak_bytes"]]
+        want = ENCDEC_DRYRUN_COUNTS[tag]
+        check(counts == list(want), f"20d: {tag}'s counts {counts} differ "
+              f"from the recorded {want}")
+        out[tag] = dict(fields, argument_bytes=mem["argument_bytes"],
+                        output_bytes=mem["output_bytes"],
+                        seconds=time.perf_counter() - t0)
+        print(f"[20d] the dry run of {tag} x 2x16x16 on meta, position 0's "
+              f"partitioned program: bytes_per_device "
+              f"{fields['bytes_per_device']:,.0f}, collectives "
+              f"{_kinds(fields['collective_bytes'])}, temp_bytes "
+              f"{fields['temp_bytes']:,}, peak_bytes "
+              f"{fields['peak_bytes']:,} (argument bytes "
+              f"{mem['argument_bytes']:,}; as recorded; "
+              f"{out[tag]['seconds']:.1f} s)", flush=True)
+    return out
+
+
+def partition_encdec_phase(dev, record: dict) -> None:
+    """Phase 20: the encoder-decoder and the serving levers partitioned
+    over a device mesh of ``cuda:0`` positions: 20a seamless-m4t-medium's
+    prefill and decode and 20b its train steps, 20c yi-6b's int8
+    weights, int8 KV cache and padded kv heads and internvl2-1b's int8
+    KV cache split by ``head_dim``, each against the unpartitioned step
+    with planted faults; 20d the dry run's fields of their cells.
+    Launches none of K1-K6."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partition import _attention_mode
+    from repro_torch.kernels import build
+    from repro_torch.models.quantized import quantize_tree
+    from repro_torch.models.transformer import init_lm
+
+    card = record["card"]
+    out = record["partition_encdec"] = {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # -- 20a: seamless-m4t-medium's prefill and decode ----------------------
+    phase("20a")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ENCDEC_ARCH)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+        ENCDEC_SEED), device=dev)
+    out["20a"] = {}
+    for sizes in ENCDEC_MESHES:
+        mesh, where = _split_mesh(sizes, ("data", "model"))
+        run = mesh_serving_steps(
+            dev, cfg, params, mesh, prefill=ENCDEC_PREFILL,
+            decode=ENCDEC_DECODE, steps=ENCDEC_DECODE_STEPS,
+            seed=ENCDEC_SEED, faults=ENCDEC_FAULTS.get(tuple(sizes), ()),
+            plant=lambda name: planted_lever_fault(name, cfg, sizes[1]))
+        what = (f"{ENCDEC_ARCH} over {sizes} ({cfg.n_encoder_layers} + "
+                f"{cfg.n_layers} layers, bf16)")
+        _lever_held("20a", what, run, ENCDEC_PARTITION_REL)
+        tag = "x".join(map(str, sizes))
+        out["20a"][tag] = {k: v for k, v in run.items()
+                           if k not in ("rel", "prefill_rel")}
+        out["20a"][tag].update(devices=where,
+                               prefill_rel_max=float(run["prefill_rel"]
+                                                     .max()))
+        print(_serving_line("20a", what + f" ({where}; attention "
+                            f"{_attention_mode(cfg, sizes[1], cache=True)} "
+                            f"split); prefill of {ENCDEC_PREFILL[0]} x "
+                            f"{ENCDEC_PREFILL[1]} tokens over "
+                            f"{ENCDEC_PREFILL[2]} frames, decode of "
+                            f"{ENCDEC_DECODE[0]} rows from position "
+                            f"{ENCDEC_DECODE[1]} over {ENCDEC_DECODE[2]} "
+                            f"memory frames", run, card), flush=True)
+        del run
+        gc.collect()
+    out["20a"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["20a"]["seconds"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 20b: its float32 train steps -----------------------------------------
+    phase("20b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows, seq, frames, n_steps = ENCDEC_TRAIN
+    full = get_config(ENCDEC_ARCH)
+    cfg = full.replace(n_layers=ENCDEC_TRAIN_LAYERS,
+                       n_encoder_layers=ENCDEC_TRAIN_LAYERS,
+                       param_dtype=ENCDEC_TRAIN_DTYPE)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(
+        ENCDEC_SEED + 1), device=dev)
+    batches = _partition_batches(cfg, dev, rows, seq, n_steps,
+                                 ENCDEC_SEED + 1, frames=frames)
+    mesh, where = _split_mesh((2, 2), ("data", "model"))
+    run = partition_train_steps(dev, cfg, params, mesh, n_mb=2,
+                                batches=batches, opt_kw=ENCDEC_TRAIN_OPT,
+                                faults=ENCDEC_TRAIN_FAULTS)
+    check(run["finite"] and run["rel_max"] <= ENCDEC_PARTITION_REL,
+          f"20b: {ENCDEC_ARCH}'s partitioned train step is off the "
+          f"unpartitioned one by {run['rel_max']:.4e} (loss "
+          f"{run['loss_rel']}, grad_norm {run['grad_norm_rel']}, mu "
+          f"{run['mu_rel']}; tolerance {ENCDEC_PARTITION_REL})")
+    for name, rel in run["faults"].items():
+        check(rel > ENCDEC_PARTITION_REL, f"20b: the planted fault {name} "
+              f"reads {rel:.4e} of a leaf's max|mu| at most, within the "
+              f"tolerance {ENCDEC_PARTITION_REL}")
+    out["20b"] = dict(run, devices=where, microbatches=2,
+                      layers=cfg.n_layers)
+    print(f"[20b] {ENCDEC_ARCH} at its published width ({cfg.n_encoder_layers}"
+          f" + {cfg.n_layers} of {full.n_encoder_layers} + {full.n_layers} "
+          f"layers, {cfg.param_dtype} params and moments), {n_steps} train "
+          f"steps of {rows} x {seq} tokens over {frames} frames in 2 "
+          f"microbatches, partitioned over (2, 2) ({where}) against the "
+          f"unpartitioned step: loss off by {max(run['loss_rel']):.4e}, "
+          f"grad_norm by {max(run['grad_norm_rel']):.4e} of their values, "
+          f"mu by {max(run['mu_rel']):.4e} of a leaf's max|value| "
+          f"(tolerance {ENCDEC_PARTITION_REL})"
+          + "".join(f"; fault {k} reads {v:.4e}"
+                    for k, v in run["faults"].items())
+          + f"; step {float(np.median(run['ms'])):.1f} ms partitioned, "
+          f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned (host "
+          f"clock, synchronized); first step's collectives a position: "
+          f"{_kinds(run['ledger'])}; {card}", flush=True)
+    del run, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["20b"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["20b"]["seconds"] = time.perf_counter() - t0
+
+    # -- 20c: int8 weights, int8 KV caches, padded kv heads ------------------
+    phase("20c")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out["20c"] = {}
+    loaded = {}
+    for label, arch, layers, change, quant, sizes, pre, faults in INT8_CASES:
+        full = get_config(arch)
+        cfg = full.replace(n_layers=layers or full.n_layers, **change)
+        key = (arch, cfg.n_layers)
+        if key not in loaded:
+            loaded.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            loaded[key] = init_lm(cfg, generator=torch.Generator(
+                dev).manual_seed(ENCDEC_SEED + 2), device=dev)
+        params = quantize_tree(loaded[key]) if quant else loaded[key]
+        mesh, where = _split_mesh(sizes, ("data", "model"))
+        run = mesh_serving_steps(
+            dev, cfg, params, mesh, prefill=INT8_PREFILL if pre else None,
+            decode=INT8_DECODE, steps=INT8_STEPS, seed=ENCDEC_SEED + 2,
+            faults=faults,
+            plant=lambda name: planted_lever_fault(name, cfg, sizes[1]))
+        what = (f"{arch} {label} over {sizes} ({cfg.n_layers} of "
+                f"{full.n_layers} layers, bf16)")
+        _lever_held("20c", what, run, INT8_PARTITION_REL)
+        out["20c"][f"{label}|" + "x".join(map(str, sizes))] = dict(
+            {k: v for k, v in run.items() if k not in ("rel", "prefill_rel")},
+            devices=where)
+        print(_serving_line("20c", what + f" ({where}; attention "
+                            f"{_attention_mode(cfg, sizes[1], cache=True)} "
+                            f"split); decode of {INT8_DECODE[0]} rows from "
+                            f"position {INT8_DECODE[1]}", run, card),
+              flush=True)
+        del run, params
+        gc.collect()
+    loaded.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["20c"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["20c"]["seconds"] = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    check(not any(counts.values()), f"20: the partitioned enc-dec and "
+          f"int8 steps launched {counts}, none of K1-K6 expected")
+
+    # -- 20d: the dry run's fields of their cells ----------------------------
+    phase("20d")
+    t0 = time.perf_counter()
+    out["20d"] = encdec_dryrun()
+    out["20d"]["seconds"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[20] partitioned enc-dec and int8 path: launches {counts}; "
+          f"phase 20 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
+                      for k in ("20a", "20b", "20c", "20d"))
           + f"); {card}", flush=True)
 
 

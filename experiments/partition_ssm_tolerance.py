@@ -7,7 +7,7 @@ and how far its planted faults read, to set its tolerance
         [--seeds 31 501 502 503 504 505] [--only serve|train] [--json PATH]
 
 For each seed, on weights and inputs from a seeded generator on the
-card, ``chip_smoke.ssm_serving_steps`` runs 19a's mamba2-370m and 19b's
+card, ``chip_smoke.mesh_serving_steps`` runs 19a's mamba2-370m and 19b's
 hymba-1.5b (all layers at their published widths, bf16: the prefill of
 ``SSM_*_PREFILL`` and ``SSM_DECODE_STEPS`` decode steps of
 ``SSM_*_DECODE``) over each mesh of ``SSM_MESHES`` (``cuda:0``
@@ -60,7 +60,8 @@ def main() -> int:
         (cs.SSM_MAMBA, cs.SSM_MAMBA_PREFILL, cs.SSM_MAMBA_DECODE),
         (cs.SSM_HYMBA, cs.SSM_HYMBA_PREFILL, cs.SSM_HYMBA_DECODE))
     train = () if args.only == "serve" else (
-        (cs.SSM_MAMBA, None, (((2, 2), 2), ((1, 4), 1))),
+        (cs.SSM_MAMBA, cs.SSM_MAMBA_TRAIN_LAYERS,
+         (((2, 2), 2), ((1, 4), 1))),
         (cs.SSM_HYMBA, cs.SSM_HYMBA_TRAIN_LAYERS, (((1, 4), 1),)))
     for seed in args.seeds:
         for arch, pre, dec in serve:
@@ -69,7 +70,7 @@ def main() -> int:
                 seed), device=dev)
             for sizes in cs.SSM_MESHES:
                 mesh, where = cs._split_mesh(sizes, ("data", "model"))
-                run = cs.ssm_serving_steps(
+                run = cs.mesh_serving_steps(
                     dev, cfg, params, mesh, prefill=pre, decode=dec,
                     steps=cs.SSM_DECODE_STEPS, seed=seed,
                     faults=cs.SSM_FAULTS.get((arch, tuple(sizes)), ()))

@@ -66,6 +66,31 @@ own rows and heads are.
   the window take the reference's banded form, and decode writes the
   ring slot ``pos % window`` (:func:`ring_slot`) while RoPE reads the
   true position.
+- an encoder-decoder runs its encoder (``frontend_proj`` on
+  ``encoder_feats``, the ``enc_blocks`` stack with ``causal=False`` in
+  whichever attention layout the step takes, ``enc_ln_f``) on each
+  position's rows of the features, split over the DATA axes as the
+  tokens are; each decoder block then attends over the memory
+  (cross-attention: q from the decoder, k and v from the memory, no
+  RoPE, no cache, no mask) by kv heads over ``model`` where they divide,
+  else by query heads, else whole (:func:`_cross_mode`), its ``o``
+  row-parallel.  Decode takes the memory as an argument and recomputes
+  the cross k and v every step, as the reference's ``decode_step`` does.
+- int8 weight trees (:func:`~repro_torch.models.quantized.quantize_tree`):
+  a ``{"w_q", "scale"}`` weight moves as int8 and float32 pieces (the
+  scale laid out by the weight's last dim, the reference's rule) and is
+  dequantized at each position as ``layers.dense`` does (:meth:`_Program
+  .wfetch`), the MoE's expert stacks too.
+- int8 KV caches: ``k_scale``/``v_scale`` follow the kv heads only.  By
+  heads each position quantizes its own heads; where ``head_dim`` splits,
+  each rank's per-(entry, head) amax over its slice goes through a max
+  all-reduce over ``model`` (:func:`all_max`, charged as an all-reduce)
+  before any rank rounds, so every rank quantizes with the whole row's
+  scale.
+- padded kv heads (``kv_head_pad``): decode's cache holds the padded
+  heads; by heads each rank projects the kv heads its padded heads
+  repeat (:func:`padded_sources`), so query head ``i`` reads padded head
+  ``i // (n_heads // kv_head_pad)`` as the reference's GQA does.
 
 The collectives (:func:`all_gather`, :func:`all_reduce`,
 :func:`reduce_scatter`, :func:`all_to_all`, :func:`permute`) run over
@@ -97,8 +122,8 @@ its cotangent where the computation after it is duplicated
 partials (its rows).  In a no-grad step (serving) nothing of this runs.
 
 Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1):
-encoder-decoder models, int8 weights or KV caches, padded kv heads and
-``moe_impl="dense"``.
+``moe_impl="dense"`` (and, in a train step,
+:mod:`~repro_torch.distributed.partition_train`'s ``grad_transform``).
 """
 
 from __future__ import annotations
@@ -115,18 +140,19 @@ import torch
 from ..launch.mesh import Mesh, mark, on_stream, read_on, wait_for
 from ..models import moe
 from ..models.attention import (NEG_INF, _scale, attention_heads,
-                                band_mask, band_pairs)
+                                band_mask, band_pairs, quantize_kv)
 from ..models.layers import (dense, mlp_hidden, pum_relu_hidden, rmsnorm,
                              rope_angles, unembed)
 from ..models.params import tree_leaves, tree_map
+from ..models.quantized import dequantize_weight
 from ..train.serve import make_prefill, make_serve_step
 from ..train.train_loop import make_train_step
 from . import sharding as shd
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-QUEUE = ("ROADMAP Queue 1: enc-dec, int8 weights or KV caches, padded kv "
-         "heads and moe_impl='dense' are next")
+QUEUE = ("ROADMAP Queue 1: moe_impl='dense' and a train step's "
+         "grad_transform are next")
 
 _LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_ledgers", default=())
@@ -356,6 +382,14 @@ def all_reduce(pos: Positions, vals: list, axes: Sequence[str]) -> list:
         lambda c: c)
 
 
+def all_max(pos: Positions, vals: list, axes: Sequence[str]) -> list:
+    """Every position gets its group's elementwise maximum (exact in
+    any order), charged as an all-reduce.  Serving only: no backward."""
+    axes = tuple(axes)
+    return _exchange(pos, vals, axes, "all-reduce",
+                     lambda parts, _: functools.reduce(torch.maximum, parts))
+
+
 def reduce_scatter(pos: Positions, vals: list, axes: Sequence[str],
                    dim: int) -> list:
     """The group's rank-order sum, cut along ``dim``: part ``i`` to the
@@ -469,10 +503,56 @@ def relayout(pos: Positions, d: Dist, *want,
     return vals
 
 
-def _has_int8(tree) -> bool:
-    if isinstance(tree, dict):
-        return any(k == "w_q" or _has_int8(v) for k, v in tree.items())
-    return False
+def _wshape(p: dict) -> torch.Size:
+    """The shape of a dense dict's weight, int8 (``w_q``) or not."""
+    return (p["w"] if "w" in p else p["w_q"]).shape
+
+
+def _weight(w, dtype: torch.dtype) -> torch.Tensor:
+    """A position's weight piece as a tensor: an int8 ``{"w_q", "scale"}``
+    piece dequantized as ``layers.dense`` does (float32 product with the
+    scale, then ``dtype``), else the piece itself."""
+    return dequantize_weight(w, dtype) if isinstance(w, dict) else w
+
+
+def _rows(w, at: torch.Tensor):
+    """Rows ``at`` (input dims) of a weight piece; an int8 piece keeps its
+    per-output-channel scale."""
+    if isinstance(w, dict):
+        return {"w_q": w["w_q"][at], "scale": w["scale"]}
+    return w[at]
+
+
+def _cols(pw: dict, at: torch.Tensor) -> dict:
+    """Columns ``at`` (output dims) of a dense dict's pieces: its weight
+    (or ``w_q``), its scale and its bias."""
+    return {name: t[..., at] for name, t in pw.items()}
+
+
+def _head_cols(heads: torch.Tensor, hd: int,
+               dims: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The projection columns of heads ``heads`` (``hd`` columns a
+    head): dims ``dims`` of each (default all), head by head."""
+    if dims is None:
+        dims = torch.arange(hd, device=heads.device)
+    return (heads[:, None] * hd + dims[None, :]).reshape(-1)
+
+
+def query_sources(cfg, tp: int, rank: int, device) -> torch.Tensor:
+    """The kv head each query head of model rank ``rank`` reads (query
+    heads split over ``tp`` ranks, the kv heads not)."""
+    n = cfg.n_heads // tp
+    return torch.arange(rank * n, (rank + 1) * n, device=device) // (
+        cfg.n_heads // cfg.n_kv_heads)
+
+
+def padded_sources(cfg, tp: int, rank: int, device) -> torch.Tensor:
+    """The kv head each padded cache head of model rank ``rank`` repeats:
+    padded head ``j`` is kv head ``j // (kv_head_pad // n_kv_heads)``,
+    the reference's consecutive repeat."""
+    m = cfg.kv_head_pad // tp
+    return torch.arange(rank * m, (rank + 1) * m, device=device) // (
+        cfg.kv_head_pad // cfg.n_kv_heads)
 
 
 def ring_slot(cfg, positions: torch.Tensor) -> torch.Tensor:
@@ -539,26 +619,48 @@ class _Program:
     def rank(self, k: int) -> int:
         return self.pos.part(k, _axes(self.M))
 
+    def wfetch(self, w, *want, split: Optional[bool] = None) -> list:
+        """Each position's piece of a weight laid out by ``want``, as
+        :meth:`fetch` gives it: ``w`` a leaf, a dense dict (its ``"w"``)
+        or an int8 weight (``{"w_q", "scale"}``, a dense dict's or a MoE
+        stack's), whose per-output-channel scale follows the weight's
+        last dim (the reference's rule): then a ``{"w_q", "scale"}`` dict
+        of the pieces a position, dequantized where it is used
+        (``layers.dense``, :func:`_weight`)."""
+        if isinstance(w, Dist):
+            return self.fetch(w, *want, split=split)
+        if "w_q" not in w:
+            return self.fetch(w["w"], *want, split=split)
+        want = _spec(want, len(w["w_q"].shape))
+        if split is None:
+            split = any(self.M in _axes(a) for a in want)
+        q = self.fetch(w["w_q"], *want, split=split)
+        s = self.fetch(w["scale"], *want[:-2], want[-1], split=split)
+        return [{"w_q": a, "scale": b} for a, b in zip(q, s)]
+
     def local(self, p: dict, *want, split: Optional[bool] = None) -> list:
         """Each position's dense ``p`` laid out by ``want`` (the weight's
-        spec; the bias follows its output dim), as ``{"w", "b"}`` dicts;
-        ``split`` as :meth:`fetch` takes it."""
-        ws = self.fetch(p["w"], *want, split=split)
-        if "b" not in p:
-            return [{"w": w} for w in ws]
-        return [{"w": w, "b": b} for w, b in zip(
-            ws, self.fetch(p["b"], want[-1], split=split))]
+        spec; the bias follows its output dim), as ``{"w", "b"}`` dicts
+        (``{"w_q", "scale", "b"}`` for an int8 weight); ``split`` as
+        :meth:`fetch` takes it."""
+        out = [dict(w) if isinstance(w, dict) else {"w": w}
+               for w in self.wfetch(p, *want, split=split)]
+        if "b" in p:
+            for o, b in zip(out, self.fetch(p["b"], want[-1], split=split)):
+                o["b"] = b
+        return out
 
     def dense(self, p: dict, x: list, *want) -> list:
         return self.map(dense, self.local(p, *want), x)
 
     def row(self, p: dict, x: list, w: list) -> list:
         """A row-parallel dense of ``x`` (its input dim on ``model``) by
-        the pieces ``w`` of ``p["w"]``: each position's partial in
-        float32, added over ``model`` and rounded once to ``x``'s dtype,
-        as the whole product rounds once; ``p["b"]`` added after."""
-        out = self.map(lambda h, w: (h.to(torch.float32)
-                                     @ w.to(torch.float32)), x, w)
+        the pieces ``w`` of ``p``'s weight (int8 pieces dequantized to
+        ``x``'s dtype first): each position's partial in float32, added
+        over ``model`` and rounded once to ``x``'s dtype, as the whole
+        product rounds once; ``p["b"]`` added after."""
+        out = self.map(lambda h, w: (h.to(torch.float32) @ _weight(
+            w, h.dtype).to(torch.float32)), x, w)
         out = self.map(lambda o, h: o.to(h.dtype), self.model_sum(out), x)
         if "b" in p:
             out = self.map(torch.add, out, self.fetch(p["b"], None))
@@ -588,10 +690,21 @@ class _Program:
         return self.map(lambda g, h: rmsnorm({"g": g}, h, eps),
                         self.fetch(p["g"], None), x)
 
+    def frontend(self, fp: dict, x: list) -> list:
+        """The modality stub's projection of each position's rows ``x``
+        (column-parallel, its output gathered over ``model``: every rank
+        then holds the whole ``d_model``, and its cotangent is its own
+        part)."""
+        split = self.splits(_wshape(fp)[1])
+        out = self.dense(fp, x, None, self.M if split else None)
+        if split:
+            out = all_gather(self.pos, out, _axes(self.M), 2, copies=True)
+        return out
+
     def mlp(self, p: dict, h: list) -> list:
         """The MLP, its hidden dim on ``model`` where it splits; the PuM
         MLP's integer relu stage on each position's own ``up`` slice."""
-        split = self.splits(p["up"]["w"].shape[1])
+        split = self.splits(_wshape(p["up"])[1])
         ax = self.M if split else None
         cfg = self.cfg
         if cfg.pum != "off" and cfg.act == "relu":
@@ -609,85 +722,97 @@ class _Program:
                 h, *(self.local(p[n], None, ax) for n in names))
         if not split:
             return self.dense(p["down"], hidden, None, None)
-        return self.row(p["down"], hidden,
-                        self.fetch(p["down"]["w"], self.M, None))
+        return self.row(p["down"], hidden, self.wfetch(p["down"], self.M,
+                                                       None))
 
     def attention(self, p: dict, h: list, positions: list, cache: list,
-                  idx: list) -> list:
-        if self.mode == "hd":
-            return self._attention_hd(p, h, positions, cache, idx)
+                  idx: list, memory: Optional[list] = None,
+                  causal: bool = True) -> list:
+        """Self-attention of the normed ``h`` (causal or not) in the
+        program's mode, writing ``cache`` where decode gives one; or,
+        given ``memory`` (each position's rows of the encoder's output),
+        the cross-attention over it in :func:`_cross_mode`'s layout."""
         cfg = self.cfg
-        split = self.mode != "full" and self.tp > 1
+        mode = self.mode if memory is None else _cross_mode(cfg, self.tp)
+        if mode == "hd":
+            return self._attention_hd(p, h, positions, cache, idx, causal)
+        split = mode != "full" and self.tp > 1
         n = self.tp if split else 1
         ax = self.M if split else None
         if split:
             h = self.enter(h)
+            if memory is not None:
+                memory = self.enter(memory)
         q = self.local(p["q"], None, ax)
-        if self.mode == "qheads":
-            # each rank's query heads against the kv heads they read, as
-            # columns of the gathered k and v weights (one a query head)
-            kv = [self.map(self._kv_columns,
-                           self.local(p[name], None, None, split=True),
-                           list(self.pos.ks)) for name in ("k", "v")]
-            n_kv = cfg.n_heads // n
+        padded = (memory is None and cache[0] is not None
+                  and cfg.kv_head_pad > cfg.n_kv_heads)
+        if mode == "qheads" or (padded and mode == "heads"):
+            # each rank's query heads (or padded cache heads) against the
+            # kv heads they read, as columns of the gathered k and v
+            # weights (one set a query or padded head)
+            sources = query_sources if mode == "qheads" else padded_sources
+            kv = [self.map(
+                lambda pw, k: _cols(pw, _head_cols(sources(
+                    cfg, self.tp, self.rank(k), _device(pw)), cfg.hd)),
+                self.local(p[name], None, None, split=True),
+                list(self.pos.ks)) for name in ("k", "v")]
+            n_kv = (cfg.n_heads if mode == "qheads" else cfg.kv_head_pad) // n
         else:
             kv = [self.local(p[name], None, ax) for name in ("k", "v")]
             n_kv = cfg.n_kv_heads // n
+        pad = cfg.kv_head_pad if mode == "full" else 0
 
-        def one(h, t, c, i, pq, pk, pv):
+        def one(h, t, c, i, m, pq, pk, pv):
             return attention_heads(
                 {"q": pq, "k": pk, "v": pv}, h, t, n_heads=cfg.n_heads // n,
                 n_kv=n_kv, hd=cfg.hd, rope_theta=cfg.rope_theta,
-                sliding_window=cfg.sliding_window, cache=c,
-                cache_index=i)[0]
+                sliding_window=cfg.sliding_window,
+                cache=c, cache_index=i, memory=m, causal=causal,
+                kv_head_pad=pad)[0]
 
-        out = self.map(one, h, positions, cache, idx, q, *kv)
+        out = self.map(one, h, positions, cache, idx,
+                       memory or self.pos.same(None), q, *kv)
         if not split:
             return self.dense(p["o"], out, None, None)
-        return self.row(p["o"], out, self.fetch(p["o"]["w"], self.M, None))
+        return self.row(p["o"], out, self.wfetch(p["o"], self.M, None))
 
-    def _kv_columns(self, pw: dict, k: int) -> dict:
-        """The columns of a whole k or v projection that the query heads
-        of ``k``'s model rank read: their kv head's, once a query head."""
-        cfg = self.cfg
-        n = cfg.n_heads // self.tp
-        heads = torch.arange(self.rank(k) * n, (self.rank(k) + 1) * n,
-                             device=pw["w"].device)
-        group = heads // (cfg.n_heads // cfg.n_kv_heads)
-        at = (group[:, None] * cfg.hd + torch.arange(
-            cfg.hd, device=group.device)).reshape(-1)
-        return {name: w[..., at] for name, w in pw.items()}
-
-    def _attention_hd(self, p, h, positions, cache, idx) -> list:
+    def _attention_hd(self, p, h, positions, cache, idx,
+                      causal: bool = True) -> list:
         """Attention with ``head_dim`` split over ``model``: position of
         model rank ``r`` computes dims ``[r·d, (r+1)·d)`` of every head
         (``d = hd / tp``), its RoPE from the partner dims, a partial
         ``q·k`` over its dims (all-reduced in float32), and ``p·v`` and
-        the output projection's partial over its dims (all-reduced)."""
+        the output projection's partial over its dims (all-reduced).  A
+        padded cache gets each fresh kv head repeated into its padded
+        heads; an int8 one the fresh entries quantized with the scale of
+        the whole row, whose amax the ranks agree on first
+        (:func:`all_max`)."""
         cfg = self.cfg
-        hd, nh, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        hd, nh, n_kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         d, half = hd // self.tp, hd // 2
         win = cfg.sliding_window
+        cached = cache[0] is not None
+        g = cache[0]["k"].shape[2] if cached else n_kv
+        quant = cached and cache[0]["k"].dtype == torch.int8
         h = self.enter(h)
         full = [self.local(p[name], None, None, split=True)
                 for name in ("q", "k", "v")]
-        wo = self.fetch(p["o"]["w"], None, None, split=True)
+        wo = self.wfetch(p["o"], None, None, split=True)
         scale = _scale(hd)
 
         def cols(n_heads, dims):
-            return (torch.arange(n_heads, device=dims.device)[:, None] * hd
-                    + dims[None, :]).reshape(-1)
+            return _head_cols(torch.arange(n_heads, device=dims.device), hd,
+                              dims)
 
-        def first(hx, t, c, i, k, pq, pk, pv):
+        def project_all(hx, t, k, pq, pk, pv):
             b, l, _ = hx.shape
             own = torch.arange(self.rank(k) * d, (self.rank(k) + 1) * d,
                                device=hx.device)
             partner = (own + half) % hd
 
             def project(pw, n_heads, dims):
-                at = cols(n_heads, dims)
-                pw = {name: w[..., at] for name, w in pw.items()}
-                return dense(pw, hx).reshape(b, l, n_heads, -1)
+                return dense(_cols(pw, cols(n_heads, dims)), hx).reshape(
+                    b, l, n_heads, -1)
 
             cos, sin = rope_angles(t, hd, cfg.rope_theta)
             cos = cos[..., own % half][..., None, :]
@@ -700,11 +825,27 @@ class _Program:
                 dt = xa.dtype
                 return xa * cos.to(dt) + (xb * sin.to(dt)) * sign.to(dt)
 
-            q = rope(pq, nh)
-            kk = rope(pk, g)
-            v = project(pv, g, own)
+            kk, v = rope(pk, n_kv), project(pv, n_kv, own)
+            if g > n_kv:
+                kk = torch.repeat_interleave(kk, g // n_kv, dim=2)
+                v = torch.repeat_interleave(v, g // n_kv, dim=2)
+            return rope(pq, nh), kk, v, own
+
+        projected = self.map(project_all, h, positions, list(self.pos.ks),
+                             *full)
+        amax = self.pos.same(None)
+        if quant:
+            # each rank's amax over its slice of every fresh row, then the
+            # whole row's at every rank
+            amax = all_max(self.pos, self.map(lambda r: torch.stack([
+                torch.amax(torch.abs(x.to(torch.float32)), dim=-1)
+                for x in r[1:3]]), projected), _axes(self.M))
+
+        def first(r, t, c, i, am):
+            q, kk, v, own = r
+            b, l = q.shape[:2]
             qf = q.to(torch.float32)
-            if c is None and win and l > win and l % win == 0:
+            if c is None and causal and win and l > win and l % win == 0:
                 # the reference's banded form: query block i against key
                 # blocks i-1 and i
                 nb = l // win
@@ -712,21 +853,33 @@ class _Program:
                                     qf.reshape(b, nb, win, g, nh // g, d),
                                     band_pairs(kk.to(torch.float32), nb,
                                                win))
-                return part, (band_mask(nb, win, hx.device),
+                return part, (band_mask(nb, win, q.device),
                               band_pairs(v, nb, win), q.dtype, own)
             if c is None:
                 kc, vc = kk, v
                 qpos, kpos = t[:, :, None], t[:, None, :]
-                mask = kpos <= qpos
+                mask = torch.ones((b, l, l), dtype=torch.bool,
+                                  device=q.device)
+                if causal:
+                    mask = mask & (kpos <= qpos)
                 if win:
                     mask = mask & (kpos > qpos - win)
             else:
                 slot = i[:, 0]
-                write_slot(c["k"], slot, kk[:, 0])
-                write_slot(c["v"], slot, v[:, 0])
-                kc, vc = c["k"], c["v"]
+                if quant:
+                    for name, x, a in (("k", kk, am[0]), ("v", v, am[1])):
+                        xq, xs = quantize_kv(x, a)
+                        write_slot(c[name], slot, xq[:, 0])
+                        write_slot(c[f"{name}_scale"], slot, xs[:, 0])
+                    kc, vc = ((c[name].to(torch.float32)
+                               * c[f"{name}_scale"][..., None]).to(q.dtype)
+                              for name in ("k", "v"))
+                else:
+                    write_slot(c["k"], slot, kk[:, 0])
+                    write_slot(c["v"], slot, v[:, 0])
+                    kc, vc = c["k"], c["v"]
                 s = kc.shape[1]
-                slots = torch.arange(s, device=hx.device)[None, :]
+                slots = torch.arange(s, device=q.device)[None, :]
                 cur = t[:, 0][:, None]
                 if win:
                     # the ring: each slot's age, the oldest dropped
@@ -750,13 +903,12 @@ class _Program:
                 out = torch.einsum("bgrls,bsgh->blgrh", probs, vc)
             return out.reshape(out.shape[0], -1, nh * d)
 
-        firsts = self.map(first, h, positions, cache, idx, list(self.pos.ks),
-                          *full)
+        firsts = self.map(first, projected, positions, cache, idx, amax)
         # the summed scores (every rank's whole) meet each rank's own
         # value dims in p.v: enter, so their cotangent sums the ranks'
         scores = self.enter(self.model_sum([s for s, _ in firsts]))
         out = self.map(second, scores, [r for _, r in firsts])
-        rows = self.map(lambda w, rest: w[cols(nh, rest[3])], wo,
+        rows = self.map(lambda w, rest: _rows(w, cols(nh, rest[3])), wo,
                         [r for _, r in firsts])
         return self.row(p["o"], out, rows)
 
@@ -770,7 +922,7 @@ class _Program:
         whole = cfg.moe_impl != "ep"
         x = all_gather(pos, h, self.bax, 0) if whole else h
         ax = self.M if split else None
-        w = {name: self.fetch(p[name], ax, None, None)
+        w = {name: self.wfetch(p[name], ax, None, None)
              for name in ("up", "gate", "down") if name in p}
         w["router"] = self.fetch(p["router"], None, None)
         if pos.meta:
@@ -780,8 +932,7 @@ class _Program:
             if split:
                 out = self.model_sum(out)
         else:
-            out = self._moe_ep(x, w, {name: p[name].shape for name in w},
-                               split)
+            out = self._moe_ep(x, w, p, split)
         if whole and self.bax:
             n = pos.size(self.bax)
             out = [o.narrow(0, pos.part(k, self.bax) * (o.shape[0] // n),
@@ -801,12 +952,13 @@ class _Program:
             act=self.cfg.act, cap=cap, e_lo=e_lo, e_loc=e_loc)
         return out.reshape(b, l, d)
 
-    def _moe_ep(self, x: list, w: dict, shapes: dict, split: bool) -> list:
+    def _moe_ep(self, x: list, w: dict, p: dict, split: bool) -> list:
         """``moe_forward_ep`` once a ``model`` group, over a mesh of the
         group's positions (their devices and streams), its weights the
-        positions' pieces; the sum it returns at the group's first
-        position is copied to the others (the psum's result on every
-        rank)."""
+        positions' pieces ``w`` of ``p``'s leaves (an int8 stack's
+        ``w_q`` and scale each a piece); the sum it returns at the
+        group's first position is copied to the others (the psum's
+        result on every rank)."""
         pos, cfg = self.pos, self.cfg
         out: list = [None] * len(pos.ks)
         for k in pos.ks:
@@ -818,15 +970,20 @@ class _Program:
                        [pos.devs[i] for i in at])
             sub._streams = {j: pos.streams[i] for j, i in enumerate(at)
                             if pos.streams[i] is not None}
-            if split:
-                p_sub = {name: shd.Sharded(shapes[name], t[at[0]].dtype,
-                                           shd.Sharding(sub, shd.P(
-                                               None if name == "router"
-                                               else "model")),
-                                           [t[i] for i in at])
-                         for name, t in w.items()}
-            else:
-                p_sub = {name: t[at[0]] for name, t in w.items()}
+
+            def piece(d: Dist, t: list, spec):
+                if not split:
+                    return t[at[0]]
+                return shd.Sharded(d.shape, t[at[0]].dtype,
+                                   shd.Sharding(sub, shd.P(spec)),
+                                   [t[i] for i in at])
+
+            p_sub = {}
+            for name, t in w.items():
+                spec = None if name == "router" else "model"
+                p_sub[name] = {leaf: piece(p[name][leaf], [u[leaf] for u in t],
+                                           spec) for leaf in t[0]} \
+                    if isinstance(t[0], dict) else piece(p[name], t, spec)
             i0 = at[0]
             with on_stream(pos.devs[i0], pos.streams[i0]):
                 y, _ = moe.moe_forward_ep(p_sub, x[i0],
@@ -845,7 +1002,7 @@ class _Program:
         return out
 
     def mix(self, p: dict, h: list, positions: list, cache: list,
-            idx: list) -> list:
+            idx: list, causal: bool = True) -> list:
         """The block's sequence mixer on the normed ``h``: attention, the
         SSM, or (a hybrid block) their sum.  ``cache`` is each position's
         layer caches (None without), which decode writes: attention's in
@@ -853,7 +1010,8 @@ class _Program:
         out = None
         if "attn" in p:
             out = self.attention(p["attn"], h, positions, [
-                None if c is None else c["attn"] for c in cache], idx)
+                None if c is None else c["attn"] for c in cache], idx,
+                causal=causal)
         if "ssm" in p:
             from .partition_ssm import mixer
             s, new = mixer(self, p["ssm"], h, [
@@ -863,10 +1021,23 @@ class _Program:
             out = s if out is None else self.map(torch.add, out, s)
         return out
 
+    def cross(self, p: dict, x: list, memory: Optional[list]) -> list:
+        """A decoder block's cross-attention over ``memory`` added to the
+        residual ``x`` (``x`` itself without a memory or an ``xattn``)."""
+        if "xattn" not in p or memory is None:
+            return x
+        none = self.pos.same(None)
+        out = self.attention(p["xattn"], self.norm(p["ln_x"], x), none,
+                             none, none, memory=memory)
+        return self.map(torch.add, x, out)
+
     def block(self, p: dict, x: list, positions: list, cache: list,
-              idx: list) -> list:
+              idx: list, memory: Optional[list] = None,
+              causal: bool = True) -> list:
         h = self.norm(p["ln1"], x)
-        x = self.map(torch.add, x, self.mix(p, h, positions, cache, idx))
+        x = self.map(torch.add, x, self.mix(p, h, positions, cache, idx,
+                                            causal))
+        x = self.cross(p, x, memory)
         if "ln2" not in p:
             return x
         h2 = self.norm(p["ln2"], x)
@@ -886,25 +1057,44 @@ class _Program:
                            self.fetch(emb, ax, None),
                            self.enter(x) if ax else x)
         else:
-            ax = self.M if self.splits(params["out"]["w"].shape[1]) else None
+            ax = self.M if self.splits(_wshape(params["out"])[1]) else None
             out = self.dense(params["out"], self.enter(x) if ax else x, None,
                              ax)
         return out, (self.bax, ax)
 
     # -- the steps -------------------------------------------------------------
 
-    def blocks(self, params: dict, x: list, positions: list, caches, idx):
-        blocks = params["blocks"]
+    def blocks(self, blocks: dict, ln: dict, x: list, positions: list,
+               caches, idx, memory: Optional[list] = None,
+               causal: bool = True) -> list:
+        """The stack ``blocks`` (each layer's caches from ``caches``
+        where decode gives them), then the final norm ``ln``."""
         n_layers = next(tree_leaves(blocks)).shape[0]
         for i in range(n_layers):
             lp = tree_map(lambda d: d.layer(i), blocks)
             lc = self.pos.same(None) if caches is None else [
                 tree_map(lambda t: t[i], c) for c in caches]
-            x = self.block(lp, x, positions, lc, idx)
-        return self.norm(params["ln_f"], x)
+            x = self.block(lp, x, positions, lc, idx, memory, causal)
+        return self.norm(ln, x)
 
-    def prefill(self, params: dict, tokens: Dist,
-                vision: Optional[Dist]) -> Tuple[list, tuple]:
+    def _positions(self, x: list) -> list:
+        """Positions ``0..l-1`` of each position's rows ``x`` (B, l, ...)."""
+        return self.map(lambda t: torch.arange(
+            t.shape[1], dtype=torch.int32, device=t.device)[None].expand(
+                *t.shape[:2]), x)
+
+    def encode(self, params: dict, feats: list) -> list:
+        """The encoder over each position's rows of ``encoder_feats``:
+        the stub's projection, the bidirectional ``enc_blocks`` and
+        ``enc_ln_f``; the memory every decoder block reads."""
+        if self.cfg.frontend:
+            feats = self.frontend(params["frontend_proj"], feats)
+        return self.blocks(params["enc_blocks"], params["enc_ln_f"], feats,
+                           self._positions(feats), None, self.pos.same(None),
+                           causal=False)
+
+    def prefill(self, params: dict, tokens: Dist, vision: Optional[Dist],
+                feats: Optional[Dist] = None) -> Tuple[list, tuple]:
         data = shd.data_axes(self.pos.mesh)
         self.bax = _axes(tokens.spec[0])
         if not set(self.bax) <= set(data):
@@ -917,30 +1107,29 @@ class _Program:
             # sequence
             self.mode = "qheads"
         ids = self.fetch(tokens, self.bax, None)
+        memory = None
+        if cfg.is_encdec:
+            memory = self.encode(params,
+                                 self.fetch(feats, self.bax, None, None))
         x = self.embed(params["embed"]["emb"], ids)
-        positions = self.map(lambda i: torch.arange(
-            i.shape[1], dtype=torch.int32, device=i.device)[None].expand(
-                *i.shape), ids)
+        positions = self._positions(ids)
         if vision is not None:
-            ve = self.fetch(vision, self.bax, None, None)
-            fp = params["frontend_proj"]
-            split = self.splits(fp["w"].shape[1])
-            ve = self.dense(fp, ve, None, self.M if split else None)
-            if split:
-                ve = all_gather(self.pos, ve, _axes(self.M), 2)
+            ve = self.frontend(params["frontend_proj"],
+                               self.fetch(vision, self.bax, None, None))
             x = self.map(lambda v, h: torch.cat([v.to(h.dtype), h], dim=1),
                          ve, x)
             vp = vision.shape[1]
             positions = self.map(lambda t: torch.cat([torch.arange(
                 vp, dtype=torch.int32, device=t.device)[None].expand(
                     t.shape[0], vp), t + vp], dim=1), positions)
-        x = self.blocks(params, x, positions, None, self.pos.same(None))
+        x = self.blocks(params["blocks"], params["ln_f"], x, positions, None,
+                        self.pos.same(None), memory)
         logits, spec = self.readout(params, self.map(
             lambda h: h[:, -1:, :], x))
         return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2)
 
-    def decode(self, params: dict, caches: dict, token: Dist,
-               pos_: Dist) -> Tuple[list, tuple, dict]:
+    def decode(self, params: dict, caches: dict, token: Dist, pos_: Dist,
+               memory: Optional[Dist] = None) -> Tuple[list, tuple, dict]:
         self.bax = self._cache_layout(caches)
         ids = self.fetch(token, self.bax)
         at = self.fetch(pos_, self.bax)
@@ -951,14 +1140,18 @@ class _Program:
         new = [tree_map(lambda v: v[i], cloned)
                for i in range(len(self.pos.ks))]
         idx = self.map(lambda t: ring_slot(self.cfg, t), positions)
-        x = self.blocks(params, x, positions, new, idx)
+        mem = None if memory is None else self.fetch(memory, self.bax, None,
+                                                     None)
+        x = self.blocks(params["blocks"], params["ln_f"], x, positions, new,
+                        idx, mem)
         logits, spec = self.readout(params, x)
         return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2), new
 
     def _cache_layout(self, caches: dict) -> Tuple[str, ...]:
         """The batch axes of ``caches`` (every cache's the same), after
         checking that each cache has the layout of ``cache_shardings``
-        this program computes on; sets attention's mode from the kv
+        this program computes on (an int8 cache's scales laid out as its
+        entries without ``head_dim``); sets attention's mode from the kv
         cache's."""
         data = set(shd.data_axes(self.pos.mesh))
         m = _axes(self.M)
@@ -977,7 +1170,8 @@ class _Program:
         if "attn" in caches:
             k = caches["attn"]["k"]
             for name, d in caches["attn"].items():
-                if d.spec != k.spec:
+                want = k.spec[:4] if name.endswith("_scale") else k.spec
+                if d.spec != want:
                     raise NotImplementedError(
                         f"cache {name} laid out as {d.spec}, k as {k.spec}")
             ax = [_axes(a) for a in k.spec]
@@ -1005,12 +1199,29 @@ class _Program:
         return bax or ()
 
 
-def _attention_mode(cfg, tp: int) -> str:
+def _device(pw: dict) -> torch.device:
+    return next(iter(pw.values())).device
+
+
+def _attention_mode(cfg, tp: int, cache: bool = False) -> str:
     """How attention splits over ``model`` (cache_shardings' choice):
-    by heads where the kv heads divide, else by ``head_dim``, else not."""
-    if tp == 1 or cfg.n_kv_heads % tp == 0:
+    by heads where the kv heads divide, else by ``head_dim``, else not.
+    A decode ``cache`` holds ``max(n_kv_heads, kv_head_pad)`` heads (the
+    padded ones), as ``init_caches`` makes it."""
+    g = max(cfg.n_kv_heads, cfg.kv_head_pad) if cache else cfg.n_kv_heads
+    if tp == 1 or g % tp == 0:
         return "heads"
     return "hd" if cfg.hd % tp == 0 else "full"
+
+
+def _cross_mode(cfg, tp: int) -> str:
+    """How cross-attention splits over ``model``: by kv heads where they
+    divide, else by query heads (each rank projecting the memory's kv
+    heads its query heads read), else whole.  It keeps no cache, so no
+    layout binds it."""
+    if tp == 1 or cfg.n_kv_heads % tp == 0:
+        return "heads"
+    return "qheads" if cfg.n_heads % tp == 0 else "full"
 
 
 # ---------------------------------------------------------------------------
@@ -1047,12 +1258,6 @@ def _recognise(step) -> Tuple[str, dict]:
 
 
 def _unsupported(cfg) -> Optional[str]:
-    if cfg.is_encdec:
-        return f"the encoder-decoder {cfg.name}"
-    if cfg.kv_cache_dtype == "int8":
-        return "an int8 KV cache"
-    if cfg.kv_head_pad > cfg.n_kv_heads:
-        return "padded kv heads"
     if cfg.n_experts and cfg.moe_impl == "dense":
         return "moe_impl='dense'"
     return None
@@ -1087,13 +1292,6 @@ class PartitionedStep:
         unknown = set(bound) - set(self.names)
         if unknown:
             raise TypeError(f"unexpected arguments {sorted(unknown)}")
-        if _has_int8(bound["params"]):
-            raise NotImplementedError(f"partitioned_step does not partition "
-                                      f"int8 weights ({QUEUE})")
-        for name in ("encoder_feats", "memory"):
-            if bound.get(name) is not None:
-                raise NotImplementedError(f"partitioned_step does not "
-                                          f"partition {name} ({QUEUE})")
         return bound
 
     def _dists(self, bound: dict, make: Callable) -> dict:
@@ -1115,9 +1313,11 @@ class PartitionedStep:
         with torch.no_grad():
             if self.kind == "prefill":
                 return prog.prefill(dists["params"], dists["tokens"],
-                                    dists.get("vision_embeds")) + (None,)
+                                    dists.get("vision_embeds"),
+                                    dists.get("encoder_feats")) + (None,)
             return prog.decode(dists["params"], dists["caches"],
-                               dists["token"], dists["pos"])
+                               dists["token"], dists["pos"],
+                               dists.get("memory"))
 
     def _out_sharding(self, i: int):
         o = self.out_shardings

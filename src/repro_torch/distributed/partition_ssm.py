@@ -123,17 +123,17 @@ def mixer(prog, p: dict, h: list, caches: list
     if mode == "heads":
         z = prog.dense(p["in_proj_z"], h, None, M)
         gain = prog.fetch(p["norm"]["g"], M, split=True)
-        w_out = prog.fetch(p["out_proj"]["w"], M, None)
+        w_out = prog.wfetch(p["out_proj"], M, None)
     else:
         cols = [_p_columns(cfg, tp, prog.rank(k), t.device)
                 for k, t in zip(pos.ks, h)]
-        z = prog.map(lambda pz, x, c: x @ pz["w"][:, c],
+        z = prog.map(lambda pz, x, c: dense(part._cols(pz, c), x),
                      prog.local(p["in_proj_z"], None, None, split=True), h,
                      cols)
         gain = prog.map(lambda g, c: g[c], prog.fetch(
             p["norm"]["g"], None, split=True), cols)
-        w_out = prog.map(lambda w, c: w[c], prog.fetch(
-            p["out_proj"]["w"], None, None, split=True), cols)
+        w_out = prog.map(part._rows, prog.wfetch(
+            p["out_proj"], None, None, split=True), cols)
 
     def scan(xbc_whole, k, dt, a_log, d_skip, c):
         b, l, _ = xbc_whole.shape

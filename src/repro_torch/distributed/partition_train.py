@@ -18,7 +18,8 @@ own shards of the params, the optimizer state and the batch:
 - **the forward** is the partitioned prefill's (``_Program``'s embed,
   norm, attention in its heads/qheads/hd modes with its sliding window,
   the SSM mixer of :mod:`~repro_torch.distributed.partition_ssm` beside
-  or instead of it, MLP, the PuM MLP, readout) over every position of
+  or instead of it, MLP, the PuM MLP, an encoder-decoder's bidirectional
+  encoder and cross-attention, readout) over every position of
   the sequence, with no cache, each
   block under ``remat`` as the port's ``train_loop`` runs it (per-block
   ``torch.utils.checkpoint``; ``"dots"`` saves the ``aten.mm``/``addmm``
@@ -63,15 +64,18 @@ Layouts: the batch must split over every DATA axis, and every other axis
 of the mesh is ``model`` (tensor parallel) or also splits the batch
 (``param_shardings``' ``"dp"``/``"dp2"``, whose program has no tensor
 parallelism).  A ``grad_transform`` is not partitioned
-(``NotImplementedError``, ROADMAP Queue 1); neither is anything
-``partition`` refuses (enc-dec, int8, padded kv heads,
-``moe_impl="dense"``).
+(``NotImplementedError``, ROADMAP Queue 1); neither is
+``moe_impl="dense"``, which ``partition`` refuses.  An encoder-decoder's
+memory enters each decoder block's cross-attention through
+``partition.enter`` over ``model``, so each block's partial cotangents
+are all-reduced there, and the encoder's weights take the decoder's FSDP
+gathers and their reduce-scatters.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (checkpoint,
@@ -170,28 +174,30 @@ class _TrainProgram(part._Program):
         cfg, pos = self.cfg, self.pos
         ids = mb["tokens"]
         x = self.embed(params["embed"]["emb"], ids)
-        positions = self.map(lambda i: torch.arange(
-            i.shape[1], dtype=torch.int32, device=i.device)[None].expand(
-                *i.shape), ids)
+        positions = self._positions(ids)
+        # the reference casts the stub features to bf16 and lets the
+        # first product promote them to the params' dtype
+        dt = _dtype(cfg.param_dtype)
+        memory = None
+        if cfg.is_encdec:
+            feats = self.map(lambda v: v.to(torch.bfloat16).to(dt),
+                             mb["encoder_feats"])
+            if cfg.frontend:
+                feats = self.frontend(params["frontend_proj"], feats)
+            memory, _ = self.stack(params["enc_blocks"], feats,
+                                   self._positions(feats), causal=False)
+            memory = self.norm(params["enc_ln_f"], memory)
         vp = 0
         if "vision_embeds" in mb:
-            # the reference casts the stub features to bf16 and lets the
-            # first product promote them to the params' dtype
-            dt = _dtype(cfg.param_dtype)
-            ve = self.map(lambda v: v.to(torch.bfloat16).to(dt),
-                          mb["vision_embeds"])
-            fp = params["frontend_proj"]
-            split = self.splits(fp["w"].shape[1])
-            ve = self.dense(fp, ve, None, self.M if split else None)
-            if split:
-                ve = part.all_gather(pos, ve, _axes(self.M), 2, copies=True)
+            ve = self.frontend(params["frontend_proj"], self.map(
+                lambda v: v.to(torch.bfloat16).to(dt), mb["vision_embeds"]))
             x = self.map(lambda v, h: torch.cat([v.to(h.dtype), h], dim=1),
                          ve, x)
             vp = ve[0].shape[1]
             positions = self.map(lambda t: torch.cat([torch.arange(
                 vp, dtype=torch.int32, device=t.device)[None].expand(
                     t.shape[0], vp), t + vp], dim=1), positions)
-        x, aux = self.stack(params["blocks"], x, positions)
+        x, aux = self.stack(params["blocks"], x, positions, memory)
         x = self.norm(params["ln_f"], x)
         if vp:
             x = self.map(lambda h: h[:, vp:, :], x)
@@ -202,8 +208,12 @@ class _TrainProgram(part._Program):
         total = self.map(lambda l, a: l + moe_w * a, loss, aux)
         return total, loss, aux
 
-    def stack(self, blocks: dict, x: list, positions: list):
-        """The blocks, each under ``remat``; (x, the summed aux)."""
+    def stack(self, blocks: dict, x: list, positions: list,
+              memory: Optional[list] = None, causal: bool = True):
+        """The blocks, each under ``remat`` (a decoder's reading
+        ``memory``, the encoder's with ``causal=False``); (x, the summed
+        aux).  The memory feeds every decoder block, so its cotangent
+        sums over them before it enters the encoder."""
         parts = tree_map(lambda d: [v.unbind(0) for v in d.vals], blocks)
         n_layers = len(next(iter(_leaves(parts)))[0])
 
@@ -223,15 +233,18 @@ class _TrainProgram(part._Program):
         aux = self.map(lambda h: torch.zeros((), dtype=torch.float32,
                                              device=h.device), x)
         for i in range(n_layers):
-            x, a = body(layer(i), x, positions)
+            x, a = body(layer(i), x, positions, memory, causal)
             if a is not None:
                 aux = self.map(torch.add, aux, a)
         return x, aux
 
-    def block_train(self, p: dict, x: list, positions: list):
+    def block_train(self, p: dict, x: list, positions: list,
+                    memory: Optional[list] = None, causal: bool = True):
         none = self.pos.same(None)
         h = self.norm(p["ln1"], x)
-        x = self.map(torch.add, x, self.mix(p, h, positions, none, none))
+        x = self.map(torch.add, x, self.mix(p, h, positions, none, none,
+                                            causal))
+        x = self.cross(p, x, memory)
         if "ln2" not in p:
             return x, None
         h2 = self.norm(p["ln2"], x)

@@ -41,9 +41,11 @@ extrapolate, because XLA counts a scan body once) is not needed:
 ``depth_calibrated`` is False, ``flops_per_device_raw`` equals
 ``flops_per_device`` and ``collective_bytes_raw`` ``collective_bytes``.
 ``flops_per_device`` stays the unpartitioned step's count over the
-devices.  Cells whose config the partitioned program refuses keep None
-in the four fields, with the reason (what is refused) under
-``not_measured``.  In a train cell under ``remat="dots"`` the
+devices.  The encoder-decoder's cells and the serving levers
+(``--quantize``, ``--kvint8``, ``--kvpad``) are partitioned and filled
+like any other; only a config the partitioned program refuses
+(``moe_impl="dense"``) keeps None in the four fields, with the reason
+under ``not_measured``.  In a train cell under ``remat="dots"`` the
 recompute's all-gathers count again, as XLA's re-gathers of the FSDP
 backward do.
 """

@@ -104,11 +104,16 @@ def _banded_sdpa(q, k, v, window: int, scale):
 
 def _q8(x: torch.Tensor):
     """int8 KV entries with symmetric per-(entry, head) scales."""
-    xf = x.to(torch.float32)
-    amax = torch.amax(torch.abs(xf), dim=-1)
+    return quantize_kv(x, torch.amax(torch.abs(x.to(torch.float32)), dim=-1))
+
+
+def quantize_kv(x: torch.Tensor, amax: torch.Tensor):
+    """``x`` (..., hd) as int8 entries and their float32 scales, given
+    each row's max|value| ``amax`` (...): scale ``amax / 127`` (1 where
+    ``amax`` is 0), entries rounded and clipped to [-127, 127]."""
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    qx = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(
-        torch.int8)
+    qx = torch.clamp(torch.round(x.to(torch.float32) / scale[..., None]),
+                     -127, 127).to(torch.int8)
     return qx, scale
 
 

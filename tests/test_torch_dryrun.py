@@ -13,8 +13,8 @@
   the reference's specs, ``bytes_per_device`` at least the argument
   bytes, argument and output bytes within ``peak_bytes``, ``temp_bytes``
   the peak less both.  ``DeviceBytes`` on a program of known sizes
-  reads its exact bytes and peak; refused configs' train and decode
-  cells keep None with their reasons.
+  reads its exact bytes and peak; a refused config's cell
+  (``moe_impl="dense"``) keeps None with its reason.
 - The smoke yi-6b x train_4k cell, counted from position 0's partitioned
   train step: its all-gather and reduce-scatter bytes ``==`` their
   closed form (the forward's and the recompute's gathers, the
@@ -23,6 +23,10 @@
   their collective bytes ``==`` the closed form of the partitioned
   decode's gathers and sums, their ``ssm`` and ``conv`` cache shards in
   the argument bytes.
+- The smoke seamless-m4t-medium x decode_32k cell (its cross-attention
+  over the memory) and yi-6b x decode_32k with an int8 KV cache: their
+  collective bytes ``==`` the closed form, their memory and int8 cache
+  shards in the argument bytes.
 - A train, a prefill and a decode cell at ``smoke_config``: the counted
   FLOPs ``==`` a closed-form count of their matrix products.
 - The command line prints ``ok=1`` with JAX blocked from importing.
@@ -195,13 +199,11 @@ def test_device_bytes_of_a_known_program():
 
 
 @pytest.mark.parametrize("arch,shape_name,replace,why", [
-    ("seamless-m4t-medium", "train_4k", {},
-     "does not partition the encoder-decoder"),
-    ("yi-6b", "decode_32k", {"kv_cache_dtype": "int8"},
-     "does not partition an int8 KV cache")])
+    ("granite-moe-1b-a400m", "decode_32k", {"moe_impl": "dense"},
+     "does not partition moe_impl='dense'")])
 def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
-    """A train and a decode cell of configs the partitioned program
-    refuses keep None in the four fields, each with its reason."""
+    """A cell of a config the partitioned program refuses keeps None in
+    the four fields, each with its reason."""
     res = lower_cell(arch, shape_name,
                      cfg_override=smoke_config(arch).replace(**replace))
     assert res["bytes_per_device"] is None
@@ -214,6 +216,86 @@ def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
                 "peak_bytes"):
         assert why in res["not_measured"][key]
     assert "ROADMAP Queue 1" in res["not_measured"]["peak_bytes"]
+
+
+@pytest.mark.parametrize("arch,replace", [
+    ("seamless-m4t-medium", {}), ("yi-6b", {"kv_cache_dtype": "int8"})])
+def test_smoke_encdec_and_int8_kv_cells_equal_closed_form(arch, replace):
+    """seamless-m4t-medium x decode_32k (a memory of 8,192 frames a row)
+    and yi-6b x decode_32k with an int8 KV cache, at ``smoke_config`` on
+    16 x 16, counted from position 0's partitioned decode: the
+    all-gather and all-reduce bytes ``==`` their closed form.  The 2 kv
+    heads do not divide 16 model ranks, so the cache splits
+    ``head_dim`` and q, k, v and o are gathered whole (over ``data``,
+    each output the shard times 16, then over ``model``); seamless's
+    cross-attention (neither its 4 query nor its 2 kv heads divide 16)
+    runs whole, its four weights gathered likewise, with no all-reduce
+    of its own; the MLP's weights are gathered over ``data``, and yi's
+    untied readout too.  All-reduces, twice their input bytes: the
+    embedding's lookup (bf16), each layer's partial scores over the
+    32,768 slots and its two row-parallel outputs (float32), and, for the
+    int8 cache, each layer's max all-reduce of the fresh k and v rows'
+    amax (float32).  The argument bytes hold the reference's specs of
+    the params, the caches (int8 entries and float32 scales), the two
+    vectors and the memory."""
+    cfg = smoke_config(arch).replace(**replace)
+    res = lower_cell(arch, "decode_32k", cfg_override=cfg)
+    rcfg = ref_smoke_config(arch).replace(**replace)
+    mesh = ref_shd.abstract_mesh((16, 16), ("data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    specs = ref_shd.param_shardings(params, mesh)
+    shape = SHAPES_BY_NAME["decode_32k"]
+    layers, n_data, d = rcfg.n_layers, 16, rcfg.d_model
+    rows, slots = shape.global_batch // n_data, shape.seq_len
+    int8 = rcfg.kv_cache_dtype == "int8"
+
+    def gathered(*path, whole=False):
+        t, spec = params, specs
+        for k in path:
+            t, spec = t[k], spec[k]
+        assert "data" in tuple(spec.spec), path
+        n = ref_shard_bytes(mesh, t, spec.spec)
+        n = n // layers if path[0] == "blocks" else n
+        return n_data * n + (math.prod(t.shape[1:]) * 2 if whole else 0)
+
+    mixers = ("attn", "xattn") if rcfg.is_encdec else ("attn",)
+    mlp = [n for n in ("up", "gate", "down") if n in params["blocks"]["mlp"]]
+    per_layer = sum(gathered("blocks", a, n, "w", whole=True)
+                    for a in mixers for n in ("q", "k", "v", "o")) + sum(
+        gathered("blocks", "mlp", n, "w") for n in mlp)
+    readout = 0 if rcfg.tie_embeddings else gathered("out", "w")
+    gathers = layers * per_layer + readout
+    scores = rows * rcfg.n_heads * slots * 4
+    amax = 2 * rows * rcfg.n_kv_heads * 4 if int8 else 0
+    reduces = 2 * (rows * d * 2 + layers * (scores + 2 * rows * d * 4 + amax))
+    assert (gathers, reduces) == {
+        "seamless-m4t-medium": (108_544, 16_795_648),
+        "yi-6b": (60_416, 16_796_160)}[arch]
+    assert res["collective_bytes"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0, "total": gathers + reduces}
+
+    caches = jax.eval_shape(lambda: ref_tf.init_caches(
+        rcfg, shape.global_batch, slots))
+    cs = ref_shd.cache_shardings(caches, mesh)
+    assert set(caches["attn"]) == ({"k", "v", "k_scale", "v_scale"} if int8
+                                   else {"k", "v"})
+    vec = jax.ShapeDtypeStruct((shape.global_batch,), jnp.int32)
+    want = (ref_tree_bytes(mesh, params, specs)
+            + ref_tree_bytes(mesh, caches, cs)
+            + 2 * ref_shard_bytes(mesh, vec, ref_shd.vector_sharding(
+                mesh, shape.global_batch).spec))
+    if rcfg.is_encdec:
+        mem = jax.ShapeDtypeStruct((shape.global_batch, slots // 4, d),
+                                   jnp.bfloat16)
+        want += ref_shard_bytes(mesh, mem, ref_shd.batch_shardings(
+            {"m": mem}, mesh)["m"].spec)
+    mem_ = res["memory"]
+    assert mem_["argument_bytes"] == want
+    assert mem_["argument_bytes"] + mem_["output_bytes"] <= mem_["peak_bytes"]
+    assert res["bytes_per_device"] >= mem_["argument_bytes"]
+    assert set(res["not_measured"]) == {"depth_calibrated"}
 
 
 def test_smoke_train_cell_gathers_equal_closed_form():

@@ -24,8 +24,9 @@ positions, and the unsharded jitted steps beside them.
   case a kind.
 - Planted faults read above 1e-5: one model rank's partial dropped from
   one all-reduce, and a position computing on another's cache slice.
-- What the slice does not partition raises: padded kv heads,
-  seamless-m4t-medium, an int8 tree, and any other function.
+- What the slice does not partition raises: ``moe_impl="dense"`` and
+  any other function; padded kv heads, seamless-m4t-medium and an int8
+  tree run.
 """
 
 import json
@@ -498,30 +499,58 @@ def test_position_trace_has_the_run_shapes(ref):
 # -- what the slice does not partition -------------------------------------------------
 
 @pytest.mark.parametrize("what", ["padded-kv-heads", "seamless-m4t-medium",
-                                  "int8"])
+                                  "int8", "moe-dense"])
 def test_unsupported_raise(what):
+    """``moe_impl="dense"`` still raises (ROADMAP Queue 1).  Padded kv
+    heads, seamless-m4t-medium and an int8 tree partition over (2, 2): a
+    decode (padded heads) or prefill equals the unpartitioned step
+    within 1e-5 (their parity with the reference:
+    ``test_torch_partition_int8.py`` and
+    ``test_torch_partition_encdec.py``)."""
     mesh = cpu_mesh((2, 2))
-    arch = "yi-6b" if what in ("int8", "padded-kv-heads") else what
-    cfg = smoke_config(arch)
+    arch = {"padded-kv-heads": "yi-6b", "int8": "yi-6b",
+            "moe-dense": "granite-moe-1b-a400m"}.get(what, what)
+    cfg = _cfg(arch)
     if what == "padded-kv-heads":
         cfg = cfg.replace(kv_head_pad=4)
-    params = init_lm(cfg, generator=torch.Generator().manual_seed(0),
-                     device="cpu")
+    if what == "moe-dense":
+        cfg = cfg.replace(moe_impl="dense")
+    gen = torch.Generator().manual_seed(0)
+    params = init_lm(cfg, generator=gen, device="cpu")
+    if what == "int8":
+        params = quantize_tree(params)
     ps = shd.param_shardings(params, mesh)
     vec = shd.vector_sharding(mesh, BATCH)
-    if what != "int8":
+    if what == "moe-dense":
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") \
                 as err:
             partition.partitioned_step(make_prefill(cfg), (ps, vec), vec)
-        assert ("padded kv heads" if what == "padded-kv-heads"
-                else "encoder-decoder") in str(err.value)
+        assert "moe_impl='dense'" in str(err.value)
         return
-    q = quantize_tree(params)
+    if what == "padded-kv-heads":
+        caches = {"attn": {k: torch.randn(v.shape, generator=gen) for k, v in
+                           init_caches(cfg, BATCH, CACHE, "cpu")["attn"]
+                           .items()}}
+        assert caches["attn"]["k"].shape[3] == 4
+        token = torch.randint(0, cfg.vocab_size, (BATCH,), generator=gen)
+        pos = torch.randint(SEQ, CACHE, (BATCH,), generator=gen)
+        logits, _, _ = _run_decode(cfg, mesh, params, caches, token, pos)
+        want, _ = make_serve_step(cfg)(params, caches, token, pos)
+        np.testing.assert_allclose(logits.gather(CPU).numpy(), want.numpy(),
+                                   **TOL)
+        return
+    ins = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
+                                   generator=gen)}
+    if cfg.is_encdec:
+        ins["encoder_feats"] = torch.randn((BATCH, SEQ // 4, cfg.d_model),
+                                           generator=gen)
+    bs = shd.batch_shardings(ins, mesh)
     step = partition.partitioned_step(
-        make_prefill(cfg), (shd.param_shardings(q, mesh), vec),
+        make_prefill(cfg), (ps, bs["tokens"], bs.get("encoder_feats")),
         shd.logits_sharding(mesh, BATCH))
-    with pytest.raises(NotImplementedError, match="int8"):
-        step(q, torch.zeros((BATCH, 4), dtype=torch.int32))
+    got = step(shd.place(params, ps), **shd.place(ins, bs))
+    np.testing.assert_allclose(got.gather(CPU).numpy(),
+                               make_prefill(cfg)(params, **ins).numpy(), **TOL)
 
 
 def test_other_functions_raise():

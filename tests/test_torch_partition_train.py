@@ -721,9 +721,24 @@ def test_train_refusals():
         partition.partitioned_step(
             _step(cfg, 1, grad_transform=compressed_grad_transform(res)),
             sh, None)
+    dense = smoke_config("granite-moe-1b-a400m").replace(moe_impl="dense")
+    with pytest.raises(NotImplementedError, match="moe_impl='dense'"):
+        partition.partitioned_step(_step(dense, 1), sh, None)
+    # the encoder-decoder partitions: position 0's step runs on meta (its
+    # parity with the reference: tests/test_torch_partition_encdec.py)
     encdec = smoke_config("seamless-m4t-medium")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        partition.partitioned_step(_step(encdec, 1), sh, None)
+    e_params = init_lm(encdec, device="meta")
+    e_state = opt.init(e_params)
+    e_batch = dict(batch, encoder_feats=torch.empty(
+        (8, 4, encdec.d_model), dtype=torch.float32, device="meta"))
+    e_step = partition.partitioned_step(_step(encdec, 1), (
+        shd.param_shardings(e_params, mesh),
+        shd.opt_shardings(e_state, e_params, mesh),
+        shd.batch_shardings(e_batch, mesh)), None)
+    new_p, _, metrics = e_step.run_position(
+        e_step.local_arguments(e_params, e_state, e_batch))
+    assert metrics["loss"].device.type == "meta"
+    assert set(new_p) >= {"enc_blocks", "enc_ln_f", "frontend_proj"}
     whole = {k: shd.replicated(mesh) for k in batch}
     step = partition.partitioned_step(_step(cfg, 1), sh[:2] + (whole,), None)
     with pytest.raises(NotImplementedError, match="every data axis"):
