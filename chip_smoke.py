@@ -373,6 +373,27 @@ Chrome trace goes to ``--trace`` (default
      ``ENCDEC_DRYRUN_CELLS`` on the 2x16x16 mesh, each not None and
      ``==`` ``ENCDEC_DRYRUN_COUNTS``.  Runs before the kernels line and
      launches none of K1-K6;
+ 21. what the partitioned program refused before, over (2, 2)
+     (``cuda:0`` repeated), each against the unpartitioned step of the
+     same weights: (21a) granite-moe-1b-a400m at its published width
+     (``MESH_LM_LAYERS`` layers, ``CLOSE_DENSE_DTYPE``) with
+     ``moe_impl="dense"``: a
+     prefill of ``CLOSE_PREFILL`` (rows, tokens) and
+     ``PARTITION_STEPS`` decode steps, logits and every written cache
+     shard within ``PARTITION_REL``, model rank 1's expert partial
+     dropped from layer 3's MoE must read more; (21b) phase 18's
+     internvl2-1b train step (``TRAIN_PARTITION_LAYERS`` layers, in
+     ``CLOSE_TRAIN_DTYPE``) in 2 microbatches with
+     ``compressed_grad_transform`` on nonzero residuals as its
+     ``grad_transform``: loss, grad_norm and each leaf's ``mu`` within
+     ``TRAIN_PARTITION_REL``, the share of ``mu`` entries that moved
+     within ``CLOSE_MOVED``, the transform applied to each position's
+     shard must move more; (21c) one yi-6b decode step
+     (``PARTITION_LAYERS`` layers) from caches handed with their batch
+     over ``model`` and their kv heads over ``data``: relaid on entry,
+     logits and cache shards within ``PARTITION_REL``, the caches
+     relabelled without being relaid must read more.  Runs before the
+     kernels line and launches none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -837,6 +858,41 @@ ENCDEC_DRYRUN_COUNTS = {
     "qwen2-72b|decode_32k|kv_head_pad=16": (72_479_380_588, 11_659_051_008,
                                             11_330_861_344),
 }
+# phase 21: what the partitioned program once refused, over
+# CLOSE_MESH of cuda:0 positions.  21a: granite-moe-1b-a400m at its
+# published width with moe_impl="dense" (every expert over every token,
+# about n_experts / top_k = 4 times the grouped FFN's work), phase 16's
+# depth, a prefill of CLOSE_PREFILL (rows, tokens) and PARTITION_STEPS
+# decode steps from caches of PARTITION_CACHE positions, in
+# CLOSE_DENSE_DTYPE: in bf16 the partitioned and unpartitioned steps'
+# rounding flips some tokens' top-8 of 32 experts, and they read 0.582 to
+# 1.041 of max|logit| apart over 6 seeds (grouped, the same way, 1.053 to
+# 1.561), where a planted fault cannot stand out; 21b: phase 18a's
+# internvl2-1b train step with compressed_grad_transform on residuals of
+# CLOSE_RESIDUAL x a seeded normal, in float32: the transform rounds each
+# gradient entry to 1/127 of its block's amax, so float32 keeps the
+# partitioned and unpartitioned gradients close enough that only entries
+# at a rounding tie flip (in bf16 a large share would), and the
+# per-shard fault, which moves a little in nearly every entry, is read by
+# the share of mu entries off by more than CLOSE_MOVED_EPS of their
+# leaf's max|mu|; 21c: one yi-6b decode step from caches handed in
+# CLOSE_CACHE_SPEC.  PARTITION_REL, TRAIN_PARTITION_REL and CLOSE_MOVED
+# lie between the sound readings and the planted faults of
+# experiments/partition_close_tolerance.py over 6 seeds (H100 80GB HBM3,
+# 700.00 W): 21a sound at most 1.895e-5, model rank 1's expert partial
+# dropped at least 1.011; 21b mu at most 8.551e-3 (an entry at a tie
+# flips by a step, 1/127 of its block's amax) and a moved share at most
+# 6.33e-4, the per-shard transform a share of at least 0.1970 (its max
+# only 6.75e-3); 21c at most 2.264e-2, the caches unrelaid at least 1.404.
+CLOSE_MESH = (2, 2)
+CLOSE_PREFILL = (4, 512)
+CLOSE_DENSE_DTYPE = "float32"
+CLOSE_TRAIN_DTYPE = "float32"
+CLOSE_RESIDUAL = 1e-3
+CLOSE_MOVED_EPS = 1e-4
+CLOSE_MOVED = 0.01
+CLOSE_CACHE_SPEC = (None, "model", None, "data", None)
+CLOSE_SEED = 41
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1533,6 +1589,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("20")
     phase("20")
     partition_encdec_phase(dev, record)
+    release_device_memory("21")
+    phase("21")
+    partition_close_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -5974,9 +6033,24 @@ def dropped_partial(call: int, rank: int = 1):
         partition.all_reduce = real
 
 
+@contextlib.contextmanager
+def caches_not_relaid(cs):
+    """A planted fault: decode takes the caches handed to it as laid out
+    by ``cs`` (``cache_shardings``' layout), their pieces not moved."""
+    from repro_torch.distributed import partition
+    real = partition._Program.relay_caches
+    partition._Program.relay_caches = lambda self, caches: partition.tree_map(
+        lambda d, sh: partition.Dist(d.shape, partition._spec(
+            sh.spec, len(d.shape)), d.vals), caches, cs)
+    try:
+        yield
+    finally:
+        partition._Program.relay_caches = real
+
+
 def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
                     steps: int, seed: int, prefill_len: int = 0,
-                    faults=("drop",)) -> dict:
+                    faults=("drop",), cache_spec=None) -> dict:
     """``cfg``'s serving steps partitioned over ``mesh`` against the
     unpartitioned steps on the card, on the same weights (``params``,
     placed by ``param_shardings``) and inputs made from ``seed``: a
@@ -5992,9 +6066,13 @@ def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
     nothing else in the shards differs), the first step's collective
     bytes, host-clock ms of both (synchronized), and each fault of
     ``faults`` planted into the first step: ``drop`` (model rank 1's
-    partial dropped from the all-reduce ``PARTITION_DROP``) and
+    partial dropped from the all-reduce ``PARTITION_DROP``),
     ``swap`` (positions 1 and 2 computing on each
-    other's cache shards)."""
+    other's cache shards) and ``relabel`` (caches handed in
+    ``cache_spec`` taken as ``cache_shardings``' layout without being
+    relaid).  ``cache_spec`` lays the caches handed to the first step
+    out (default ``cache_shardings``'); every step asks for its new
+    caches in ``cache_shardings``' layout."""
     import torch
 
     from repro_torch.distributed import partition
@@ -6020,7 +6098,9 @@ def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
     for t in tree_leaves(caches):
         t.normal_(generator=gen)
     cs = shd.cache_shardings(caches, mesh)
-    first = shd.place(caches, cs)
+    given = cs if cache_spec is None else {"attn": {
+        k: shd.Sharding(mesh, shd.P(*cache_spec)) for k in caches["attn"]}}
+    first = shd.place(caches, given)
     res = {"mode": partition._attention_mode(cfg, tp), "rel": [], "ms": [],
            "plain_ms": [], "faults": {}}
     if prefill_len:
@@ -6044,7 +6124,7 @@ def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
                             generator=gen, device=dev, dtype=torch.int32)
     start = (tok, pos)
     dec = partition.partitioned_step(make_serve_step(cfg),
-                                     (ps, cs, vec, vec), (lsh, cs))
+                                     (ps, given, vec, vec), (lsh, cs))
     plain = make_serve_step(cfg)
     pcaches, want_first = first, None
     for i in range(steps):
@@ -6089,6 +6169,10 @@ def partition_steps(dev, cfg, params, mesh, *, rows: int, cache_len: int,
                                                 leaf.sharding, sh)
         logits, _ = dec(placed, swapped, *args[2:])
         res["faults"]["swap"] = _rel_rows(logits.gather(dev), want_first)
+    if "relabel" in faults:
+        with caches_not_relaid(cs):
+            logits, _ = dec(*args)
+        res["faults"]["relabel"] = _rel_rows(logits.gather(dev), want_first)
     rel = np.concatenate(res["rel"] + ([res["prefill_rel"]]
                                        if prefill_len else []))
     res["rel_max"] = float(rel.max())
@@ -6294,6 +6378,20 @@ def _mu_rel(got, want) -> float:
     return float(np.max(worst))
 
 
+def _mu_moved(got, want, eps: float) -> float:
+    """The share of entries, over the leaves, with |got - want| above
+    ``eps`` of their leaf's max|want|; ``got``'s :class:`Sharded` leaves
+    gathered one at a time."""
+    from repro_torch.distributed.sharding import Sharded
+    moved = total = 0
+    for g, w in zip(got, want):
+        g = g.gather(w.device) if isinstance(g, Sharded) else g
+        d = (g.float() - w.float()).abs()
+        moved += int((d > eps * float(w.float().abs().max())).sum())
+        total += w.numel()
+    return moved / total
+
+
 @contextlib.contextmanager
 def planted_train_fault(name: str):
     """A planted fault in a partitioned train step: ``drop`` (data rank
@@ -6340,7 +6438,8 @@ def planted_train_fault(name: str):
 def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
                           opt_kw: dict, faults=(),
                           count_launches: bool = False,
-                          plant=planted_train_fault) -> dict:
+                          plant=planted_train_fault, grad_transform=None,
+                          moved_eps=None) -> dict:
     """``cfg``'s train step partitioned over ``mesh`` against the
     unpartitioned step on the card, on the same weights (``params``,
     placed by ``param_shardings``) and ``batches``, one step each: per
@@ -6352,7 +6451,10 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
     step, read the same way on ``mu`` (``plant(name)`` plants it:
     :func:`planted_train_fault` by default).  With ``count_launches`` the
     launch counts are set to 0 just before the partitioned steps and read
-    just after them (``launches``), before any fault runs."""
+    just after them (``launches``), before any fault runs.  Both steps
+    take ``grad_transform``; with ``moved_eps`` each step's and fault's
+    share of ``mu`` entries off by more than ``moved_eps`` of their
+    leaf's max|mu| is kept too (``mu_moved``, ``faults_moved``)."""
     import torch
 
     from repro_torch.distributed import partition
@@ -6371,10 +6473,10 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
         return got, (time.perf_counter() - t0) * 1e3
 
     step = make_train_step(cfg, opt.AdamWConfig(**opt_kw),
-                           n_microbatches=n_mb)
+                           n_microbatches=n_mb, grad_transform=grad_transform)
     want, p, o = [], params, opt.init(params)
     res = {"loss_rel": [], "grad_norm_rel": [], "mu_rel": [], "ms": [],
-           "plain_ms": [], "faults": {}}
+           "plain_ms": [], "faults": {}, "mu_moved": [], "faults_moved": {}}
     for b in batches:
         (p, o, m), ms = timed(lambda: step(p, o, b))
         want.append(({k: float(v) for k, v in m.items()}, flatten(o.mu)))
@@ -6400,6 +6502,8 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
         res["grad_norm_rel"].append(abs(float(m["grad_norm"])
                                         - wm["grad_norm"]) / wm["grad_norm"])
         res["mu_rel"].append(_mu_rel(flatten(o.mu), wmu))
+        if moved_eps is not None:
+            res["mu_moved"].append(_mu_moved(flatten(o.mu), wmu, moved_eps))
         res["ms"].append(ms)
         if i == 0:
             res["ledger"] = ledger.totals()
@@ -6411,6 +6515,9 @@ def partition_train_steps(dev, cfg, params, mesh, *, n_mb: int, batches,
         with plant(name):
             _, o, _ = pstep(*first(), batches[0])
         res["faults"][name] = _mu_rel(flatten(o.mu), want[0][1])
+        if moved_eps is not None:
+            res["faults_moved"][name] = _mu_moved(flatten(o.mu), want[0][1],
+                                                  moved_eps)
         del o
     res["mode"] = attention_mode(cfg, mesh.shape["model"])
     res["rel_max"] = float(np.max(res["loss_rel"] + res["grad_norm_rel"]
@@ -7397,6 +7504,256 @@ def partition_encdec_phase(dev, record: dict) -> None:
           + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
                       for k in ("20a", "20b", "20c", "20d"))
           + f"); {card}", flush=True)
+
+
+@contextlib.contextmanager
+def transform_per_shard(residuals, shardings):
+    """A planted fault in a partitioned train step's ``grad_transform``:
+    ``compressed_grad_transform`` applied to each position's shard of the
+    gradients with the matching shard of ``residuals`` (``shardings``
+    the params' shardings in ``flatten``'s order), in place of the whole
+    leaves; the norm is taken over the pieces gathered whole."""
+    from repro_torch.distributed import partition, partition_train
+    from repro_torch.models.params import flatten, tree_map, unflatten
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.compression import compressed_grad_transform
+
+    def per_shard(pos, transform, like, grads):
+        shape = tree_map(lambda d: None, like)
+        outs = pos.map(lambda k, *gs: compressed_grad_transform(unflatten(
+            shape, [r[s.indices(r.shape)[k]] for r, s in zip(
+                flatten(residuals), shardings)]))(unflatten(shape, list(gs))),
+            list(pos.ks), *(g.vals for g in grads))
+        flat = [flatten(o) for o in outs]
+
+        def whole(j, g):
+            return partition.relayout(pos, partition.Dist(
+                g.shape, g.spec, [f[j] for f in flat]),
+                *(None,) * len(g.shape))
+
+        n = len(grads)
+        gnorm = pos.map(lambda *ws: opt.global_norm(ws), *(
+            [whole(j, g) for j, g in enumerate(grads)]
+            + [whole(n + j, g) for j, g in enumerate(grads)]))
+        return [partition.Dist(g.shape, g.spec, [f[j] for f in flat])
+                for j, g in enumerate(grads)], gnorm
+
+    real = partition_train.transformed
+    partition_train.transformed = per_shard
+    try:
+        yield
+    finally:
+        partition_train.transformed = real
+
+
+def close_dense_run(dev, seed: int, faults=("drop",),
+                    dtype: str = CLOSE_DENSE_DTYPE,
+                    impl: str = "dense") -> tuple:
+    """21a: granite-moe-1b-a400m with ``moe_impl=impl`` in ``dtype``
+    over ``CLOSE_MESH``: (``partition_steps``' run, cfg, where)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(MESH_LM_ARCH).replace(n_layers=MESH_LM_LAYERS,
+                                           moe_impl=impl, param_dtype=dtype)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    mesh, where = _split_mesh(CLOSE_MESH, ("data", "model"))
+    run = partition_steps(dev, cfg, params, mesh, rows=CLOSE_PREFILL[0],
+                          cache_len=PARTITION_CACHE, steps=PARTITION_STEPS,
+                          seed=seed, prefill_len=CLOSE_PREFILL[1],
+                          faults=faults)
+    return run, cfg, where
+
+
+def close_transform_run(dev, seed: int, faults=("shard",)) -> tuple:
+    """21b: phase 18a's internvl2-1b train step over ``CLOSE_MESH`` in 2
+    microbatches, in ``CLOSE_TRAIN_DTYPE``, with
+    ``compressed_grad_transform`` on residuals of ``CLOSE_RESIDUAL`` x a
+    seeded normal: (``partition_train_steps``' run, cfg, where)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.compression import compressed_grad_transform
+    cfg = get_config(TRAIN_PARTITION_ARCH).replace(
+        n_layers=TRAIN_PARTITION_LAYERS, param_dtype=CLOSE_TRAIN_DTYPE)
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_lm(cfg, generator=gen, device=dev)
+    residuals = tree_map(lambda t: CLOSE_RESIDUAL * torch.randn(
+        t.shape, generator=gen, device=dev, dtype=torch.float32), params)
+    batches = _partition_batches(cfg, dev, TRAIN_PARTITION_BATCH,
+                                 TRAIN_PARTITION_SEQ, TRAIN_PARTITION_STEPS,
+                                 seed)
+    mesh, where = _split_mesh(CLOSE_MESH, ("data", "model"))
+    shardings = flatten(shd.param_shardings(params, mesh))
+    run = partition_train_steps(
+        dev, cfg, params, mesh, n_mb=2, batches=batches,
+        opt_kw=TRAIN_PARTITION_OPT, faults=faults,
+        plant=lambda name: transform_per_shard(residuals, shardings),
+        grad_transform=compressed_grad_transform(residuals),
+        moved_eps=CLOSE_MOVED_EPS)
+    return run, cfg, where
+
+
+def close_caches_run(dev, seed: int, faults=("relabel",)) -> tuple:
+    """21c: one yi-6b decode step over ``CLOSE_MESH`` from caches handed
+    in ``CLOSE_CACHE_SPEC``: (``partition_steps``' run, cfg, where)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(PARTITION_ARCH).replace(n_layers=PARTITION_LAYERS)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    mesh, where = _split_mesh(CLOSE_MESH, ("data", "model"))
+    run = partition_steps(dev, cfg, params, mesh, rows=PARTITION_ROWS,
+                          cache_len=PARTITION_CACHE, steps=1, seed=seed,
+                          faults=faults, cache_spec=CLOSE_CACHE_SPEC)
+    return run, cfg, where
+
+
+def partition_close_phase(dev, record: dict) -> None:
+    """Phase 21: what the partitioned program refused before, over
+    ``CLOSE_MESH`` of ``cuda:0`` positions under deterministic
+    algorithms: 21a the dense MoE in prefill and decode, 21b a train
+    step's ``grad_transform``, 21c decode caches handed outside
+    ``cache_shardings``' layout, each against the unpartitioned step
+    with a planted fault.  Launches none of K1-K6."""
+    import gc
+
+    import torch
+    import torch.utils.deterministic as deterministic
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    card = record["card"]
+    out = record["partition_close"] = {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        # -- 21a: granite-moe-1b-a400m, moe_impl="dense" ------------------
+        phase("21a")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        run, cfg, where = close_dense_run(dev, CLOSE_SEED)
+        _held("21a", run)
+        out["21a"] = {k: v for k, v in run.items()
+                      if k not in ("rel", "prefill_rel", "faults")}
+        out["21a"].update(devices=where,
+                          fault_drop=float(run["faults"]["drop"].max()),
+                          max_memory_allocated=torch.cuda
+                          .max_memory_allocated(),
+                          seconds=time.perf_counter() - t0)
+        print(f"[21a] {MESH_LM_ARCH} at its published width ({cfg.n_layers} "
+              f"layers, {cfg.n_experts} experts, top {cfg.experts_per_token}"
+              f", {CLOSE_DENSE_DTYPE}) with moe_impl='dense' over "
+              f"{CLOSE_MESH} ({where}; "
+              f"{cfg.n_experts // CLOSE_MESH[1]} experts a model rank): "
+              f"prefill of {CLOSE_PREFILL[0]} x {CLOSE_PREFILL[1]} tokens and "
+              f"{PARTITION_STEPS} decode steps against the unpartitioned "
+              f"dense steps, largest difference {run['rel_max']:.4e} of "
+              f"max|logit|, written cache slots {run['cache_rel']:.4e} "
+              f"(tolerance {PARTITION_REL}); model rank 1's expert partial "
+              f"dropped from layer {PARTITION_DROP[1]}'s MoE reads "
+              f"{out['21a']['fault_drop']:.4e}; prefill "
+              f"{run['prefill_ms']:.1f} ms partitioned, "
+              f"{run['prefill_plain_ms']:.1f} ms unpartitioned; decode step "
+              f"median {float(np.median(run['ms'])):.1f} ms partitioned, "
+              f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned "
+              f"(host clock, synchronized); one decode step's collectives "
+              f"a position: {_kinds(run['ledger'])}; {card}", flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+
+    # -- 21b: internvl2-1b's train step with a grad_transform -------------------
+    phase("21b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run, cfg, where = close_transform_run(dev, CLOSE_SEED + 1)
+    _train_held("21b", {**run, "faults": {}})
+    moved = max(run["mu_moved"])
+    check(moved <= CLOSE_MOVED, f"21b: {moved:.4e} of mu's entries moved by "
+          f"more than {CLOSE_MOVED_EPS} of their leaf's max|mu| (tolerance "
+          f"{CLOSE_MOVED})")
+    for name, share in run["faults_moved"].items():
+        check(share > CLOSE_MOVED, f"21b: the planted fault {name} moved "
+              f"{share:.4e} of mu's entries only, within the tolerance "
+              f"{CLOSE_MOVED}")
+    out["21b"] = dict(run, devices=where,
+                      max_memory_allocated=torch.cuda.max_memory_allocated(),
+                      seconds=time.perf_counter() - t0)
+    print(f"[21b] {TRAIN_PARTITION_ARCH} at its published width "
+          f"({cfg.n_layers} layers, {CLOSE_TRAIN_DTYPE}), "
+          f"{TRAIN_PARTITION_STEPS} train steps of {TRAIN_PARTITION_BATCH} x "
+          f"{TRAIN_PARTITION_SEQ} tokens in 2 microbatches over {CLOSE_MESH} "
+          f"({where}) with compressed_grad_transform (residuals "
+          f"{CLOSE_RESIDUAL} x a normal) as grad_transform, against the "
+          f"unpartitioned step with it: loss off by "
+          f"{max(run['loss_rel']):.4e}, grad_norm by "
+          f"{max(run['grad_norm_rel']):.4e}, mu by {max(run['mu_rel']):.4e} "
+          f"of a leaf's max|value| (tolerance {TRAIN_PARTITION_REL}), "
+          f"{moved:.4e} of mu's entries moved by more than "
+          f"{CLOSE_MOVED_EPS} of it (tolerance {CLOSE_MOVED})"
+          + "".join(f"; fault {k} moves {v:.4e} of them (max "
+                    f"{run['faults'][k]:.4e})"
+                    for k, v in run["faults_moved"].items())
+          + f"; step {float(np.median(run['ms'])):.1f} ms partitioned, "
+          f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned (host "
+          f"clock, synchronized); first step's collectives a position: "
+          f"{_kinds(run['ledger'])}; {card}", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 21c: yi-6b decode from caches outside cache_shardings' layout ---------
+    phase("21c")
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        run, cfg, where = close_caches_run(dev, CLOSE_SEED + 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        deterministic.fill_uninitialized_memory = fill
+    _held("21c", run)
+    out["21c"] = {k: v for k, v in run.items() if k not in ("rel", "faults")}
+    out["21c"].update(devices=where,
+                      fault_relabel=float(run["faults"]["relabel"].max()),
+                      seconds=time.perf_counter() - t0)
+    print(f"[21c] {PARTITION_ARCH} at its published width ({cfg.n_layers} of "
+          f"{get_config(PARTITION_ARCH).n_layers} layers, bf16), one decode "
+          f"step of {PARTITION_ROWS} rows over {CLOSE_MESH} ({where}) from "
+          f"caches of {PARTITION_CACHE} positions handed laid out as "
+          f"{CLOSE_CACHE_SPEC} and relaid to cache_shardings' layout: off "
+          f"the unpartitioned step by {run['rel_max']:.4e} of max|logit|, "
+          f"written cache slots {run['cache_rel']:.4e} (tolerance "
+          f"{PARTITION_REL}); the caches taken as laid out without the "
+          f"relayout read {out['21c']['fault_relabel']:.4e}; the step's "
+          f"collectives a position, the relayout's gathers among them: "
+          f"{_kinds(run['ledger'])}; {card}", flush=True)
+    del run
+    counts = dict(build.LAUNCHES)
+    check(not any(counts.values()), f"21: the partitioned dense MoE, "
+          f"transform and relayout launched {counts}, none of K1-K6 "
+          f"expected")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[21] partitioned dense MoE, grad_transform and relayout path: "
+          f"launches {counts}; phase 21 took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
+                      for k in ("21a", "21b", "21c")) + f"); {card}",
+          flush=True)
 
 
 def _graphed_step(step, params, caches, dev):

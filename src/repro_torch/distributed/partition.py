@@ -49,11 +49,18 @@ The program follows :func:`~repro_torch.distributed.sharding.param_spec`:
   each ``model`` group of positions (with ``moe_impl="ep"`` each data
   shard dispatches alone, as the reference's ``shard_map`` does; else
   the rows are all-gathered first, so that the dispatch is the grouped
-  one over the whole batch).
+  one over the whole batch).  ``moe_impl="dense"`` has no capacity and
+  gathers nothing: each ``model`` rank runs its own experts over its
+  own rows, weights them by the combine weights of those experts and
+  the float32 partials are summed over ``model`` (:meth:`_Program
+  .moe_dense`);
 
 Decode returns new caches (the arguments are left as they are, as
 ``jax.jit`` without donation leaves them), written where the position's
-own rows and heads are.
+own rows and heads are.  Caches handed in another layout than
+``cache_shardings``' (replicated, say, or the batch over ``model``) are
+relaid to it on entry (:func:`relayout`, its gathers charged), and the
+new caches leave in the caller's ``out_shardings``.
 
 - the PuM MLP (``cfg.pum != "off"`` with a relu) quantizes each
   position's column-parallel ``up`` slice and runs its relu as one
@@ -121,9 +128,11 @@ its cotangent where the computation after it is duplicated
 (``copies``).  Over the DATA axes every position's cotangents are
 partials (its rows).  In a no-grad step (serving) nothing of this runs.
 
-Not partitioned yet (``NotImplementedError``, ROADMAP Queue 1):
-``moe_impl="dense"`` (and, in a train step,
-:mod:`~repro_torch.distributed.partition_train`'s ``grad_transform``).
+Not partitioned (``NotImplementedError``, ROADMAP Queue 4): SSD heads
+or conv channels that divide neither way over ``model``
+(:mod:`~repro_torch.distributed.partition_ssm`) and, in a train step,
+microbatch rows that do not divide over the DATA axes
+(:mod:`~repro_torch.distributed.partition_train`).
 """
 
 from __future__ import annotations
@@ -136,6 +145,7 @@ import math
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..launch.mesh import Mesh, mark, on_stream, read_on, wait_for
 from ..models import moe
@@ -144,15 +154,15 @@ from ..models.attention import (NEG_INF, _scale, attention_heads,
 from ..models.layers import (dense, mlp_hidden, pum_relu_hidden, rmsnorm,
                              rope_angles, unembed)
 from ..models.params import tree_leaves, tree_map
-from ..models.quantized import dequantize_weight
+from ..models.quantized import dequantize_weight, effective_weight
 from ..train.serve import make_prefill, make_serve_step
 from ..train.train_loop import make_train_step
 from . import sharding as shd
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-QUEUE = ("ROADMAP Queue 1: moe_impl='dense' and a train step's "
-         "grad_transform are next")
+QUEUE = ("ROADMAP Queue 4: uneven microbatch rows, and SSD heads or conv "
+         "channels that divide neither way, are not partitioned")
 
 _LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_ledgers", default=())
@@ -917,6 +927,8 @@ class _Program:
         experts on ``model`` (a trace of one position runs what that
         position runs there: its experts' dispatch, then the psum)."""
         cfg, pos = self.cfg, self.pos
+        if cfg.moe_impl == "dense":
+            return self.moe_dense(p, h)[0]
         n_e = p["router"].shape[1]
         split = self.splits(n_e)
         whole = cfg.moe_impl != "ep"
@@ -938,6 +950,64 @@ class _Program:
             out = [o.narrow(0, pos.part(k, self.bax) * (o.shape[0] // n),
                             o.shape[0] // n) for k, o in zip(pos.ks, out)]
         return out
+
+    def moe_dense(self, p: dict, h: list, aux: bool = False
+                  ) -> Tuple[list, Optional[list]]:
+        """The dense MoE FFN (``moe_impl="dense"``, the reference's
+        ``moe_forward``: every expert over every token, mask-combined) on
+        each position's rows ``h``, and (``aux``) its load-balance aux.
+        Dense dispatch has no capacity, so no rows are gathered: the
+        routing is a copy at every ``model`` rank, each rank runs its own
+        experts (E on ``model`` where it splits) weighted by the combine
+        weights of those experts, and the float32 partials are summed
+        over ``model`` and rounded once.  The aux is ``n_e · Σ f_e p_e``
+        over the global batch: the per-expert sums of the one-hots and
+        the probabilities all-reduced over the batch axes, then divided
+        (serving leaves it out, as the reference's compiled steps drop
+        it).  Under autograd the rows and the top-k weights enter the
+        split computation through :func:`enter`."""
+        cfg, pos = self.cfg, self.pos
+        n_e = p["router"].shape[1]
+        top_k = cfg.experts_per_token
+        split = self.splits(n_e)
+        e_loc = n_e // self.tp if split else n_e
+        ax = self.M if split else None
+        names = [n for n in ("up", "gate", "down") if n in p]
+        ws = [self.wfetch(p[n], ax, None, None) for n in names]
+        probs, topv, topi = (list(z) for z in zip(*self.map(
+            lambda x, r: moe._route({"router": r}, x, top_k), h,
+            self.fetch(p["router"], None, None))))
+        xs, tv = (self.enter(h), self.enter(topv)) if split else (h, topv)
+
+        def experts(x, v, i, k, *w):
+            lo = self.rank(k) * e_loc if split else 0
+            onehot = F.one_hot(i, n_e).to(torch.float32)[..., lo:lo + e_loc]
+            comb = torch.einsum("blk,blke->ble", v, onehot)
+            pw = dict(zip(names, w))
+            up = torch.einsum("bld,edf->blef", x,
+                              effective_weight(pw["up"], x.dtype))
+            g = (torch.einsum("bld,edf->blef", x,
+                              effective_weight(pw["gate"], x.dtype))
+                 if "gate" in pw else None)
+            out = torch.einsum("blef,efd->bled", moe._act(up, g, cfg.act),
+                               effective_weight(pw["down"], x.dtype))
+            # the reference rounds the combine weights to the outputs'
+            # dtype; the sum over experts is float32 until model_sum's
+            return torch.einsum("bled,ble->bld", out.to(torch.float32),
+                                comb.to(out.dtype).to(torch.float32))
+
+        out = self.map(experts, xs, tv, topi, list(pos.ks), *ws)
+        if split:
+            out = self.model_sum(out)
+        out = self.map(lambda o, x: o.to(x.dtype), out, h)
+        if not aux:
+            return out, None
+        sums = all_reduce(pos, self.map(lambda pr, i: torch.stack([
+            F.one_hot(i, n_e).to(torch.float32).sum((0, 1, 2)),
+            pr.sum((0, 1))]), probs, topi), self.bax)
+        n_tok = h[0].shape[0] * h[0].shape[1] * pos.size(self.bax)
+        return out, self.map(
+            lambda s: n_e * torch.sum((s[0] / n_tok) * (s[1] / n_tok)), sums)
 
     def _moe_rank(self, n_e, split, names, x, k, *ws):
         """What ``moe_forward_ep`` runs at model rank ``k``'s position on
@@ -1130,6 +1200,9 @@ class _Program:
 
     def decode(self, params: dict, caches: dict, token: Dist, pos_: Dist,
                memory: Optional[Dist] = None) -> Tuple[list, tuple, dict]:
+        """(logits, their spec, the new caches as a tree of
+        :class:`Dist` in the layout decode computed them in)."""
+        caches = self.relay_caches(caches)
         self.bax = self._cache_layout(caches)
         ids = self.fetch(token, self.bax)
         at = self.fetch(pos_, self.bax)
@@ -1145,58 +1218,45 @@ class _Program:
         x = self.blocks(params["blocks"], params["ln_f"], x, positions, new,
                         idx, mem)
         logits, spec = self.readout(params, x)
-        return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2), new
+        return self.map(lambda t: t[:, 0, :], logits), _spec(spec, 2), \
+            tree_map(lambda d, *vals: Dist(d.shape, d.spec, list(vals)),
+                     caches, *new)
+
+    def relay_caches(self, caches: dict) -> dict:
+        """``caches`` in ``cache_shardings``' layout, the one decode
+        computes on: each leaf laid out otherwise gathered over its old
+        axes and cut by the new ones (:func:`relayout`, its gathers
+        charged; a replicated leaf is only cut)."""
+        want = shd.cache_shardings(tree_map(_Like, caches), self.pos.mesh)
+
+        def one(d: Dist, sh) -> Dist:
+            spec = _spec(sh.spec, len(d.shape))
+            return d if d.spec == spec else Dist(
+                d.shape, spec, relayout(self.pos, d, *spec))
+
+        return tree_map(one, caches, want)
 
     def _cache_layout(self, caches: dict) -> Tuple[str, ...]:
-        """The batch axes of ``caches`` (every cache's the same), after
-        checking that each cache has the layout of ``cache_shardings``
-        this program computes on (an int8 cache's scales laid out as its
-        entries without ``head_dim``); sets attention's mode from the kv
-        cache's."""
-        data = set(shd.data_axes(self.pos.mesh))
-        m = _axes(self.M)
-        bax = None
-
-        def batch(d: Dist) -> Tuple[str, ...]:
-            nonlocal bax
-            b = _axes(d.spec[1])
-            if d.spec[0] or not set(b) <= data or bax not in (None, b):
-                raise NotImplementedError(
-                    f"a cache laid out as {d.spec}: decode partitions the "
-                    f"layouts of cache_shardings ({QUEUE})")
-            bax = b
-            return b
-
+        """The batch axes of ``caches`` in ``cache_shardings``' layout;
+        sets attention's mode from the kv cache's (its heads, else its
+        ``head_dim``, over ``model``, else neither)."""
         if "attn" in caches:
-            k = caches["attn"]["k"]
-            for name, d in caches["attn"].items():
-                want = k.spec[:4] if name.endswith("_scale") else k.spec
-                if d.spec != want:
-                    raise NotImplementedError(
-                        f"cache {name} laid out as {d.spec}, k as {k.spec}")
-            ax = [_axes(a) for a in k.spec]
-            batch(k)
-            if ax[2] or any(a not in ((), m) for a in ax[3:]) or (
-                    ax[3] and ax[4]):
-                raise NotImplementedError(
-                    f"a cache laid out as {k.spec}: decode partitions the "
-                    f"layouts of cache_shardings ({QUEUE})")
+            ax = [_axes(a) for a in caches["attn"]["k"].spec]
             self.mode = "heads" if ax[3] or self.tp == 1 else \
                 "hd" if ax[4] else "full"
-        if "ssm" in caches:
-            from .partition_ssm import ssm_mode
-            split = ssm_mode(self.cfg, self.tp)
-            heads, p = (m, ()) if split == "heads" else ((), m)
-            # (L, B, H, N, P) and (L, B, K - 1, channels)
-            for name, want in (("ssm", (heads, (), p)), ("conv", ((), m))):
-                d = caches["ssm"][name]
-                batch(d)
-                if tuple(_axes(a) for a in d.spec[2:]) != want:
-                    raise NotImplementedError(
-                        f"an SSM {name} cache laid out as {d.spec}: decode "
-                        f"partitions the layouts of cache_shardings "
-                        f"({QUEUE})")
-        return bax or ()
+            return ax[1]
+        return _axes(caches["ssm"]["ssm"].spec[1])
+
+
+class _Like:
+    """A leaf's shape for the sharding rules, with no tensor made: a
+    trace on ``meta`` counts every tensor an op makes."""
+
+    def __init__(self, d: Dist):
+        self.shape = d.shape
+
+    def dim(self) -> int:
+        return len(self.shape)
 
 
 def _device(pw: dict) -> torch.device:
@@ -1257,12 +1317,6 @@ def _recognise(step) -> Tuple[str, dict]:
     return ("prefill" if code is _PREFILL else "decode"), _cells(fn)
 
 
-def _unsupported(cfg) -> Optional[str]:
-    if cfg.n_experts and cfg.moe_impl == "dense":
-        return "moe_impl='dense'"
-    return None
-
-
 class PartitionedStep:
     """A prefill or decode step partitioned over the mesh of its
     shardings (see :func:`partitioned_step`)."""
@@ -1270,10 +1324,6 @@ class PartitionedStep:
     def __init__(self, step, in_shardings, out_shardings):
         self.kind, self.closure = _recognise(step)
         self.cfg = self.closure["cfg"]
-        what = _unsupported(self.cfg)
-        if what is not None:
-            raise NotImplementedError(f"partitioned_step does not partition "
-                                      f"{what} ({QUEUE})")
         self.names = list(inspect.signature(step).parameters)
         self.in_shardings = tuple(in_shardings)
         if len(self.in_shardings) > len(self.names):
@@ -1339,12 +1389,10 @@ class PartitionedStep:
             return out
         cs = self._out_sharding(1)
         return out, {group: {
-            name: self._out(pos, Dist(d.shape, d.spec,
-                                      [c[group][name] for c in new]),
-                            None if cs is None
+            name: self._out(pos, d, None if cs is None
                             else shd._sharding_at(cs, (group, name)))
             for name, d in leaves.items()}
-            for group, leaves in dists["caches"].items()}
+            for group, leaves in new.items()}
 
     def _placed(self, leaf, sh) -> Dist:
         """An argument's leaf as the pieces its sharding ``sh`` lays out
@@ -1392,7 +1440,8 @@ class PartitionedStep:
         want = target.spec if target is not None else ()
         logits = relayout(pos, Dist(_shape(logits, spec, pos), spec, logits),
                           *_spec(want, 2))[0]
-        return logits if new is None else (logits, new[0])
+        return logits if new is None else (
+            logits, tree_map(lambda d: d.vals[0], new))
 
 
 def _shape(vals: list, spec: tuple, pos: Positions) -> torch.Size:

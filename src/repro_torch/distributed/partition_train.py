@@ -31,7 +31,14 @@ own shards of the params, the optimizer state and the batch:
   position dispatches the whole microbatch (its rows all-gathered over
   DATA) with the whole microbatch's capacity; ``"ep"`` dispatches each
   data shard's rows alone, as the reference's ``shard_map`` does, whose
-  aux is then data shard 0's (each position reports its own shard's);
+  aux is then data shard 0's (each position reports its own shard's).
+  With the batch over other axes than the DATA axes, ``"ep"`` relays
+  the rows to the DATA axes first (the ``shard_map``'s ``in_specs``),
+  and its ranks' partials are reduce-scattered back over ``model``.
+  ``"dense"`` runs each rank's experts over its own rows
+  (``partition._Program.moe_dense``), the gradient reaching the router
+  through the combine weights and the aux, which is the global batch's
+  (its per-expert sums all-reduced over DATA) at every position;
 - **the loss is vocab-parallel**: logits stay split over ``model``, each
   rank takes its log-sum-exp over its vocabulary slice, the ranks'
   values are all-gathered and combined in rank order, and the gold logit
@@ -58,14 +65,24 @@ own shards of the params, the optimizer state and the batch:
   and add up in the reference's leaf order; the clip scale, ``lr`` and
   the step are then the same at every position, and each position
   updates its own shards of the params, ``mu`` and ``nu`` (in the
-  moments' layout, which ``"dp2"`` makes differ from the params').
+  moments' layout, which ``"dp2"`` makes differ from the params');
+- **a ``grad_transform``** sees what it sees under GSPMD, the logical
+  whole gradients: each leaf is all-gathered whole at every position,
+  the callable runs on the whole tree there (the same values at every
+  position), the global norm is taken over every leaf it returned (a
+  pair ``(grads, residuals)`` counts both, and its first leaves step the
+  params, as the reference's ``update`` does) and each gradient is cut
+  back to the moments' layout (:func:`transformed`).  A shard-wise
+  application would differ: ``compressed_grad_transform`` quantizes each
+  flattened leaf in blocks of 256, which a shard's cut does not keep.
 
-Layouts: the batch must split over every DATA axis, and every other axis
-of the mesh is ``model`` (tensor parallel) or also splits the batch
+Layouts: the batch splits over every DATA axis, and every other axis of
+the mesh is ``model`` (tensor parallel) or also splits the batch
 (``param_shardings``' ``"dp"``/``"dp2"``, whose program has no tensor
-parallelism).  A ``grad_transform`` is not partitioned
-(``NotImplementedError``, ROADMAP Queue 1); neither is
-``moe_impl="dense"``, which ``partition`` refuses.  An encoder-decoder's
+parallelism); a batch laid out otherwise (replicated, over some of the
+DATA axes, over ``model``) is relaid to the DATA axes on entry.
+Microbatch rows that do not divide over the DATA axes are not
+partitioned (``NotImplementedError``, ROADMAP Queue 4).  An encoder-decoder's
 memory enters each decoder block's cross-attention through
 ``partition.enter`` over ``model``, so each block's partial cotangents
 are all-reduced there, and the encoder's weights take the decoder's FSDP
@@ -83,7 +100,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..models import moe
 from ..models.layers import _dtype
-from ..models.params import tree_map
+from ..models.params import flatten, tree_map, unflatten
 from ..models.transformer import _save_products
 from ..train import optimizer as opt
 from . import partition as part
@@ -132,13 +149,13 @@ def relay(pos: Positions, vals: list, axes: Tuple[str, ...],
 
 
 def _batch_axes(mesh, tokens: Dist) -> Tuple[str, ...]:
+    """The axes the step splits the batch over: the tokens' where they
+    hold every data axis and any other is ``model``, else the DATA axes
+    (the batch is relaid to them)."""
     bax = _axes(tokens.spec[0])
     if not set(shd.data_axes(mesh)) <= set(bax) or \
             not set(mesh.axis_names) - set(bax) <= {"model"}:
-        raise NotImplementedError(
-            f"a batch laid out as {tokens.spec} over {mesh!r}: the "
-            f"partitioned train step splits the batch over every data axis, "
-            f"and any other axis is model ({QUEUE})")
+        return shd.data_axes(mesh)
     return bax
 
 
@@ -203,7 +220,10 @@ class _TrainProgram(part._Program):
             x = self.map(lambda h: h[:, vp:, :], x)
         logits, (_, ax) = self.readout(params, x)
         loss = self.xent(logits, ax, mb["labels"])
-        aux = part.share(pos, aux, self.bax)
+        if cfg.moe_impl != "dense":
+            # the dense aux is the global batch's, all-reduced over DATA:
+            # every position's cotangent of it is the whole one
+            aux = part.share(pos, aux, self.bax)
         moe_w = 0.01 if cfg.n_experts else 0.0
         total = self.map(lambda l, a: l + moe_w * a, loss, aux)
         return total, loss, aux
@@ -261,6 +281,8 @@ class _TrainProgram(part._Program):
         at every ``model`` rank, the dispatch to the rank's experts, the
         ranks' partials added (see the module docstring)."""
         cfg, pos = self.cfg, self.pos
+        if cfg.moe_impl == "dense":
+            return self.moe_dense(p, h, aux=True)
         mesh = pos.mesh
         n_e = p["router"].shape[1]
         top_k = cfg.experts_per_token
@@ -268,8 +290,7 @@ class _TrainProgram(part._Program):
         ep = cfg.moe_impl == "ep" and "model" in mesh.axis_names and \
             n_e % mesh.shape["model"] == 0
         if ep and self.bax != shd.data_axes(mesh):
-            raise NotImplementedError(f"moe_impl='ep' with the batch over "
-                                      f"{self.bax} ({QUEUE})")
+            return self.moe_ep_relaid(p, h)
         gather = bool(self.bax) and not ep
         x = part.all_gather(pos, h, self.bax, 0) if gather else h
         ax = self.M if split else None
@@ -304,6 +325,46 @@ class _TrainProgram(part._Program):
                    for k, o in zip(pos.ks, out)]
         aux = self.map(lambda pr, ti: moe.load_balance_aux(pr, ti, n_e),
                        probs, topi)
+        return out, aux
+
+    def moe_ep_relaid(self, p: dict, h: list) -> Tuple[list, list]:
+        """``moe_impl="ep"`` with the batch over other axes than the DATA
+        axes (``model`` among them): the rows relaid to the DATA axes, as
+        the reference's ``shard_map`` ``in_specs`` reshard them, each
+        ``model`` rank dispatching its data shard's rows to its own
+        experts, and the ranks' partials reduce-scattered over ``model``
+        back to each position's rows.  Every position's cotangents stay
+        partials of its rows (the program has no tensor parallelism), so
+        the relayout's gather sums them back (its reduce-scatter)."""
+        cfg, pos = self.cfg, self.pos
+        data, m = shd.data_axes(pos.mesh), ("model",)
+        n_e = p["router"].shape[1]
+        top_k = cfg.experts_per_token
+        e_loc = n_e // pos.size(m)
+        b, l, d = h[0].shape
+        whole = torch.Size((b * pos.size(self.bax), l, d))
+        x = part.relayout(pos, Dist(whole, (self.bax, None, None), h), data)
+        names = [n for n in ("up", "gate", "down") if n in p]
+        ws = [part.relayout(pos, p[n], "model", None, None) for n in names]
+        bd = x[0].shape[0]
+        cap = max(1, int(1.25 * bd * l * top_k / n_e))
+
+        def local(xb, r, k, *w):
+            xt = xb.reshape(bd * l, d)
+            probs, topv, topi = moe._route({"router": r}, xt, top_k)
+            out = moe.dispatch_local(
+                dict(zip(names, w)), xt, topv, topi, act=cfg.act, cap=cap,
+                e_lo=pos.part(k, m) * e_loc, e_loc=e_loc)
+            return out.reshape(bd, l, d), moe.load_balance_aux(probs, topi,
+                                                               n_e)
+
+        out, aux = (list(z) for z in zip(*self.map(
+            local, x, self.fetch(p["router"], None, None), list(pos.ks),
+            *ws)))
+        out = part.reduce_scatter(pos, out, m, 0)
+        if data + m != self.bax:
+            out = part.relayout(pos, Dist(whole, (data + m, None, None), out),
+                                self.bax)
         return out, aux
 
     def xent(self, logits: list, ax, labels: list) -> list:
@@ -375,10 +436,35 @@ def _per_position(tree, i: int):
     return tree_map(lambda d: d.vals[i], tree)
 
 
-def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict):
+def transformed(pos: Positions, transform: Callable, like: dict,
+                grads: List[Dist]) -> Tuple[List[Dist], list]:
+    """A train step's ``grad_transform`` on the summed gradients
+    ``grads`` (the leaves of ``like``, in ``flatten``'s order), as GSPMD
+    applies it to logical whole arrays: each leaf all-gathered whole at
+    every position (charged), the callable applied to the whole tree at
+    each position, the global norm taken over every leaf it returned,
+    and its first leaves, one a parameter in ``flatten``'s order (the
+    reference's ``update`` zips them so: a pair ``(grads, residuals)``
+    steps on its first element), cut back to the gradients' layout.
+    Returns (those gradients, the norm at each position)."""
+    with torch.no_grad():
+        whole = [part.relayout(pos, g, *(None,) * len(g.shape))
+                 for g in grads]
+        shape = tree_map(lambda d: None, like)
+        outs = pos.map(lambda *ws: transform(unflatten(shape, list(ws))),
+                       *whole)
+        gnorm = pos.map(opt.global_norm, outs)
+        flat = [flatten(o)[:len(grads)] for o in outs]
+        return [Dist(g.shape, g.spec, part.relayout(
+            pos, Dist(g.shape, (None,) * len(g.shape), [f[j] for f in flat]),
+            *g.spec)) for j, g in enumerate(grads)], gnorm
+
+
+def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict,
+          transform: Optional[Callable] = None):
     """(new params, new optimizer state, metrics) at ``pos``: the params
     and moments as trees of :class:`Dist`, the metrics as lists, one
-    value a position."""
+    value a position; ``transform`` the step's ``grad_transform``."""
     params, state, batch = (dists["params"], dists["opt_state"],
                             dists["batch"])
     mesh = pos.mesh
@@ -428,7 +514,10 @@ def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict):
     it = iter(acc)
     gleaves = [Dist(d.shape, d.spec, [next(it) for _ in d.vals])
                for d in leaves]
-    gnorm = prog.global_norm(gleaves)
+    if transform is None:
+        gnorm = prog.global_norm(gleaves)
+    else:
+        gleaves, gnorm = transformed(pos, transform, live, gleaves)
 
     # each position updates its shards in the moments' layout
     with torch.no_grad():
@@ -478,16 +567,13 @@ class PartitionedTrainStep(part.PartitionedStep):
     def __init__(self, step, in_shardings, out_shardings):
         super().__init__(step, in_shardings, out_shardings)
         c = self.closure
-        if c["grad_transform"] is not None:
-            raise NotImplementedError(f"partitioned_step does not partition "
-                                      f"a grad_transform ({QUEUE})")
-        self.ocfg, self.n_mb, self.remat = (c["ocfg"], c["n_microbatches"],
-                                            c["remat"])
+        self.ocfg, self.n_mb, self.remat, self.transform = (
+            c["ocfg"], c["n_microbatches"], c["remat"], c["grad_transform"])
 
     def _run(self, pos: Positions, dists: dict):
         with torch.enable_grad():
             return _step(pos, self.cfg, self.ocfg, self.n_mb, self.remat,
-                         dists)
+                         dists, self.transform)
 
     def _outputs(self, pos: Positions, new_p: dict, new_s, leaf):
         """The new params and optimizer state, each leaf ``leaf(d,

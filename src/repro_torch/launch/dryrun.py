@@ -41,11 +41,13 @@ extrapolate, because XLA counts a scan body once) is not needed:
 ``depth_calibrated`` is False, ``flops_per_device_raw`` equals
 ``flops_per_device`` and ``collective_bytes_raw`` ``collective_bytes``.
 ``flops_per_device`` stays the unpartitioned step's count over the
-devices.  The encoder-decoder's cells and the serving levers
-(``--quantize``, ``--kvint8``, ``--kvpad``) are partitioned and filled
-like any other; only a config the partitioned program refuses
-(``moe_impl="dense"``) keeps None in the four fields, with the reason
-under ``not_measured``.  In a train cell under ``remat="dots"`` the
+devices.  The encoder-decoder's cells, the serving levers
+(``--quantize``, ``--kvint8``, ``--kvpad``) and a config with
+``moe_impl="dense"`` are partitioned and filled like any other; only a
+config the partitioned program refuses (SSD heads or conv channels that
+divide neither way over ``model``, or a train cell's microbatch rows
+that do not divide over the data axes) keeps None in the four fields,
+with the reason under ``not_measured``.  In a train cell under ``remat="dots"`` the
 recompute's all-gathers count again, as XLA's re-gathers of the FSDP
 backward do.
 """
@@ -277,12 +279,12 @@ def _trace_position(fn, in_sh, out_sh, args, kwargs):
     try:
         step = partitioned_step(fn, in_sh, out_sh)
         local = step.local_arguments(*args, **kwargs)
+        leaves = [t for d in pytree.tree_leaves(
+            local, is_leaf=lambda x: isinstance(x, Dist)) for t in d.vals]
+        with CollectiveLedger() as ledger, DeviceBytes(leaves) as counter:
+            step.run_position(local)
     except NotImplementedError as e:
         return None, str(e)
-    leaves = [t for d in pytree.tree_leaves(
-        local, is_leaf=lambda x: isinstance(x, Dist)) for t in d.vals]
-    with CollectiveLedger() as ledger, DeviceBytes(leaves) as counter:
-        step.run_position(local)
     return {"colls": ledger.totals(), "bytes": counter.accessed,
             "peak": counter.peak}, ""
 

@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models.params import flatten, tree_map
+from ..models.params import flatten, tree_map, unflatten
 
 
 @dataclass(frozen=True)
@@ -95,7 +95,13 @@ def update(
         newp = pf - lr * (delta + wd * pf)
         return newp.to(p.dtype), m_new, v_new
 
-    out = tree_map(upd, params, grads, state.mu, state.nu)
-    new_p, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
+    # the reference zips the params' leaves with the gradients' leaves in
+    # flatten order: a transform that returns a pair (grads, residuals)
+    # steps on its first element, while the norm above counted both
+    flat_p = flatten(params)
+    out = [upd(p, g, m, v) for p, g, m, v in zip(
+        flat_p, flatten(grads), flatten(state.mu), flatten(state.nu))]
+    new_p, new_m, new_v = (unflatten(params, [o[i] for o in out])
+                           for i in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, OptState(step=step, mu=new_m, nu=new_v), metrics

@@ -13,8 +13,11 @@
   the reference's specs, ``bytes_per_device`` at least the argument
   bytes, argument and output bytes within ``peak_bytes``, ``temp_bytes``
   the peak less both.  ``DeviceBytes`` on a program of known sizes
-  reads its exact bytes and peak; a refused config's cell
-  (``moe_impl="dense"``) keeps None with its reason.
+  reads its exact bytes and peak; a refused config's cell (SSD heads
+  that divide neither way over 16 model ranks) keeps None with its
+  reason.
+- The smoke granite-moe-1b-a400m x decode_32k cell with
+  ``moe_impl="dense"``: its collective bytes ``==`` the closed form.
 - The smoke yi-6b x train_4k cell, counted from position 0's partitioned
   train step: its all-gather and reduce-scatter bytes ``==`` their
   closed form (the forward's and the recompute's gathers, the
@@ -199,11 +202,13 @@ def test_device_bytes_of_a_known_program():
 
 
 @pytest.mark.parametrize("arch,shape_name,replace,why", [
-    ("granite-moe-1b-a400m", "decode_32k", {"moe_impl": "dense"},
-     "does not partition moe_impl='dense'")])
+    ("mamba2-370m", "decode_32k", {"ssm_expand": 3, "ssm_head_dim": 24},
+     "8 SSD heads of 24 over 16 model ranks: neither divides")])
 def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
-    """A cell of a config the partitioned program refuses keeps None in
-    the four fields, each with its reason."""
+    """A cell of a config the partitioned program refuses (smoke
+    mamba2-370m with a ``d_inner`` of 192 in 8 SSD heads of 24, neither
+    of which divides 16 model ranks) keeps None in the four fields,
+    each with its reason."""
     res = lower_cell(arch, shape_name,
                      cfg_override=smoke_config(arch).replace(**replace))
     assert res["bytes_per_device"] is None
@@ -215,7 +220,58 @@ def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
     for key in ("bytes_per_device", "collective_bytes", "temp_bytes",
                 "peak_bytes"):
         assert why in res["not_measured"][key]
-    assert "ROADMAP Queue 1" in res["not_measured"]["peak_bytes"]
+    assert "ROADMAP Queue 4" in res["not_measured"]["peak_bytes"]
+
+
+def test_smoke_dense_moe_cell_equals_closed_form():
+    """granite-moe-1b-a400m x decode_32k with ``moe_impl="dense"`` at
+    ``smoke_config`` on 16 x 16, counted from position 0's partitioned
+    decode: all four fields are numbers, and the all-gather and
+    all-reduce bytes ``==`` their closed form.  The 2 kv heads do not
+    divide 16 model ranks, so the cache splits ``head_dim`` and q, k, v
+    and o are gathered whole (over ``data``, each output the shard
+    times 16, then over ``model``); the 4 experts do not divide 16
+    ranks either, so every rank runs all of them on its own rows (the
+    up, gate and down stacks gathered over ``data``) and their sum
+    needs no all-reduce.  All-reduces, twice their input bytes: the
+    embedding's lookup (bf16), each layer's partial scores over the
+    32,768 slots and its attention output's row partial (float32).  The
+    dense dispatch gathers no rows; serving drops the aux, as the
+    reference's compiled step does."""
+    arch, replace = "granite-moe-1b-a400m", {"moe_impl": "dense"}
+    res = lower_cell(arch, "decode_32k",
+                     cfg_override=smoke_config(arch).replace(**replace))
+    rcfg = ref_smoke_config(arch).replace(**replace)
+    mesh = ref_shd.abstract_mesh((16, 16), ("data", "model"))
+    params = jax.eval_shape(lambda k: ref_tf.init_lm(k, rcfg),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    specs = ref_shd.param_shardings(params, mesh)
+    layers, n_data, d = rcfg.n_layers, 16, rcfg.d_model
+    rows, slots = SHAPES_BY_NAME["decode_32k"].global_batch // n_data, 32768
+
+    def gathered(*path, whole=False):
+        t, spec = params["blocks"], specs["blocks"]
+        for k in path:
+            t, spec = t[k], spec[k]
+        assert "data" in tuple(spec.spec), path
+        n = ref_shard_bytes(mesh, t, spec.spec) // layers
+        return n_data * n + (math.prod(t.shape[1:]) * 2 if whole else 0)
+
+    per_layer = sum(gathered("attn", n, "w", whole=True)
+                    for n in ("q", "k", "v", "o")) + sum(
+        gathered("moe", n) for n in ("up", "gate", "down"))
+    gathers = layers * per_layer
+    scores = rows * rcfg.n_heads * slots * 4
+    reduces = 2 * (rows * d * 2 + layers * (scores + rows * d * 4))
+    assert (gathers, reduces) == (150_528, 16_787_456)
+    assert res["collective_bytes"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0, "total": gathers + reduces}
+    mem = res["memory"]
+    assert None not in (res["bytes_per_device"], mem["temp_bytes"],
+                        mem["peak_bytes"])
+    assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert set(res["not_measured"]) == {"depth_calibrated"}
 
 
 @pytest.mark.parametrize("arch,replace", [

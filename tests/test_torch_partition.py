@@ -24,9 +24,8 @@ positions, and the unsharded jitted steps beside them.
   case a kind.
 - Planted faults read above 1e-5: one model rank's partial dropped from
   one all-reduce, and a position computing on another's cache slice.
-- What the slice does not partition raises: ``moe_impl="dense"`` and
-  any other function; padded kv heads, seamless-m4t-medium and an int8
-  tree run.
+- Any other function raises; padded kv heads, seamless-m4t-medium, an
+  int8 tree and ``moe_impl="dense"`` run.
 """
 
 import json
@@ -501,12 +500,12 @@ def test_position_trace_has_the_run_shapes(ref):
 @pytest.mark.parametrize("what", ["padded-kv-heads", "seamless-m4t-medium",
                                   "int8", "moe-dense"])
 def test_unsupported_raise(what):
-    """``moe_impl="dense"`` still raises (ROADMAP Queue 1).  Padded kv
-    heads, seamless-m4t-medium and an int8 tree partition over (2, 2): a
-    decode (padded heads) or prefill equals the unpartitioned step
-    within 1e-5 (their parity with the reference:
-    ``test_torch_partition_int8.py`` and
-    ``test_torch_partition_encdec.py``)."""
+    """Padded kv heads, seamless-m4t-medium, an int8 tree and
+    ``moe_impl="dense"`` partition over (2, 2): a decode (padded heads)
+    or prefill equals the unpartitioned step within 1e-5 (their parity
+    with the reference: ``test_torch_partition_int8.py``,
+    ``test_torch_partition_encdec.py`` and
+    ``test_torch_partition_dense.py``)."""
     mesh = cpu_mesh((2, 2))
     arch = {"padded-kv-heads": "yi-6b", "int8": "yi-6b",
             "moe-dense": "granite-moe-1b-a400m"}.get(what, what)
@@ -521,12 +520,6 @@ def test_unsupported_raise(what):
         params = quantize_tree(params)
     ps = shd.param_shardings(params, mesh)
     vec = shd.vector_sharding(mesh, BATCH)
-    if what == "moe-dense":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") \
-                as err:
-            partition.partitioned_step(make_prefill(cfg), (ps, vec), vec)
-        assert "moe_impl='dense'" in str(err.value)
-        return
     if what == "padded-kv-heads":
         caches = {"attn": {k: torch.randn(v.shape, generator=gen) for k, v in
                            init_caches(cfg, BATCH, CACHE, "cpu")["attn"]

@@ -37,7 +37,7 @@ position's FLOPs at most 1.25 x the unpartitioned step's share, no
 argument gathered, the backward's collectives charged by the ring
 accounting, three planted faults read above 1e-5, other archs and the
 ``"dp"``/``"dp2"`` layouts against the unpartitioned step, and what is
-not partitioned raises.
+not partitioned (uneven microbatch rows) raises.
 """
 
 import json
@@ -57,7 +57,8 @@ from repro_torch.distributed import partition, partition_train
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers
-from repro_torch.models.params import flatten, params_from_numpy, unflatten
+from repro_torch.models.params import (flatten, params_from_numpy, tree_map,
+                                       unflatten)
 from repro_torch.models.transformer import init_lm
 from repro_torch.train import optimizer as opt
 from repro_torch.train.compression import compressed_grad_transform
@@ -707,6 +708,12 @@ def test_local_microbatches_read_above_tolerance(ref, monkeypatch):
 # -- what the train step does not partition -------------------------------------------
 
 def test_train_refusals():
+    """Uneven microbatch rows still raise (ROADMAP Queue 4).  A
+    ``grad_transform``, ``moe_impl="dense"``, an encoder-decoder and a
+    replicated batch partition: position 0's step runs on ``meta``
+    (their parity with the reference: ``test_torch_partition_transform
+    .py``, ``test_torch_partition_dense.py`` and
+    ``test_torch_partition_encdec.py``)."""
     mesh = cpu_mesh((2, 2))
     cfg = smoke_config("yi-6b")
     params = init_lm(cfg, device="meta")
@@ -716,14 +723,26 @@ def test_train_refusals():
     sh = (shd.param_shardings(params, mesh),
           shd.opt_shardings(state, params, mesh),
           shd.batch_shardings(batch, mesh))
-    res = {"tokens": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="grad_transform"):
-        partition.partitioned_step(
-            _step(cfg, 1, grad_transform=compressed_grad_transform(res)),
-            sh, None)
+    res = tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                         device="meta"), params)
+    step = partition.partitioned_step(
+        _step(cfg, 1, grad_transform=compressed_grad_transform(res)), sh,
+        None)
+    new_p, _, metrics = step.run_position(step.local_arguments(
+        params, state, batch))
+    assert metrics["grad_norm"].device.type == "meta"
+    # no out shardings: the new params come back whole
+    assert [t.shape for t in flatten(new_p)] == [t.shape
+                                                 for t in flatten(params)]
     dense = smoke_config("granite-moe-1b-a400m").replace(moe_impl="dense")
-    with pytest.raises(NotImplementedError, match="moe_impl='dense'"):
-        partition.partitioned_step(_step(dense, 1), sh, None)
+    d_params = init_lm(dense, device="meta")
+    d_state = opt.init(d_params)
+    step = partition.partitioned_step(_step(dense, 1), (
+        shd.param_shardings(d_params, mesh),
+        shd.opt_shardings(d_state, d_params, mesh), sh[2]), None)
+    _, _, metrics = step.run_position(step.local_arguments(
+        d_params, d_state, batch))
+    assert metrics["aux"].device.type == "meta"
     # the encoder-decoder partitions: position 0's step runs on meta (its
     # parity with the reference: tests/test_torch_partition_encdec.py)
     encdec = smoke_config("seamless-m4t-medium")
@@ -741,5 +760,11 @@ def test_train_refusals():
     assert set(new_p) >= {"enc_blocks", "enc_ln_f", "frontend_proj"}
     whole = {k: shd.replicated(mesh) for k in batch}
     step = partition.partitioned_step(_step(cfg, 1), sh[:2] + (whole,), None)
-    with pytest.raises(NotImplementedError, match="every data axis"):
-        step.run_position(step.local_arguments(params, state, batch))
+    _, _, metrics = step.run_position(step.local_arguments(params, state,
+                                                           batch))
+    assert metrics["loss"].device.type == "meta"
+    uneven = {k: torch.empty((6, 16), dtype=torch.int32, device="meta")
+              for k in batch}
+    step = partition.partitioned_step(_step(cfg, 2), sh, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 4"):
+        step.run_position(step.local_arguments(params, state, uneven))
