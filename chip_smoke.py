@@ -394,6 +394,21 @@ Chrome trace goes to ``--trace`` (default
      logits and cache shards within ``PARTITION_REL``, the caches
      relabelled without being relaid must read more.  Runs before the
      kernels line and launches none of K1-K6;
+ 22. layouts that do not divide, which the partitioned program refused
+     before, over ``cuda:0`` positions, each against the unpartitioned
+     step of the same weights: (22a) hymba-1.5b at its published width
+     (``UNEVEN_HYMBA_LAYERS`` layers, bf16) over (1, 3), its SSD, conv
+     and attention whole at every model rank: a prefill of
+     ``UNEVEN_PREFILL`` past the window and ``UNEVEN_DECODE_STEPS``
+     decode steps, logits and every cache shard within
+     ``UNEVEN_SERVE_REL``, the whole SSD output summed over ``model``
+     must read more; (22b) mamba2-370m (``UNEVEN_MAMBA_LAYERS`` layers,
+     float32) over (2, 3), its SSD whole and its conv split, train steps
+     of ``UNEVEN_TRAIN`` whose 3-row microbatches split 2 and 1 over the
+     data parts: loss, grad_norm and each leaf's ``mu`` within
+     ``UNEVEN_TRAIN_REL``, the conv gather's ``copies`` transpose dropped
+     and a per-position loss mean must read more.  Runs before the
+     kernels line and launches none of K1-K6;
  11. one JSON line with every kernel's launches on its path, its
      agreement with its plain version (per path: the launches, the
      calls compared at the path's shapes and their largest error;
@@ -893,6 +908,45 @@ CLOSE_MOVED_EPS = 1e-4
 CLOSE_MOVED = 0.01
 CLOSE_CACHE_SPEC = (None, "model", None, "data", None)
 CLOSE_SEED = 41
+# phase 22: layouts that do not divide, which the partitioned program
+# refused before, over cuda:0 positions.  22a: hymba-1.5b at its
+# published width (UNEVEN_HYMBA_LAYERS of its 32 layers, bf16) over
+# UNEVEN_SERVE_MESH, where its 50 SSD heads of 64, its 3,232 conv
+# channels and its attention (25 query over 5 kv heads of 64) all stay
+# whole at every model rank and only the vocabulary splits: a prefill of
+# UNEVEN_PREFILL (rows, tokens: past the 1,024-token window) and
+# UNEVEN_DECODE_STEPS decode steps of UNEVEN_DECODE (rows, first
+# position: the ring has wrapped), the whole SSD output summed over
+# model (planted) must read more; 22b: mamba2-370m at its published
+# width (UNEVEN_MAMBA_LAYERS of its 48 layers, SSM_TRAIN_DTYPE, SSD
+# chunks of SSM_TRAIN_CHUNK) over UNEVEN_TRAIN_MESH, its 32 SSD heads of
+# 64 whole and its 2,304 conv channels split, UNEVEN_TRAIN (rows, tokens,
+# microbatches, steps) train steps: 3 rows a microbatch over 2 data
+# parts, 2 and 1; the conv gather's backward without its copies
+# transpose, and each data position's loss over its own mask count
+# averaged over the positions (planted), must read more.  Logits and
+# cache shards within UNEVEN_SERVE_REL, loss, grad_norm and mu within
+# UNEVEN_TRAIN_REL of the unpartitioned step, set between the sound
+# readings and the planted faults of
+# experiments/partition_uneven_tolerance.py over 6 seeds (H100 80GB HBM3,
+# 700.00 W): 22a sound 0.0 in every seed (the same products, three
+# times), the summed output at least 0.7065; 22b sound at most 1.049e-3
+# (mu), the dropped copies transpose at least 1.527 and the
+# per-position loss mean at least 0.4376.
+UNEVEN_HYMBA_LAYERS = 8
+UNEVEN_SERVE_MESH = (1, 3)
+UNEVEN_PREFILL = (2, 2048)
+UNEVEN_DECODE = (4, 1500)
+UNEVEN_DECODE_STEPS = 4
+UNEVEN_SERVE_FAULTS = ("summed",)
+UNEVEN_MAMBA_LAYERS = 12
+UNEVEN_TRAIN_MESH = (2, 3)
+UNEVEN_TRAIN = (6, 512, 2, 2)
+UNEVEN_TRAIN_FAULTS = ("copies", "mean")
+UNEVEN_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=40)
+UNEVEN_SEED = 43
+UNEVEN_SERVE_REL = 1e-2
+UNEVEN_TRAIN_REL = 1e-2
 TRANSPOSE_WIDTHS = (8, 16, 32)
 # the examples (phase 14): every examples_torch/ file at its reference's
 # sizes, with the kernels its path must launch on the card (K1 h2v, K2
@@ -1592,6 +1646,9 @@ def run(trace_path: str) -> dict:
     release_device_memory("21")
     phase("21")
     partition_close_phase(dev, record)
+    release_device_memory("22")
+    phase("22")
+    partition_uneven_phase(dev, record)
 
     # -- 11. the kernels line -----------------------------------------------
     phase("11")
@@ -7754,6 +7811,229 @@ def partition_close_phase(dev, record: dict) -> None:
           + ", ".join(f"{k} {out[k]['seconds']:.1f} s"
                       for k in ("21a", "21b", "21c")) + f"); {card}",
           flush=True)
+
+
+@contextlib.contextmanager
+def planted_uneven_fault(name: str, cfg):
+    """A planted fault in a partitioned step whose layouts do not divide
+    over ``model``: ``summed`` (the SSM mixer's whole output all-reduced
+    over ``model``, as if it were row-parallel partials), ``copies``
+    (the gathered conv channels' backward a reduce-scatter, though the
+    whole SSD after them runs at every ``model`` rank) or ``mean`` (each
+    data position's loss over its own mask count, averaged over the
+    positions, in place of the global sums' ratio)."""
+    from repro_torch.distributed import (partition, partition_ssm,
+                                         partition_train)
+    if name == "summed":
+        real_mixer = partition_ssm.mixer
+
+        def summed(prog, p, h, caches):
+            out, new = real_mixer(prog, p, h, caches)
+            return prog.model_sum(out), new
+
+        patches = [(partition_ssm, "mixer", summed)]
+    elif name == "copies":
+        real_gather = partition.all_gather
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+
+        def no_copies(pos, vals, axes, dim, copies=False):
+            if dim == 2 and vals[0].shape[-1] * pos.size(axes) == conv_dim:
+                copies = False
+            return real_gather(pos, vals, axes, dim, copies)
+
+        patches = [(partition, "all_gather", no_copies)]
+    else:
+        real_xent = partition_train._TrainProgram.xent
+        real_sum = partition.all_reduce
+
+        def xent(self, logits, ax, labels):
+            first = [True]
+
+            def own_count(pos, vals, axes):
+                if first[0] and tuple(axes) == tuple(self.bax):
+                    first[0] = False
+                    return [v * pos.size(axes) for v in vals]
+                return real_sum(pos, vals, axes)
+
+            partition.all_reduce = own_count
+            try:
+                return real_xent(self, logits, ax, labels)
+            finally:
+                partition.all_reduce = real_sum
+
+        patches = [(partition_train._TrainProgram, "xent", xent)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for mod, attr, fn in patches:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def uneven_serve_run(dev, seed: int, faults=UNEVEN_SERVE_FAULTS) -> tuple:
+    """22a: hymba-1.5b's prefill and decode over ``UNEVEN_SERVE_MESH``:
+    (``mesh_serving_steps``' run, cfg, where)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    cfg = get_config(SSM_HYMBA).replace(n_layers=UNEVEN_HYMBA_LAYERS)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    mesh, where = _split_mesh(UNEVEN_SERVE_MESH, ("data", "model"))
+    run = mesh_serving_steps(
+        dev, cfg, params, mesh, prefill=UNEVEN_PREFILL,
+        decode=UNEVEN_DECODE, steps=UNEVEN_DECODE_STEPS, seed=seed,
+        faults=faults, plant=lambda name: planted_uneven_fault(name, cfg))
+    return run, cfg, where
+
+
+def uneven_train_run(dev, seed: int, faults=UNEVEN_TRAIN_FAULTS) -> tuple:
+    """22b: mamba2-370m's train steps over ``UNEVEN_TRAIN_MESH`` on
+    batches whose microbatch rows do not divide over the data parts:
+    (``partition_train_steps``' run, cfg, where)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    rows, seq, n_mb, steps = UNEVEN_TRAIN
+    cfg = get_config(SSM_MAMBA).replace(
+        n_layers=UNEVEN_MAMBA_LAYERS, ssm_chunk=SSM_TRAIN_CHUNK,
+        param_dtype=SSM_TRAIN_DTYPE)
+    params = init_lm(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    batches = _partition_batches(cfg, dev, rows, seq, steps, seed)
+    mesh, where = _split_mesh(UNEVEN_TRAIN_MESH, ("data", "model"))
+    run = partition_train_steps(
+        dev, cfg, params, mesh, n_mb=n_mb, batches=batches,
+        opt_kw=UNEVEN_TRAIN_OPT, faults=faults,
+        plant=lambda name: planted_uneven_fault(name, cfg))
+    return run, cfg, where
+
+
+def partition_uneven_phase(dev, record: dict) -> None:
+    """Phase 22: layouts that do not divide, which the partitioned program
+    refused before, over ``cuda:0`` positions: 22a hymba-1.5b's prefill
+    and decode with its SSD, conv and attention whole at every model
+    rank, 22b mamba2-370m's train steps with the SSD whole and uneven
+    microbatch rows, each against the unpartitioned step with planted
+    faults.  Launches none of K1-K6."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partition import _attention_mode
+    from repro_torch.distributed.partition_ssm import conv_split, ssm_mode
+    from repro_torch.distributed.partition_train import shares
+    from repro_torch.kernels import build
+
+    card = record["card"]
+    out = record["partition_uneven"] = {}
+    t_phase = time.perf_counter()
+    build.reset_launches()
+
+    # -- 22a: hymba-1.5b over (1, 3), everything whole ----------------------
+    phase("22a")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run, cfg, where = uneven_serve_run(dev, UNEVEN_SEED)
+    tp = UNEVEN_SERVE_MESH[1]
+    layout = (f"SSD {ssm_mode(cfg, tp)}, conv "
+              f"{'split' if conv_split(cfg, tp) else 'whole'}, attention "
+              f"{_attention_mode(cfg, tp, cache=True)}")
+    check(layout == "SSD full, conv whole, attention full",
+          f"22a: hymba-1.5b over {UNEVEN_SERVE_MESH} takes {layout}")
+    check(run["finite"] and run["rel_max"] <= UNEVEN_SERVE_REL,
+          f"22a: the partitioned logits or cache shards are off the "
+          f"unpartitioned step's by {run['rel_max']:.4e} (tolerance "
+          f"{UNEVEN_SERVE_REL})")
+    for name, rel in run["faults"].items():
+        check(rel > UNEVEN_SERVE_REL, f"22a: the planted fault {name} reads "
+              f"{rel:.4e} of max|logit| at most, within the tolerance "
+              f"{UNEVEN_SERVE_REL}")
+    out["22a"] = {k: v for k, v in run.items()
+                  if k not in ("rel", "prefill_rel")}
+    out["22a"].update(devices=where, layout=layout,
+                      prefill_rel_max=float(run["prefill_rel"].max()),
+                      max_memory_allocated=torch.cuda.max_memory_allocated(),
+                      seconds=time.perf_counter() - t0)
+    print(f"[22a] {SSM_HYMBA} at its published width ({cfg.n_layers} of "
+          f"{get_config(SSM_HYMBA).n_layers} layers, bf16) over "
+          f"{UNEVEN_SERVE_MESH} ({where}; {layout}): prefill of "
+          f"{UNEVEN_PREFILL[0]} x {UNEVEN_PREFILL[1]} tokens (past the "
+          f"{cfg.sliding_window}-token window) off the unpartitioned step's "
+          f"by {out['22a']['prefill_rel_max']:.4e} of max|logit|; "
+          f"{UNEVEN_DECODE_STEPS} decode steps of {UNEVEN_DECODE[0]} rows "
+          f"from position {UNEVEN_DECODE[1]} by "
+          f"{max(float(r.max()) for r in run['rel']):.4e}, every cache "
+          f"shard by {run['cache_rel']:.4e} (tolerance {UNEVEN_SERVE_REL})"
+          + "".join(f"; fault {k} reads {v:.4e}"
+                    for k, v in run["faults"].items())
+          + f"; prefill {run['prefill_ms']:.1f} ms partitioned, "
+          f"{run['prefill_plain_ms']:.1f} ms unpartitioned; decode step "
+          f"median {float(np.median(run['ms'])):.1f} ms partitioned, "
+          f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned (host "
+          f"clock, synchronized); one decode step's collectives a position: "
+          f"{_kinds(run['ledger'])}; {card}", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 22b: mamba2-370m's train steps over (2, 3), uneven rows --------------
+    phase("22b")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run, cfg, where = uneven_train_run(dev, UNEVEN_SEED + 1)
+    rows, seq, n_mb, n_steps = UNEVEN_TRAIN
+    nd, tp = UNEVEN_TRAIN_MESH
+    took = shares(rows // n_mb, nd)
+    check(len(set(took)) > 1 and ssm_mode(cfg, tp) == "full"
+          and conv_split(cfg, tp),
+          f"22b: mamba2-370m over {UNEVEN_TRAIN_MESH} takes shares {took}, "
+          f"SSD {ssm_mode(cfg, tp)}")
+    check(run["finite"] and run["rel_max"] <= UNEVEN_TRAIN_REL,
+          f"22b: the partitioned train step is off the unpartitioned one by "
+          f"{run['rel_max']:.4e} (loss {run['loss_rel']}, grad_norm "
+          f"{run['grad_norm_rel']}, mu {run['mu_rel']}; tolerance "
+          f"{UNEVEN_TRAIN_REL})")
+    for name, rel in run["faults"].items():
+        check(rel > UNEVEN_TRAIN_REL, f"22b: the planted fault {name} reads "
+              f"{rel:.4e} of a leaf's max|mu| at most, within the tolerance "
+              f"{UNEVEN_TRAIN_REL}")
+    out["22b"] = dict(run, devices=where, shares=took,
+                      max_memory_allocated=torch.cuda.max_memory_allocated(),
+                      seconds=time.perf_counter() - t0)
+    print(f"[22b] {SSM_MAMBA} at its published width ({cfg.n_layers} of "
+          f"{get_config(SSM_MAMBA).n_layers} layers, {cfg.param_dtype} params "
+          f"and moments, SSD chunks of {cfg.ssm_chunk}; SSD full, conv "
+          f"split), {n_steps} train steps of {rows} x {seq} tokens in {n_mb} "
+          f"microbatches over {UNEVEN_TRAIN_MESH} ({where}; each "
+          f"microbatch's {rows // n_mb} rows taken {took} by the data parts) "
+          f"against the unpartitioned step: loss off by "
+          f"{max(run['loss_rel']):.4e}, grad_norm by "
+          f"{max(run['grad_norm_rel']):.4e} of their values, mu by "
+          f"{max(run['mu_rel']):.4e} of a leaf's max|value| (tolerance "
+          f"{UNEVEN_TRAIN_REL})"
+          + "".join(f"; fault {k} reads {v:.4e}"
+                    for k, v in run["faults"].items())
+          + f"; step {float(np.median(run['ms'])):.1f} ms partitioned, "
+          f"{float(np.median(run['plain_ms'])):.1f} ms unpartitioned (host "
+          f"clock, synchronized); first step's collectives a position: "
+          f"{_kinds(run['ledger'])}; {card}", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = dict(build.LAUNCHES)
+    check(not any(counts.values()), f"22: the partitioned steps with layouts "
+          f"that do not divide launched {counts}, none of K1-K6 expected")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[22] partitioned layouts that do not divide: launches {counts}; "
+          f"phase 22 took {out['seconds']:.1f} s (22a "
+          f"{out['22a']['seconds']:.1f} s, 22b {out['22b']['seconds']:.1f} "
+          f"s); {card}", flush=True)
 
 
 def _graphed_step(step, params, caches, dev):

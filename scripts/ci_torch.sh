@@ -1,8 +1,9 @@
 #!/usr/bin/env bash
 # CI gate of the PyTorch port (src/repro_torch), on the CPU: collection,
 # the port's parity tests, the ladder split over CPU positions (slow cases
-# included), the compiler gates, every example with --device cpu, and the
-# card's smoke where nvidia-smi finds a card.
+# included), the compiler gates, the coverage floor and the docs lint,
+# every example with --device cpu, and the card's smoke where nvidia-smi
+# finds a card.
 #
 # Run from the repo root:  bash scripts/ci_torch.sh
 #
@@ -40,6 +41,15 @@ python scripts/check_uprograms_torch.py
 
 echo "== μProgram compaction gate on the port (≤ activations, bit-exact) =="
 python scripts/check_compaction_torch.py
+
+echo "== core coverage floor on the port (src/repro_torch/core, settrace or pytest-cov) =="
+# exits non-zero when line coverage of the port's core modules over the
+# bounded core test selection drops below the ratcheting floor (see
+# scripts/check_coverage_torch.py); about 6 minutes here
+python scripts/check_coverage_torch.py
+
+echo "== docs lint on the port (README's port section, examples_torch/README.md) =="
+python scripts/check_docs_torch.py
 
 echo "== the port's examples on the CPU =="
 work="$(mktemp -d)"

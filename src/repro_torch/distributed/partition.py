@@ -68,7 +68,9 @@ new caches leave in the caller's ``out_shardings``.
   card), then the row-parallel ``down``.
 - the SSM mixer (``family="ssm"``, and beside attention in a hybrid
   block, whose two outputs add before the residual) is
-  :mod:`~repro_torch.distributed.partition_ssm`.
+  :mod:`~repro_torch.distributed.partition_ssm`: its SSD split by
+  heads, else by the head dim, else whole at every ``model`` rank, and
+  its conv channels split where they divide, else whole.
 - a sliding window masks every attention layout: prefill and train past
   the window take the reference's banded form, and decode writes the
   ring slot ``pos % window`` (:func:`ring_slot`) while RoPE reads the
@@ -127,12 +129,6 @@ weights over DATA, whose rows differ), and each position's own part of
 its cotangent where the computation after it is duplicated
 (``copies``).  Over the DATA axes every position's cotangents are
 partials (its rows).  In a no-grad step (serving) nothing of this runs.
-
-Not partitioned (``NotImplementedError``, ROADMAP Queue 4): SSD heads
-or conv channels that divide neither way over ``model``
-(:mod:`~repro_torch.distributed.partition_ssm`) and, in a train step,
-microbatch rows that do not divide over the DATA axes
-(:mod:`~repro_torch.distributed.partition_train`).
 """
 
 from __future__ import annotations
@@ -161,8 +157,6 @@ from . import sharding as shd
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-QUEUE = ("ROADMAP Queue 4: uneven microbatch rows, and SSD heads or conv "
-         "channels that divide neither way, are not partitioned")
 
 _LEDGERS: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collective_ledgers", default=())
@@ -355,29 +349,59 @@ def _collective(pos: Positions, vals: list, axes, fwd: Callable,
     return list(_Transposed.apply(pos, fwd, bwd, *vals))
 
 
-def _own(pos: Positions, vals: list, axes: Sequence[str], dim: int) -> list:
+def _part_sizes(pos: Positions, vals: list, axes: Sequence[str],
+                dim: int) -> Optional[List[int]]:
+    """The sizes along ``dim`` of the parts of a dim split over ``axes``
+    (each position's entry of ``vals`` its part), in part order, where
+    they differ (uneven microbatch rows); None where they are equal.  A
+    trace of one position stands its own size in for its peers'."""
+    sizes = [vals[0].shape[dim]] * pos.size(axes)
+    for k, v in zip(pos.ks, vals):
+        sizes[pos.part(k, axes)] = v.shape[dim]
+    return None if len(set(sizes)) == 1 else sizes
+
+
+def _cut(t: torch.Tensor, dim: int, n: int, i: int,
+         sizes: Optional[List[int]] = None) -> torch.Tensor:
+    """Part ``i`` of ``t`` cut along ``dim`` into ``n`` equal parts, or
+    into parts of ``sizes``."""
+    if sizes is None:
+        return t.chunk(n, dim)[i]
+    return t.narrow(dim, sum(sizes[:i]), sizes[i])
+
+
+def _own(pos: Positions, vals: list, axes: Sequence[str], dim: int,
+         sizes: Optional[List[int]] = None) -> list:
     """Each position's own part, cut along ``dim``, of a whole value."""
     n = pos.size(axes)
-    size = vals[0].shape[dim] // n
-    return [v.narrow(dim, pos.part(k, axes) * size, size)
+    return [_cut(v, dim, n, pos.part(k, axes), sizes)
             for k, v in zip(pos.ks, vals)]
 
 
 def all_gather(pos: Positions, vals: list, axes: Sequence[str],
                dim: int, copies: bool = False) -> list:
-    """Every position gets its group's parts concatenated along ``dim``
-    in part order.  Backward: the cotangents' reduce-scatter (each
+    """Every position gets its group's parts (of equal sizes, or of
+    uneven ones) concatenated along ``dim`` in part order.  Backward:
+    the cotangents' reduce-scatter into the parts' sizes (each
     position's a partial: the computation after the gather is split
     over ``axes``), or where ``copies`` (that computation is duplicated,
     every position's cotangent the whole one) each position's own part
     of its cotangent, which moves nothing."""
     axes = tuple(axes)
+    sizes = _part_sizes(pos, vals, axes, dim)
+
+    def backward(c):
+        if copies:
+            return _own(pos, c, axes, dim, sizes)
+        if sizes is None:
+            return reduce_scatter(pos, c, axes, dim)
+        return reduce_scatter(pos, c, axes, dim, sizes)
+
     return _collective(
         pos, vals, axes,
         lambda v: _exchange(pos, v, axes, "all-gather",
                             lambda parts, _: torch.cat(parts, dim)),
-        lambda c: _own(pos, c, axes, dim) if copies
-        else reduce_scatter(pos, c, axes, dim))
+        backward)
 
 
 def all_reduce(pos: Positions, vals: list, axes: Sequence[str]) -> list:
@@ -401,16 +425,17 @@ def all_max(pos: Positions, vals: list, axes: Sequence[str]) -> list:
 
 
 def reduce_scatter(pos: Positions, vals: list, axes: Sequence[str],
-                   dim: int) -> list:
-    """The group's rank-order sum, cut along ``dim``: part ``i`` to the
-    group's ``i``-th position.  Backward: the cotangents' all-gather."""
+                   dim: int, sizes: Optional[List[int]] = None) -> list:
+    """The group's rank-order sum, cut along ``dim`` (into equal parts,
+    or into parts of ``sizes``): part ``i`` to the group's ``i``-th
+    position.  Backward: the cotangents' all-gather."""
     axes = tuple(axes)
     n = pos.size(axes)
     return _collective(
         pos, vals, axes,
         lambda v: _exchange(pos, v, axes, "reduce-scatter",
-                            lambda parts, i: _sum(parts).chunk(n, dim)[i]
-                            .contiguous()),
+                            lambda parts, i: _cut(_sum(parts), dim, n, i,
+                                                  sizes).contiguous()),
         lambda c: all_gather(pos, c, axes, dim))
 
 
@@ -593,6 +618,9 @@ class _Program:
         self.M = "model" if "model" in mesh.axis_names else None
         self.tp = mesh.shape["model"] if self.M else 1
         self.bax: Tuple[str, ...] = ()
+        # the rows of the batch each part of bax holds, where a train
+        # step's microbatch splits unevenly (None: equal parts)
+        self.shares: Optional[List[int]] = None
         self.mode = "heads"
 
     # -- helpers ------------------------------------------------------------
@@ -1005,7 +1033,9 @@ class _Program:
         sums = all_reduce(pos, self.map(lambda pr, i: torch.stack([
             F.one_hot(i, n_e).to(torch.float32).sum((0, 1, 2)),
             pr.sum((0, 1))]), probs, topi), self.bax)
-        n_tok = h[0].shape[0] * h[0].shape[1] * pos.size(self.bax)
+        rows = sum(self.shares) if self.shares else \
+            h[0].shape[0] * pos.size(self.bax)
+        n_tok = rows * h[0].shape[1]
         return out, self.map(
             lambda s: n_e * torch.sum((s[0] / n_tok) * (s[1] / n_tok)), sums)
 
@@ -1464,9 +1494,8 @@ def partitioned_step(step, in_shardings: Sequence,
     sharding (prefill), a ``(logits, caches)`` pair (decode) or a
     ``(params, opt_state, metrics)`` triple (train).
 
-    Raises ``ValueError`` for any other function and
-    ``NotImplementedError`` for what this slice does not partition
-    (see the module docstring); it never falls back to gathering."""
+    Raises ``ValueError`` for any other function; it never falls back
+    to gathering."""
     if getattr(step, "__code__", None) is _TRAIN:
         from .partition_train import PartitionedTrainStep
         return PartitionedTrainStep(step, in_shardings, out_shardings)

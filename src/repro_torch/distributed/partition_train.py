@@ -14,7 +14,14 @@ own shards of the params, the optimizer state and the batch:
   over the DATA axes.  A position's rows of the batch are not its rows
   of those slices, so the batch is relayed once (:func:`relay`, one
   all-to-all over DATA) and microbatch ``i`` of each position is its
-  share of the reference's microbatch ``i``;
+  share of the reference's microbatch ``i``.  Where a microbatch's rows
+  do not divide over the data parts, the first ``rows % parts`` parts
+  take one row more (:func:`shares`; a part may take none, and still
+  joins every collective); where the batch's rows do not divide either,
+  ``batch_shardings`` leaves it whole or on fewer axes, and each
+  position takes its shares from it gathered whole.  A batch that does
+  not split into the microbatches raises ``ValueError``, as the
+  reference's reshape does;
 - **the forward** is the partitioned prefill's (``_Program``'s embed,
   norm, attention in its heads/qheads/hd modes with its sliding window,
   the SSM mixer of :mod:`~repro_torch.distributed.partition_ssm` beside
@@ -38,14 +45,19 @@ own shards of the params, the optimizer state and the batch:
   ``"dense"`` runs each rank's experts over its own rows
   (``partition._Program.moe_dense``), the gradient reaching the router
   through the combine weights and the aux, which is the global batch's
-  (its per-expert sums all-reduced over DATA) at every position;
+  (its per-expert sums all-reduced over DATA) at every position.  With
+  uneven rows ``"ep"`` dispatches the whole microbatch at every
+  position, as the reference's ``shard_map`` does where the rows do not
+  divide (the grouped path), and the gathered rows' reduce-scatter cuts
+  the parts' uneven sizes;
 - **the loss is vocab-parallel**: logits stay split over ``model``, each
   rank takes its log-sum-exp over its vocabulary slice, the ranks'
   values are all-gathered and combined in rank order, and the gold logit
   comes from the rank that holds it (a masked pick, then an all-reduce).
   Padded vocabulary entries get -1e30 on the rank that holds them; then
   the z-loss.  The mask count (``denom``) is all-reduced over DATA and
-  the loss is the sum over DATA of each position's share;
+  the loss is the sum over DATA of each position's share: the ratio of
+  global sums, whatever rows each position holds;
 - **the backward** runs through autograd, each collective's backward its
   explicit transpose (see ``partition``'s docstring).  Every position
   seeds its copy of the loss with 1; over DATA a position's cotangents
@@ -80,13 +92,11 @@ Layouts: the batch splits over every DATA axis, and every other axis of
 the mesh is ``model`` (tensor parallel) or also splits the batch
 (``param_shardings``' ``"dp"``/``"dp2"``, whose program has no tensor
 parallelism); a batch laid out otherwise (replicated, over some of the
-DATA axes, over ``model``) is relaid to the DATA axes on entry.
-Microbatch rows that do not divide over the DATA axes are not
-partitioned (``NotImplementedError``, ROADMAP Queue 4).  An encoder-decoder's
-memory enters each decoder block's cross-attention through
-``partition.enter`` over ``model``, so each block's partial cotangents
-are all-reduced there, and the encoder's weights take the decoder's FSDP
-gathers and their reduce-scatters.
+DATA axes, over ``model``) is relaid to the DATA axes on entry.  An
+encoder-decoder's memory enters each decoder block's cross-attention
+through ``partition.enter`` over ``model``, so each block's partial
+cotangents are all-reduced there, and the encoder's weights take the
+decoder's FSDP gathers and their reduce-scatters.
 """
 
 from __future__ import annotations
@@ -105,7 +115,7 @@ from ..models.transformer import _save_products
 from ..train import optimizer as opt
 from . import partition as part
 from . import sharding as shd
-from .partition import QUEUE, Dist, Positions, _axes, _spec
+from .partition import Dist, Positions, _axes, _spec
 
 
 def _leaves(tree) -> List[Dist]:
@@ -128,24 +138,49 @@ def summed_axes(prog: "_TrainProgram", spec) -> Tuple[str, ...]:
     return tuple(a for a in prog.bax if a not in held)
 
 
+def shares(rows: int, nd: int) -> List[int]:
+    """The rows of a microbatch of ``rows`` rows that each of ``nd``
+    data parts takes, in part order: the first ``rows % nd`` parts one
+    more than the others (a part may take none)."""
+    return [rows // nd + (d < rows % nd) for d in range(nd)]
+
+
+def _wanted(b: int, n_mb: int, nd: int, d: int) -> List[Tuple[int, int]]:
+    """(first row, rows) of data part ``d``'s share of each of the
+    reference's ``n_mb`` contiguous microbatches of a ``b``-row batch."""
+    c = b // n_mb
+    took = shares(c, nd)
+    return [(i * c + sum(took[:d]), took[d]) for i in range(n_mb)]
+
+
+def _take(parts: list, wanted: List[Tuple[int, int]]) -> torch.Tensor:
+    """The rows of the ranges ``wanted`` ((first row, rows) of the global
+    batch), in turn, from ``parts``: the batch cut into equal contiguous
+    blocks in order."""
+    s = parts[0].shape[0]
+    pieces = [parts[0][:0]]
+    for lo, n in wanted:
+        while n:
+            j, at = divmod(lo, s)
+            take = min(n, s - at)
+            pieces.append(parts[j].narrow(0, at, take))
+            lo, n = lo + take, n - take
+    return torch.cat(pieces)
+
+
 def relay(pos: Positions, vals: list, axes: Tuple[str, ...],
           n_mb: int) -> list:
     """Batch rows laid out over ``axes`` (each position a contiguous
-    block of the global batch), relayed so that rows
-    ``[i·c, (i+1)·c)`` of each position are its share of the reference's
-    microbatch ``i`` (``c`` rows a microbatch a position): one
-    all-to-all over ``axes``."""
+    block of the global batch), relayed so that each position holds its
+    share of each of the reference's microbatches in turn (the shares
+    of :func:`shares`, uneven where a microbatch's rows do not divide):
+    one all-to-all over ``axes``."""
     nd = pos.size(axes)
-    if n_mb == 1 or nd == 1:
+    b = vals[0].shape[0] * nd
+    if nd == 1 or n_mb == 1:
         return list(vals)
-
-    def combine(parts, d):
-        c = parts[0].shape[0] // n_mb
-        chunks = [i * nd + d for i in range(n_mb)]
-        return torch.cat([parts[g // n_mb].narrow(0, (g % n_mb) * c, c)
-                          for g in chunks])
-
-    return part._exchange(pos, vals, axes, "all-to-all", combine)
+    return part._exchange(pos, vals, axes, "all-to-all", lambda parts, d:
+                          _take(parts, _wanted(b, n_mb, nd, d)))
 
 
 def _batch_axes(mesh, tokens: Dist) -> Tuple[str, ...]:
@@ -287,8 +322,10 @@ class _TrainProgram(part._Program):
         n_e = p["router"].shape[1]
         top_k = cfg.experts_per_token
         split = self.splits(n_e)
+        # the reference's shard_map dispatches the whole microbatch at
+        # every position where its rows do not divide over DATA
         ep = cfg.moe_impl == "ep" and "model" in mesh.axis_names and \
-            n_e % mesh.shape["model"] == 0
+            n_e % mesh.shape["model"] == 0 and self.shares is None
         if ep and self.bax != shd.data_axes(mesh):
             return self.moe_ep_relaid(p, h)
         gather = bool(self.bax) and not ep
@@ -320,9 +357,9 @@ class _TrainProgram(part._Program):
             out = self.model_sum(out)
         out = self.map(lambda o: o.reshape(b, l, d), out)
         if gather:
-            n = b // pos.size(self.bax)
-            out = [o.narrow(0, pos.part(k, self.bax) * n, n)
-                   for k, o in zip(pos.ks, out)]
+            took = self.shares or shares(b, pos.size(self.bax))
+            out = [o.narrow(0, sum(took[:d]), took[d]) for o, d in zip(
+                out, (pos.part(k, self.bax) for k in pos.ks))]
         aux = self.map(lambda pr, ti: moe.load_balance_aux(pr, ti, n_e),
                        probs, topi)
         return out, aux
@@ -472,13 +509,22 @@ def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict,
     prog = _TrainProgram(cfg, pos, bax, remat)
     nd = pos.size(bax)
     b = batch["tokens"].shape[0]
-    if b % n_mb or (b // n_mb) % nd:
-        raise NotImplementedError(
-            f"a batch of {b} rows in {n_mb} microbatches over {bax} "
-            f"({nd} parts) ({QUEUE})")
-    rows = {name: relay(pos, part.relayout(pos, d, bax), bax, n_mb)
-            for name, d in batch.items()}
-    c = b // (n_mb * nd)
+    if b % n_mb:
+        raise ValueError(f"a batch of {b} rows does not split into "
+                         f"{n_mb} microbatches")
+    if b % nd:
+        # batch_shardings left the batch whole or on fewer axes: each
+        # position takes its shares from it gathered whole
+        rows = {name: [_take([v], _wanted(b, n_mb, nd, pos.part(k, bax)))
+                       for k, v in zip(pos.ks, part.relayout(pos, d, None))]
+                for name, d in batch.items()}
+    else:
+        rows = {name: relay(pos, part.relayout(pos, d, bax), bax, n_mb)
+                for name, d in batch.items()}
+    took = shares(b // n_mb, nd)
+    if len(set(took)) > 1:
+        prog.shares = took
+    took = [took[pos.part(k, bax)] for k in pos.ks]
 
     live = tree_map(lambda d: Dist(d.shape, d.spec, [
         v.detach().requires_grad_() for v in d.vals]), params)
@@ -486,7 +532,7 @@ def _step(pos: Positions, cfg, ocfg, n_mb: int, remat: str, dists: dict,
     inputs = [v for d in leaves for v in d.vals]
     acc, losses, auxes = None, [], []
     for i in range(n_mb):
-        mb = {name: [v.narrow(0, i * c, c) for v in vals]
+        mb = {name: [v.narrow(0, i * c, c) for v, c in zip(vals, took)]
               for name, vals in rows.items()}
         used = tree_map(lambda d: Dist(d.shape, d.spec, part.enter(
             pos, d.vals, summed_axes(prog, d.spec))), live)

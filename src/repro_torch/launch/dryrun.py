@@ -41,15 +41,13 @@ extrapolate, because XLA counts a scan body once) is not needed:
 ``depth_calibrated`` is False, ``flops_per_device_raw`` equals
 ``flops_per_device`` and ``collective_bytes_raw`` ``collective_bytes``.
 ``flops_per_device`` stays the unpartitioned step's count over the
-devices.  The encoder-decoder's cells, the serving levers
-(``--quantize``, ``--kvint8``, ``--kvpad``) and a config with
-``moe_impl="dense"`` are partitioned and filled like any other; only a
-config the partitioned program refuses (SSD heads or conv channels that
-divide neither way over ``model``, or a train cell's microbatch rows
-that do not divide over the data axes) keeps None in the four fields,
-with the reason under ``not_measured``.  In a train cell under ``remat="dots"`` the
-recompute's all-gathers count again, as XLA's re-gathers of the FSDP
-backward do.
+devices.  Every cell the unpartitioned step traces is partitioned and
+filled: the encoder-decoder's, the serving levers (``--quantize``,
+``--kvint8``, ``--kvpad``), ``moe_impl="dense"``, SSD heads or conv
+channels that divide neither way over ``model`` (computed whole at each
+``model`` rank) and a train cell's uneven microbatch rows.  In a train
+cell under ``remat="dots"`` the recompute's all-gathers count again, as
+XLA's re-gathers of the FSDP backward do.
 """
 
 from __future__ import annotations
@@ -83,8 +81,6 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                        "dryrun_torch")
 META = torch.device("meta")
 
-PARTITIONED_FIELDS = ("bytes_per_device", "collective_bytes", "temp_bytes",
-                      "peak_bytes")
 NOT_MEASURED = {
     "depth_calibrated": "not needed: every layer of the Python loop is "
                         "counted",
@@ -210,7 +206,6 @@ class Lowered:
     args: List[Tuple[Any, Any]]
     outs: List[Tuple[Any, Any]]
     partitioned: Optional[Dict] = None
-    reason: str = ""
 
 
 def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
@@ -268,25 +263,21 @@ def _lower_one(cfg, shape, mesh, remat, n_microbatches, unroll=False,
                     (params_s, caches_s, ins["token"], ins["pos"]),
                     {} if mem is None else {"memory": mem})
     lowered = Lowered(counter.get_total_flops(), args, outs)
-    lowered.partitioned, lowered.reason = _trace_position(fn, *part)
+    lowered.partitioned = _trace_position(fn, *part)
     return lowered, time.time() - t0
 
 
-def _trace_position(fn, in_sh, out_sh, args, kwargs):
-    """Mesh position 0's partitioned program traced on meta: (its
-    collective bytes, bytes accessed and peak live bytes, "") or (None,
-    why it is not partitioned)."""
-    try:
-        step = partitioned_step(fn, in_sh, out_sh)
-        local = step.local_arguments(*args, **kwargs)
-        leaves = [t for d in pytree.tree_leaves(
-            local, is_leaf=lambda x: isinstance(x, Dist)) for t in d.vals]
-        with CollectiveLedger() as ledger, DeviceBytes(leaves) as counter:
-            step.run_position(local)
-    except NotImplementedError as e:
-        return None, str(e)
+def _trace_position(fn, in_sh, out_sh, args, kwargs) -> Dict:
+    """Mesh position 0's partitioned program traced on meta: its
+    collective bytes, bytes accessed and peak live bytes."""
+    step = partitioned_step(fn, in_sh, out_sh)
+    local = step.local_arguments(*args, **kwargs)
+    leaves = [t for d in pytree.tree_leaves(
+        local, is_leaf=lambda x: isinstance(x, Dist)) for t in d.vals]
+    with CollectiveLedger() as ledger, DeviceBytes(leaves) as counter:
+        step.run_position(local)
     return {"colls": ledger.totals(), "bytes": counter.accessed,
-            "peak": counter.peak}, ""
+            "peak": counter.peak}
 
 
 def _measure(lowered: Lowered, n_devices: int) -> Dict:
@@ -297,14 +288,13 @@ def _measure(lowered: Lowered, n_devices: int) -> Dict:
     part = lowered.partitioned
     return {
         "flops": lowered.flops / n_devices,
-        "bytes": None if part is None else float(part["bytes"]),
-        "colls": None if part is None else part["colls"],
+        "bytes": float(part["bytes"]),
+        "colls": part["colls"],
         "memory": {
             "argument_bytes": args,
             "output_bytes": outs,
-            "temp_bytes": None if part is None else
-            part["peak"] - args - outs,
-            "peak_bytes": None if part is None else part["peak"],
+            "temp_bytes": part["peak"] - args - outs,
+            "peak_bytes": part["peak"],
         },
     }
 
@@ -352,9 +342,7 @@ def lower_cell(
         "tokens": shape.global_batch * (1 if shape.is_decode else shape.seq_len),
         "kind": shape.kind,
         "skipped": False,
-        "not_measured": {**NOT_MEASURED, **(
-            {} if lowered.partitioned is not None else
-            dict.fromkeys(PARTITIONED_FIELDS, lowered.reason))},
+        "not_measured": dict(NOT_MEASURED),
     }
 
 

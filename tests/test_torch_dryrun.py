@@ -13,9 +13,9 @@
   the reference's specs, ``bytes_per_device`` at least the argument
   bytes, argument and output bytes within ``peak_bytes``, ``temp_bytes``
   the peak less both.  ``DeviceBytes`` on a program of known sizes
-  reads its exact bytes and peak; a refused config's cell (SSD heads
-  that divide neither way over 16 model ranks) keeps None with its
-  reason.
+  reads its exact bytes and peak; a cell whose SSD heads divide
+  neither way over 16 model ranks fills the four fields, its
+  collective bytes ``==`` the closed form.
 - The smoke granite-moe-1b-a400m x decode_32k cell with
   ``moe_impl="dense"``: its collective bytes ``==`` the closed form.
 - The smoke yi-6b x train_4k cell, counted from position 0's partitioned
@@ -205,22 +205,37 @@ def test_device_bytes_of_a_known_program():
     ("mamba2-370m", "decode_32k", {"ssm_expand": 3, "ssm_head_dim": 24},
      "8 SSD heads of 24 over 16 model ranks: neither divides")])
 def test_cells_not_partitioned_say_why(arch, shape_name, replace, why):
-    """A cell of a config the partitioned program refuses (smoke
+    """A cell of a config the partitioned program once refused (smoke
     mamba2-370m with a ``d_inner`` of 192 in 8 SSD heads of 24, neither
-    of which divides 16 model ranks) keeps None in the four fields,
-    each with its reason."""
-    res = lower_cell(arch, shape_name,
-                     cfg_override=smoke_config(arch).replace(**replace))
-    assert res["bytes_per_device"] is None
-    assert res["collective_bytes"] is None
-    assert res["collective_bytes_raw"] is None
-    assert res["memory"]["temp_bytes"] is None
-    assert res["memory"]["peak_bytes"] is None
-    assert res["memory"]["argument_bytes"] > 0
-    for key in ("bytes_per_device", "collective_bytes", "temp_bytes",
-                "peak_bytes"):
-        assert why in res["not_measured"][key]
-    assert "ROADMAP Queue 4" in res["not_measured"]["peak_bytes"]
+    of which divides 16 model ranks) fills all four fields: every
+    ``model`` rank computes the whole SSD of its rows, so each SSM
+    layer's all-gather bytes ``==`` :func:`_ssm_gathers`' closed form
+    (``in_proj_z`` and ``out_proj`` gathered whole over ``data``, then
+    ``model``; ``in_proj_xbc`` and ``in_proj_dt`` over ``data``; the 208
+    conv channels, which do divide, gathered over ``model``), and the
+    only all-reduce is the embedding's lookup (bf16): the SSD's norm
+    and output need none."""
+    from repro_torch.distributed.partition_ssm import conv_split, ssm_mode
+    cfg = smoke_config(arch).replace(**replace)
+    res = lower_cell(arch, shape_name, cfg_override=cfg)
+    n_data, tp, layers, d = 16, 16, cfg.n_layers, cfg.d_model
+    assert why.startswith(f"{cfg.ssm_heads} SSD heads of "
+                          f"{cfg.ssm_head_dim}")
+    assert ssm_mode(cfg, tp) == "full" and conv_split(cfg, tp)
+    rows = SHAPES_BY_NAME[shape_name].global_batch // n_data
+    gathers = layers * _ssm_gathers(cfg, rows, tp)
+    reduces = 2 * rows * d * 2
+    assert (gathers, reduces) == (116_480, 2_048)
+    assert res["collective_bytes"] == {
+        "all-gather": gathers, "all-reduce": reduces, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 0, "total": gathers + reduces}
+    assert res["collective_bytes_raw"] == res["collective_bytes"]
+    mem = res["memory"]
+    assert res["bytes_per_device"] >= mem["argument_bytes"] > 0
+    assert mem["argument_bytes"] + mem["output_bytes"] <= mem["peak_bytes"]
+    assert mem["temp_bytes"] == (mem["peak_bytes"] - mem["argument_bytes"]
+                                 - mem["output_bytes"]) > 0
+    assert set(res["not_measured"]) == {"depth_calibrated"}
 
 
 def test_smoke_dense_moe_cell_equals_closed_form():
@@ -408,7 +423,8 @@ def test_smoke_train_cell_gathers_equal_closed_form():
 def _ssm_gathers(cfg, rows: int, tp: int) -> int:
     """All-gather bytes of one SSM mixer in a decode step whose SSD
     splits its head dim ``P`` (the smoke configs' 8 heads over 16 model
-    ranks): ``in_proj_z`` and ``out_proj`` gathered whole (over
+    ranks) or is whole at every ``model`` rank, and whose conv channels
+    split: ``in_proj_z`` and ``out_proj`` gathered whole (over
     ``data``, then ``model``), ``in_proj_xbc`` and ``in_proj_dt`` over
     ``data``, and the convolved channels of ``rows`` rows over
     ``model``; bf16."""

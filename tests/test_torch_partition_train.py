@@ -36,8 +36,8 @@ step's.  Also: the PuM MLP's integer stage ``==`` on each shard, each
 position's FLOPs at most 1.25 x the unpartitioned step's share, no
 argument gathered, the backward's collectives charged by the ring
 accounting, three planted faults read above 1e-5, other archs and the
-``"dp"``/``"dp2"`` layouts against the unpartitioned step, and what is
-not partitioned (uneven microbatch rows) raises.
+``"dp"``/``"dp2"`` layouts against the unpartitioned step, and what the
+step once refused (uneven microbatch rows among it) runs on ``meta``.
 """
 
 import json
@@ -708,12 +708,14 @@ def test_local_microbatches_read_above_tolerance(ref, monkeypatch):
 # -- what the train step does not partition -------------------------------------------
 
 def test_train_refusals():
-    """Uneven microbatch rows still raise (ROADMAP Queue 4).  A
-    ``grad_transform``, ``moe_impl="dense"``, an encoder-decoder and a
-    replicated batch partition: position 0's step runs on ``meta``
-    (their parity with the reference: ``test_torch_partition_transform
-    .py``, ``test_torch_partition_dense.py`` and
-    ``test_torch_partition_encdec.py``)."""
+    """What the train step once refused partitions: a
+    ``grad_transform``, ``moe_impl="dense"``, an encoder-decoder, a
+    replicated batch and a batch of 6 rows in 2 microbatches over 2 data
+    parts (3 rows a microbatch: uneven shares): position 0's step runs
+    on ``meta`` (their parity with the reference:
+    ``test_torch_partition_transform.py``,
+    ``test_torch_partition_dense.py``, ``test_torch_partition_encdec.py``
+    and ``test_torch_partition_uneven.py``)."""
     mesh = cpu_mesh((2, 2))
     cfg = smoke_config("yi-6b")
     params = init_lm(cfg, device="meta")
@@ -766,5 +768,6 @@ def test_train_refusals():
     uneven = {k: torch.empty((6, 16), dtype=torch.int32, device="meta")
               for k in batch}
     step = partition.partitioned_step(_step(cfg, 2), sh, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 4"):
-        step.run_position(step.local_arguments(params, state, uneven))
+    _, _, metrics = step.run_position(step.local_arguments(params, state,
+                                                           uneven))
+    assert metrics["loss"].device.type == "meta"
